@@ -1,10 +1,12 @@
 """fennec_tpu_torch — the PyTorch/CUDA port of fennec-tpu, for NVIDIA Hopper.
 
 It sits beside the JAX package (fennec_tpu), which stays the reference,
-and imports neither jax nor fennec_tpu.  This slice ports the
-single-image main path: decode, orient, resize, the SSIM-guided JPEG
-quality search (windowed SSIM in the CUDA kernel csrc/ssim_window.cu) and
-the host C++ Huffman encode, plus the PNG optimizer.
+and imports neither jax nor fennec_tpu.  Ported so far: the single-image
+path (decode of baseline, multi-scan and progressive JPEG and of PNG,
+orient, resize, the SSIM-guided JPEG quality search with windowed SSIM in
+the CUDA kernel csrc/ssim_window.cu, the host C++ Huffman encode, the PNG
+optimizer), the batch engines behind compress_images and compress_batch,
+analyze, and the CLI (python -m fennec_tpu_torch).
 
 Every entry point takes `device`; None means "cuda", and a missing card
 raises (device.py).  Quick start::
@@ -14,16 +16,30 @@ raises (device.py).  Quick start::
     result = fennec.compress_file(None, "in.jpg", "out.jpg",
                                   fennec.Options(quality=fennec.BALANCED),
                                   device="cuda")
+    results = fennec.compress_batch(
+        None, [fennec.BatchItem(src, dst) for src, dst in pairs],
+        fennec.BatchOptions(default_opts=fennec.Options(format=fennec.JPEG)),
+        device="cuda")
 """
 
+from .analyze import ImageStats, analyze  # noqa: F401
 from .api import (  # noqa: F401
     compress,
     compress_bytes,
     compress_file,
     compress_image,
+    compress_images,
+)
+from .batch import (  # noqa: F401
+    BatchItem,
+    BatchOptions,
+    BatchResult,
+    BatchSummary,
+    compress_batch,
+    summarize,
 )
 from .exif import Orientation, apply_orientation, read_orientation  # noqa
-from .io import encode_to_bytes, open_with_orientation  # noqa: F401
+from .io import encode_to_bytes, open_image, open_with_orientation  # noqa
 from .types import (  # noqa: F401
     AGGRESSIVE,
     AUTO,

@@ -77,3 +77,17 @@ def compress_bytes(ctx: Optional[Context], data: bytes,
     """bytes → compressed bytes; the common server-side API
     (reference fennec.go:102-104)."""
     return compress(ctx, data, opts, device)
+
+
+def compress_images(ctx: Optional[Context], images,
+                    opts: Optional[Options] = None, workers: int = 0,
+                    device: _device.DeviceLike = None) -> list:
+    """Compress many decoded images with shared options, device-batched
+    (fennec_tpu/api.py:76; the reference's CompressBatch works on files).
+    Same-shape images share lockstep chunks; results keep input order.
+    workers sizes the host encode pool (0 = auto)."""
+    from .engine.batched import compress_images_batched
+
+    opts = opts if opts is not None else Options()
+    return compress_images_batched(ctx, list(images), opts,
+                                   workers=workers, device=device)

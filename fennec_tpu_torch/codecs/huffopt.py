@@ -1,10 +1,10 @@
 """Per-image optimal Huffman table construction (ITU T.81 Annex K.2).
 
-The K.2 builder of fennec_tpu/codecs/huffopt.py, copied jax-free.  The
-JAX package builds batches of specs in C++ and keeps this Python loop as
-the parity oracle; the single-image path here runs the loop itself (one
-image, four tables, about 2 ms on the host), so the native façade needs
-no extra entry point.
+The K.2 builder of fennec_tpu/codecs/huffopt.py, copied jax-free.  As in
+the JAX package, the tables are built by the C++ builder
+(native.jpeg_build_optimal_specs, which releases the GIL: the batch
+engines encode on a thread pool), and this Python merge loop stays as the
+parity oracle the tests hold it to.
 """
 
 from __future__ import annotations
@@ -93,7 +93,14 @@ def optimal_spec(freq: np.ndarray) -> Tuple[List[int], List[int]]:
 def specs_from_frequencies(dc_freq: np.ndarray, ac_freq: np.ndarray):
     """Build (dc_specs, ac_specs) lists for classes [luma, chroma] from
     (2, 16) and (2, 256) frequency arrays; classes with no symbols get a
-    minimal valid table."""
+    minimal valid table.  The C++ builder does the work."""
+    from .. import native
+
+    return native.jpeg_build_optimal_specs(dc_freq, ac_freq)
+
+
+def specs_from_frequencies_py(dc_freq: np.ndarray, ac_freq: np.ndarray):
+    """The Python merge loop: specs_from_frequencies's parity oracle."""
     dc_specs, ac_specs = [], []
     for cls in range(2):
         dfi = dc_freq[cls].copy()

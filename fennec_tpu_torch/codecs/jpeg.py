@@ -7,10 +7,9 @@ Counterpart of fennec_tpu/codecs/jpeg.py.
   decode: host marker parse + C++ Huffman decode → quantized coefficients →
           device [dequantize → IDCT → chroma upsample → YCbCr→RGB → clamp].
 
-Decode covers baseline sequential frames in one interleaved scan: gray,
-YCbCr, Adobe RGB, CMYK and YCCK.  Progressive and multi-scan files raise
-UnsupportedFormatError; the JAX package decodes them, and their port is a
-later slice.
+Decode covers gray, YCbCr, Adobe RGB, CMYK and YCCK frames: baseline
+sequential in one interleaved scan or in several scans (one component
+each, T.81 A.2.2), and progressive (codecs/progressive.py).
 """
 
 from __future__ import annotations
@@ -37,9 +36,6 @@ from .tables import (
     DC_LUMA_BITS,
     DC_LUMA_VALS,
 )
-
-LATER_SLICE = ("the PyTorch port decodes baseline single-scan JPEG only; "
-               "progressive and multi-scan decode are a later slice")
 
 # ── Device transforms ───────────────────────────────────────────────────────
 
@@ -173,13 +169,23 @@ def encode_jpeg_from_coefs(coefs, w: int, h: int, quality: int,
     """Quantize precomputed DCT coefficients at `quality` on their device
     and entropy-code them on the host.  optimize=True builds per-image
     optimal Huffman tables (two host passes; ~3-8% smaller files)."""
-    from .huffopt import specs_from_frequencies
-
     quality = min(100, max(1, int(quality)))
     qtables = dct_ops.all_quality_tables()[quality]
     qt = torch.from_numpy(np.array(qtables)).to(coefs[0].device)
     qy, qcb, qcr = (q.to(torch.int32).cpu().numpy()
                     for q in quantize_coefs(coefs, qt))
+    return encode_quantized(qy, qcb, qcr, w, h, quality, subsample,
+                            optimize)
+
+
+def encode_quantized(qy: np.ndarray, qcb: np.ndarray, qcr: np.ndarray,
+                     w: int, h: int, quality: int, subsample: bool,
+                     optimize: bool = False) -> bytes:
+    """Entropy-code blocks already quantized at `quality` (natural order,
+    raster, MCU-padded grids) on the host and wrap the container."""
+    from .huffopt import specs_from_frequencies
+
+    qtables = dct_ops.all_quality_tables()[quality]
     mult = 16 if subsample else 8
     ph, pw = h + (-h) % mult, w + (-w) % mult
     comps = _build_comps(qy, qcb, qcr, ph, pw, subsample)
@@ -259,8 +265,10 @@ def parse_jpeg(data: bytes) -> JpegHeader:
         elif marker in (0xC0, 0xC1):  # SOF0 / SOF1 (baseline)
             _parse_sof(seg, hdr)
         elif marker == 0xC2:
+            # Progressive: codecs/progressive.py (decode_jpeg dispatches
+            # there before calling parse_jpeg).
             raise UnsupportedFormatError(
-                f"fennec: progressive JPEG: {LATER_SLICE}")
+                "fennec: progressive JPEG requires the progressive decoder")
         elif marker in (0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB,
                         0xCD, 0xCE, 0xCF):
             raise UnsupportedFormatError(
@@ -363,19 +371,127 @@ def _build_decode_specs(hdr: JpegHeader):
 
 
 def decode_jpeg_to_coefs(data: bytes):
-    """Decode a baseline single-scan JPEG to quantized coefficients.
+    """Decode a baseline JPEG to quantized coefficients.
 
     Returns (hdr, coefs): coefs[i] is an (nblocks, 64) int16 array in
-    natural order for scan component i; block grids tile the MCU lattice.
+    natural order for component i of the frame; block grids tile the MCU
+    lattice.  Handles the common single interleaved scan and multi-scan
+    files (one scan per component, as Go's stdlib also decodes), both
+    through the C++ scan decoder.
     """
     hdr = parse_jpeg(data)
+    mcus_x, mcus_y, hmax, vmax, specs = _build_decode_specs(hdr)
     if len(hdr.scan_comps) != hdr.ncomp:
-        raise UnsupportedFormatError(f"fennec: multi-scan JPEG: "
-                                     f"{LATER_SLICE}")
-    _, _, _, _, specs = _build_decode_specs(hdr)
-    coefs = native.jpeg_decode_scan(data, hdr.scan_offset, specs,
-                                    hdr.restart_interval)
+        return _decode_multiscan_to_coefs(data, hdr, mcus_x, mcus_y,
+                                          hmax, vmax)
+    coefs, _ = native.jpeg_decode_scan(data, hdr.scan_offset, specs,
+                                       hdr.restart_interval)
     return hdr, coefs
+
+
+def _decode_multiscan_to_coefs(data: bytes, hdr: JpegHeader,
+                               mcus_x: int, mcus_y: int,
+                               hmax: int, vmax: int):
+    """Baseline multi-scan decode: one (or a subset of) component(s) per
+    SOS.  Non-interleaved scans cover only the component's own
+    ceil(dim/8) block grid (T.81 A.2.2); results land in the MCU-padded
+    grids the device reconstruction expects."""
+    out = []
+    for c in hdr.comps:
+        bw, bh = mcus_x * c["h"], mcus_y * c["v"]
+        out.append(np.zeros((bw * bh, 64), dtype=np.int16))
+
+    pos = hdr.scan_offset
+    scan_comps = hdr.scan_comps
+    while True:
+        if len(scan_comps) == 1:
+            sc = scan_comps[0]
+            c = hdr.comps[sc["comp"]]
+            comp_w = -(-hdr.width * c["h"] // hmax)
+            comp_h = -(-hdr.height * c["v"] // vmax)
+            nbw, nbh = -(-comp_w // 8), -(-comp_h // 8)
+            spec = DecodeComponentSpec(nbw, nbh, 1, 1,
+                                       hdr.dc_tables[sc["td"]],
+                                       hdr.ac_tables[sc["ta"]])
+            blocks, pos = native.jpeg_decode_scan(
+                data, pos, [spec], hdr.restart_interval)
+            # Copy the component grid rows into the MCU-padded grid.
+            bw = mcus_x * c["h"]
+            dst = out[sc["comp"]].reshape(-1, 64)
+            src = blocks[0]
+            for by in range(nbh):
+                dst[by * bw:by * bw + nbw] = src[by * nbw:(by + 1) * nbw]
+        else:
+            specs = []
+            for sc in scan_comps:
+                c = hdr.comps[sc["comp"]]
+                specs.append(DecodeComponentSpec(
+                    mcus_x * c["h"], mcus_y * c["v"], c["h"], c["v"],
+                    hdr.dc_tables[sc["td"]], hdr.ac_tables[sc["ta"]]))
+            blocks, pos = native.jpeg_decode_scan(
+                data, pos, specs, hdr.restart_interval)
+            for sc, blk in zip(scan_comps, blocks):
+                out[sc["comp"]][:] = blk
+
+        # Advance to the next SOS (tables may appear between scans).
+        scan_comps = None
+        while pos + 4 <= len(data):
+            if data[pos] != 0xFF or data[pos + 1] == 0x00:
+                pos += 1
+                continue
+            marker = data[pos + 1]
+            if 0xD0 <= marker <= 0xD7:
+                pos += 2
+                continue
+            if marker == 0xD9:
+                break
+            seg_len = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+            seg = data[pos + 4:pos + 2 + seg_len]
+            if marker == 0xC4:
+                _parse_dht(seg, hdr)
+            elif marker == 0xDB:
+                _parse_dqt(seg, hdr)
+            elif marker == 0xDD:
+                hdr.restart_interval = struct.unpack(">H", seg[:2])[0]
+            elif marker == 0xDA:
+                hdr.scan_comps = []
+                _parse_sos(seg, hdr)
+                scan_comps = hdr.scan_comps
+                pos = pos + 2 + seg_len
+                break
+            pos += 2 + seg_len
+        if scan_comps is None:
+            break
+    # Downstream consumers iterate hdr.scan_comps zipped with coefs;
+    # normalize to frame order covering every component.
+    hdr.scan_comps = [{"comp": i, "td": 0, "ta": 0}
+                      for i in range(hdr.ncomp)]
+    return hdr, out
+
+
+def is_progressive_jpeg(data: bytes) -> bool:
+    """True when the stream's frame header is SOF2 (progressive DCT)."""
+    if len(data) < 4 or data[:2] != b"\xFF\xD8":
+        return False
+    pos = 2
+    while pos + 4 <= len(data):
+        if data[pos] != 0xFF:
+            pos += 1
+            continue
+        marker = data[pos + 1]
+        if marker == 0xFF:
+            pos += 1
+            continue
+        if marker in (0x01,) or 0xD0 <= marker <= 0xD9:
+            pos += 2
+            continue
+        if marker == 0xC2:
+            return True
+        if marker in (0xC0, 0xC1, 0xDA):
+            return False
+        seg_len = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        pos += 2 + seg_len
+    return False
 
 
 def jpeg_color_mode(hdr: JpegHeader) -> str:
@@ -408,28 +524,49 @@ def jpeg_color_mode(hdr: JpegHeader) -> str:
 
 def decode_jpeg(data: bytes,
                 device: _device.DeviceLike = None) -> np.ndarray:
-    """Decode a baseline single-scan JPEG to (H, W, 4) uint8 NRGBA, the
-    transforms on `device`.  Handles grayscale, YCbCr, Adobe RGB and
+    """Decode a baseline or progressive JPEG to (H, W, 4) uint8 NRGBA,
+    the transforms on `device`.  Handles grayscale, YCbCr, Adobe RGB and
     4-component Adobe CMYK/YCCK frames."""
     dev = _device.resolve(device)
+    if is_progressive_jpeg(data):
+        return _decode_progressive(data, dev)
     hdr, coefs = decode_jpeg_to_coefs(data)
-    mode = jpeg_color_mode(hdr)
     hmax = max(c["h"] for c in hdr.comps)
     vmax = max(c["v"] for c in hdr.comps)
     mcus_x = -(-hdr.width // (8 * hmax))
     mcus_y = -(-hdr.height // (8 * vmax))
-
-    planes = []
-    for i, sc in enumerate(hdr.scan_comps):
+    comps = []
+    for sc in hdr.scan_comps:
         c = hdr.comps[sc["comp"]]
-        if c["tq"] not in hdr.qtables:
+        comps.append(dict(c, bw=mcus_x * c["h"], bh=mcus_y * c["v"]))
+    return _reconstruct(comps, hdr.qtables, coefs, hmax, vmax, hdr,
+                        dev)
+
+
+def _decode_progressive(data: bytes, dev: torch.device) -> np.ndarray:
+    from .progressive import decode_progressive_to_coefs
+
+    dec, coefs = decode_progressive_to_coefs(data)
+    return _reconstruct(dec.comps, dec.qtables, coefs, dec.hmax, dec.vmax,
+                        dec, dev)
+
+
+def _reconstruct(comps, qtables, coefs, hmax: int, vmax: int, frame,
+                 dev: torch.device) -> np.ndarray:
+    """Quantized coefficients of every component (dicts with h, v, tq,
+    bw, bh) → (H, W, 4) uint8 on the host, the transforms on `dev`.
+    `frame` carries the dimensions and colour markers (a JpegHeader or a
+    ProgressiveDecoder)."""
+    planes = []
+    for c, q in zip(comps, coefs):
+        if c["tq"] not in qtables:
             raise ValueError("fennec: corrupt JPEG: missing DQT")
-        bw, bh = mcus_x * c["h"], mcus_y * c["v"]
-        qt = torch.from_numpy(hdr.qtables[c["tq"]]).to(dev)
-        q = torch.from_numpy(coefs[i]).to(dev).to(torch.float32)
-        planes.append(_decode_plane(q, qt, bh * 8, bw * 8,
+        qt = torch.from_numpy(qtables[c["tq"]]).to(dev)
+        qc = torch.from_numpy(q).to(dev).to(torch.float32)
+        planes.append(_decode_plane(qc, qt, c["bh"] * 8, c["bw"] * 8,
                                     hmax // c["h"], vmax // c["v"]))
-    out = _combine_planes(planes, hdr.height, hdr.width, mode)
+    out = _combine_planes(planes, frame.height, frame.width,
+                          jpeg_color_mode(frame))
     return out.to(torch.uint8).cpu().numpy()
 
 

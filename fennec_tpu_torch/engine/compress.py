@@ -30,7 +30,7 @@ from ..codecs import png as png_codec
 from ..codecs.jpeg import encode_jpeg_from_coefs, forward_dct
 from ..image import is_grayscale, to_gray, to_nrgba_ref
 from ..ops import dct as dct_ops
-from ..ops.color import clamp_u8
+from ..ops.color import clamp_u8, ycbcr_to_rgb
 from ..ops.resize import box_resize_weights, separable_resample, weights_on
 from ..ops.ssim import (
     SSIM_C1,
@@ -41,7 +41,7 @@ from ..ops.ssim import (
     ssim_premaps,
 )
 from ..ops.ssim_cuda import ssim_window
-from ..types import Options
+from ..types import DEVICE_ENTROPY_NOT_PORTED, Options
 
 MAX_BISECT_STEPS = 7  # ceil(log2(100)) — covers any [lo, hi] ⊆ [1, 100]
 
@@ -142,32 +142,32 @@ class SearchInputs:
     w: int
 
 
-def prepare_search(img: torch.Tensor, subsample: bool):
-    """(H, W, 4) float32 image on the device → (SearchInputs with B = 1,
-    its forward-DCT coefficient blocks)."""
-    dev = img.device
-    h, w = int(img.shape[0]), int(img.shape[1])
-    coefs = forward_dct(img, subsample)
+def prepare_search(imgs: torch.Tensor, subsample: bool):
+    """(B, H, W, 4) float32 images on the device → (SearchInputs, their
+    forward-DCT coefficient blocks (y, cb, cr), each (B, N, 64))."""
+    dev = imgs.device
+    h, w = int(imgs.shape[1]), int(imgs.shape[2])
+    coefs = forward_dct(imgs, subsample)
     ds_w, ds_h = ssim_fast_dims(w, h)
     box_wh = box_wv = None
-    planes = img[..., :3].permute(2, 0, 1)  # (3, H, W) r, g, b
+    planes = imgs[..., :3].permute(0, 3, 1, 2)  # (B, 3, H, W) r, g, b
     if (ds_w, ds_h) != (w, h):
         box_wh, box_wv = weights_on(box_resize_weights(w, h, ds_w, ds_h),
                                     dev)
         planes = _box_down_plane(planes, box_wh, box_wv)
-    lum_orig = _luminance(planes[0], planes[1], planes[2])[None]
+    lum_orig = _luminance(planes[:, 0], planes[:, 1], planes[:, 2])
 
     mult = 16 if subsample else 8
     ph, pw = h + (-h) % mult, w + (-w) % mult
     ch, cw = (ph // 2, pw // 2) if subsample else (ph, pw)
-    cplanes = (dct_ops.from_blocks(coefs[0], ph, pw)[None],
-               dct_ops.from_blocks(coefs[1], ch, cw)[None],
-               dct_ops.from_blocks(coefs[2], ch, cw)[None])
+    cplanes = (dct_ops.from_blocks(coefs[0], ph, pw),
+               dct_ops.from_blocks(coefs[1], ch, cw),
+               dct_ops.from_blocks(coefs[2], ch, cw))
     tables = torch.from_numpy(
         dct_ops.all_quality_tables().astype(np.float32)).to(dev)
     dmat = torch.from_numpy(dct_ops.dct_matrix().astype(np.float32)).to(dev)
-    inp = SearchInputs(cplanes, lum_orig, box_wh, box_wv, tables, dmat,
-                       subsample, h, w)
+    inp = SearchInputs(cplanes, lum_orig.contiguous(), box_wh, box_wv,
+                       tables, dmat, subsample, h, w)
     return inp, coefs
 
 
@@ -243,27 +243,31 @@ def _bisect_device_batch(inp: SearchInputs, targets: torch.Tensor,
     return best_q, best_ssim, found
 
 
+def _search_targets(targets, dev: torch.device):
+    """Per-image targets → ((B,) float32 targets, (B,) int64 seeds), each
+    clamped as the single-image search clamps it (compress.go:24-26; the
+    JAX package's batched search also floors at 0, compress.py:355)."""
+    t = [0.999 if float(x) >= 1.0 else max(float(x), 0.0) for x in targets]
+    return (torch.tensor(t, dtype=torch.float32, device=dev),
+            torch.tensor([_seed_lo(x) for x in t], dtype=torch.int64,
+                         device=dev))
+
+
 def compress_jpeg_optimal(src: np.ndarray, target_ssim: float, opts: Options,
                           device: _device.DeviceLike = None
                           ) -> Tuple[int, float, bytes]:
     """Find the lowest JPEG quality meeting the target SSIM (reference
     compress.go:21-87).  Returns (quality, ssim, jpeg bytes)."""
     if opts.device_entropy:
-        raise NotImplementedError(
-            "fennec: device Huffman emission is not ported to PyTorch yet; "
-            "use device_entropy=None or False for the host C++ encoder")
+        raise NotImplementedError(DEVICE_ENTROPY_NOT_PORTED)
     dev = _device.resolve(device)
     arr = to_nrgba_ref(np.asarray(src))
     h, w = arr.shape[:2]
-    if target_ssim >= 1.0:
-        target_ssim = 0.999  # JPEG can't hit SSIM 1.0 (compress.go:24-26)
     subsample = bool(opts.subsample)
     img = torch.from_numpy(arr).to(dev).to(torch.float32)
-    inp, coefs = prepare_search(img, subsample)
+    inp, coefs = prepare_search(img[None], subsample)
     best_q, best_ssim, found = _bisect_device_batch(
-        inp, torch.full((1,), target_ssim, dtype=torch.float32, device=dev),
-        torch.full((1,), _seed_lo(target_ssim), dtype=torch.int64,
-                   device=dev))
+        inp, *_search_targets([target_ssim], dev))
     # The one device→host copy of the search.
     q, s, f = torch.stack([best_q.to(torch.float32), best_ssim,
                            found.to(torch.float32)]).cpu()[:, 0].tolist()
@@ -272,9 +276,90 @@ def compress_jpeg_optimal(src: np.ndarray, target_ssim: float, opts: Options,
         # Nothing met the target: the reference encodes at the initial hi
         # (Q=100) and reports bestSSIM=1.0 (compress.go:29-32,82-86).
         quality, ssim_val = 100, 1.0
-    data = encode_jpeg_from_coefs(coefs, w, h, quality, subsample,
-                                  optimize=opts.optimize_huffman)
+    data = encode_jpeg_from_coefs([c[0] for c in coefs], w, h, quality,
+                                  subsample, optimize=opts.optimize_huffman)
     return quality, ssim_val, data
+
+
+# ── Batch counterparts (engine/batched.py drives them) ──────────────────────
+
+
+def decode_jpeg_image(blocks: torch.Tensor, qtabs: torch.Tensor, h: int,
+                      w: int, in_subsample: bool) -> torch.Tensor:
+    """Reconstruct a batch of YCbCr JPEGs from their quantized blocks
+    (counterpart of decode_jpeg_image_device, compress.py:556).
+
+    blocks: (B, NT, 64) integer blocks, natural order, y then cb then cr
+    on MCU-padded grids; qtabs: (B, 2, 64) [luma, chroma] tables.
+    Returns (B, h, w, 4) float32 integral pixels on the blocks' device,
+    the same values codecs/jpeg.decode_jpeg gives each file."""
+    bsz = blocks.shape[0]
+    mult = 16 if in_subsample else 8
+    ph, pw = h + (-h) % mult, w + (-w) % mult
+    ch, cw = (ph // 2, pw // 2) if in_subsample else (ph, pw)
+    ny = (ph // 8) * (pw // 8)
+    nc = (ch // 8) * (cw // 8)
+    x = blocks.to(torch.float32)
+    qt = qtabs.to(torch.float32)[:, :, None, :]  # (B, 2, 1, 64)
+
+    def plane(part, table, hh, ww):
+        return dct_ops.from_blocks(dct_ops.idct2d_blocks(
+            dct_ops.dequantize_blocks(part, table)), hh, ww) + 128.0
+
+    y = plane(x[:, :ny], qt[:, 0], ph, pw)
+    cb = plane(x[:, ny:ny + nc], qt[:, 1], ch, cw)
+    cr = plane(x[:, ny + nc:ny + 2 * nc], qt[:, 1], ch, cw)
+    if in_subsample:
+        cb = dct_ops.upsample_420(cb)
+        cr = dct_ops.upsample_420(cr)
+    ycc = torch.stack([y[:, :h, :w], cb[:, :h, :w], cr[:, :h, :w]], dim=-1)
+    rgb = clamp_u8(ycbcr_to_rgb(ycc))
+    alpha = torch.full((bsz, h, w, 1), 255.0, dtype=torch.float32,
+                       device=rgb.device)
+    return torch.cat([rgb, alpha], dim=-1)
+
+
+def batched_quality_search_quantize(imgs: torch.Tensor, targets,
+                                    subsample: bool):
+    """The lockstep search for a whole chunk (counterpart of
+    batched_quality_search_quantize_device and _batched_search_core,
+    compress.py:348-429).
+
+    imgs: (B, H, W, 4) float32 on the device (an (B, H, W, 3) opaque
+    stack gets alpha 255); targets: B per-image SSIM targets.  Every
+    probe scores the whole chunk with one K1 call on a CUDA device.
+    Returns host arrays (q (B,) int, ssim (B,) float32, found (B,) bool,
+    blocks (B, NT, 64) int16 quantized at each image's final quality:
+    the search's quality, or 100 where nothing met the target), which
+    come back in one device→host copy."""
+    dev = imgs.device
+    if imgs.shape[-1] == 3:
+        imgs = torch.cat([imgs, torch.full_like(imgs[..., :1], 255.0)],
+                         dim=-1)
+    bsz = imgs.shape[0]
+    t, lo0 = _search_targets(targets, dev)
+    inp, coefs = prepare_search(imgs, subsample)
+    best_q, best_ssim, found = _bisect_device_batch(inp, t, lo0)
+    qtabs = inp.tables[torch.where(found, best_q, 100)]  # (B, 2, 64)
+    blocks = torch.cat([
+        dct_ops.quantize_blocks(coefs[0], qtabs[:, None, 0]),
+        dct_ops.quantize_blocks(coefs[1], qtabs[:, None, 1]),
+        dct_ops.quantize_blocks(coefs[2], qtabs[:, None, 1])],
+        dim=1).to(torch.int16)
+    head = torch.cat([best_q.to(torch.int16)[:, None],
+                      found.to(torch.int16)[:, None],
+                      best_ssim.contiguous().view(torch.int16).reshape(
+                          bsz, 2)], dim=1)
+    wire = torch.cat([head, blocks.reshape(bsz, -1)], dim=1)
+    host = torch.empty(wire.shape, dtype=torch.int16,
+                       pin_memory=wire.is_cuda)
+    host.copy_(wire, non_blocking=wire.is_cuda)
+    if wire.is_cuda:
+        torch.cuda.current_stream(dev).synchronize()
+    out = host.numpy()
+    ssim = np.ascontiguousarray(out[:, 2:4]).view(np.float32)[:, 0]
+    return (out[:, 0].astype(np.int64), ssim, out[:, 1] != 0,
+            out[:, 4:].reshape(bsz, -1, 64))
 
 
 # ── PNG optimizer ───────────────────────────────────────────────────────────

@@ -16,6 +16,7 @@ from ..exif import Orientation, apply_orientation
 from ..image import analyze_format, to_nrgba, validate_image
 from ..ops.resize import smart_resize
 from ..types import (
+    TARGET_SIZE_NOT_PORTED,
     Context,
     Format,
     Options,
@@ -50,8 +51,7 @@ def compress_image_internal(ctx: Optional[Context], img: np.ndarray,
     opts.report_progress(ctx, ProgressStage.COMPRESSING, 0.2)
 
     if opts.target_size > 0:
-        raise NotImplementedError(
-            "fennec: target-size mode is not ported to PyTorch yet")
+        raise NotImplementedError(TARGET_SIZE_NOT_PORTED)
     return _handle_standard_mode(ctx, src, opts, result, device)
 
 

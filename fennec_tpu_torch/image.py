@@ -98,6 +98,12 @@ def validate_image(img: ImageArray) -> ImageArray:
     return arr
 
 
+def is_opaque(img: ImageArray) -> bool:
+    """True if all pixels have full alpha (reference convert.go:67-74)."""
+    a = to_nrgba_ref(img)
+    return bool(np.all(a[:, :, 3] == 255))
+
+
 def is_grayscale(img: ImageArray) -> bool:
     """True if all pixels have R == G == B (reference convert.go:77-84)."""
     a = to_nrgba_ref(img)

@@ -1,5 +1,6 @@
 """File I/O with EXIF orientation (reference io.go); counterpart of
-fennec_tpu/io.py for the single-image path."""
+fennec_tpu/io.py for the paths the port has (open, compress_file's read,
+the plain encode)."""
 
 from __future__ import annotations
 
@@ -14,6 +15,16 @@ from .codecs.jpeg import encode_jpeg
 from .exif import Orientation, read_orientation
 from .image import to_nrgba_ref
 from .types import Format, UnsupportedFormatError
+
+
+def open_image(filename: str,
+               device: _device.DeviceLike = None) -> np.ndarray:
+    """Load an image file into (H, W, 4) uint8 NRGBA; EXIF orientation is
+    read but NOT applied (reference io.go:17-29).  JPEG transforms run on
+    `device`."""
+    with open(filename, "rb") as f:
+        data = f.read()
+    return decode_image(data, device)
 
 
 def open_with_orientation(filename: str, device: _device.DeviceLike = None

@@ -4,8 +4,8 @@ At first use this compiles the repository's one C++ source,
 fennec_tpu/native/entropy.cpp, read in place by path (it is a file, not
 an import: nothing of the JAX package is imported), with the command
 fennec_tpu/native/build.py uses, into fennec_tpu_torch/_build/.  It is a
-ctypes façade over exactly the entry points the single-image path calls.
-There is no pure-Python fallback: a failed build or a failed call raises.
+ctypes façade over exactly the entry points the port calls.  There is no
+pure-Python fallback: a failed build or a failed call raises.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import os
 import subprocess
 import tempfile
 import threading
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 
@@ -70,6 +70,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fennec_jpeg_decode_scan.restype = l
     lib.fennec_jpeg_decode_scan.argtypes = [
         p, l, l, i, pp, pi, pi, pi, pi, p, p, pi, pi, p, p, pi, pi, i]
+    lib.fennec_jpeg_decode_progressive_scan.restype = l
+    lib.fennec_jpeg_decode_progressive_scan.argtypes = [
+        p, l, l, i, pp, pi, pi, pi, i, i, pi, pi, i, i, i, i,
+        p, p, pi, pi, p, p, i, i]
+    lib.fennec_build_optimal_specs.restype = l
+    lib.fennec_build_optimal_specs.argtypes = [l, p, p, p, p, p]
     lib.fennec_png_unfilter.restype = i
     lib.fennec_png_unfilter.argtypes = [p, i, i, i, p]
     lib.fennec_png_filter.restype = l
@@ -162,6 +168,33 @@ def jpeg_encode_scan_custom(comps, dc_specs, ac_specs,
     return out.raw[:written]
 
 
+def jpeg_build_optimal_specs(dc_freq: np.ndarray, ac_freq: np.ndarray):
+    """T.81 K.2 optimal tables for one image: (2, 16) DC and (2, 256) AC
+    symbol frequencies [luma, chroma] → (dc_specs, ac_specs), each a
+    [luma, chroma] list of (BITS, VALS); an empty class gets a minimal
+    valid table.  Raises ValueError like the Python builder
+    (codecs/huffopt.optimal_spec) when a code would exceed 32 bits."""
+    dcf = np.ascontiguousarray(dc_freq, dtype=np.int64).reshape(1, 2, 16)
+    acf = np.ascontiguousarray(ac_freq, dtype=np.int64).reshape(1, 2, 256)
+    bits = np.zeros((1, 4, 16), dtype=np.uint8)
+    vals = np.zeros((1, 4, 256), dtype=np.uint8)
+    nvals = np.zeros((1, 4), dtype=np.int32)
+    rc = load().fennec_build_optimal_specs(
+        1, dcf.ctypes.data_as(ctypes.c_void_p),
+        acf.ctypes.data_as(ctypes.c_void_p),
+        bits.ctypes.data_as(ctypes.c_void_p),
+        vals.ctypes.data_as(ctypes.c_void_p),
+        nvals.ctypes.data_as(ctypes.c_void_p))
+    if rc == 2:
+        raise ValueError(
+            "fennec: optimal Huffman code length exceeds 32 bits")
+    if rc != 0:
+        raise RuntimeError("fennec native: build_optimal_specs failed")
+    specs = [(bits[0, t].tolist(), vals[0, t, :nvals[0, t]].tolist())
+             for t in range(4)]  # dc-luma, dc-chroma, ac-luma, ac-chroma
+    return specs[:2], specs[2:]
+
+
 def _spec_arrays(specs):
     """Concatenated BITS, VALS, per-component counts and offsets."""
     vals = [bytes(s[1]) for s in specs]
@@ -171,9 +204,12 @@ def _spec_arrays(specs):
 
 
 def jpeg_decode_scan(data: bytes, pos: int, comps,
-                     restart_interval: int = 0) -> List[np.ndarray]:
-    """Decode one interleaved baseline scan: per component an
-    (bw*bh, 64) int16 array of quantized coefficients, natural order."""
+                     restart_interval: int = 0
+                     ) -> Tuple[List[np.ndarray], int]:
+    """Decode one baseline scan: per component an (bw*bh, 64) int16
+    array of quantized coefficients, natural order, and the byte offset
+    just past the scan (where a multi-scan file's next marker search
+    starts)."""
     lib = load()
     n = len(comps)
     outs = [np.zeros((c.bw * c.bh, 64), dtype=np.int16) for c in comps]
@@ -189,7 +225,48 @@ def jpeg_decode_scan(data: bytes, pos: int, comps,
         restart_interval)
     if rc < 0:
         raise ValueError("fennec native: corrupt JPEG scan")
-    return outs
+    return outs, int(rc)
+
+
+def jpeg_decode_progressive_scan(data: bytes, pos: int,
+                                 coefs: List[np.ndarray], bw, hs, vs,
+                                 mcus_x: int, mcus_y: int, nbw, nbh,
+                                 ss: int, se: int, ah: int, al: int,
+                                 dc_specs, ac_spec,
+                                 restart_interval: int) -> int:
+    """Apply one progressive (SOF2) scan in place to the per-scan-
+    component int32 coefficient arrays; returns the byte offset past the
+    scan.  On corrupt data it raises ValueError and leaves `coefs` as
+    they were (a snapshot is restored), so the caller can rerun the scan
+    with the Python decoder (codecs/progressive.py)."""
+    lib = load()
+    n = len(coefs)
+    for c in coefs:
+        if c.dtype != np.int32 or not c.flags.c_contiguous:
+            raise ValueError("fennec: coefs must be contiguous int32")
+    ptrs = (ctypes.c_void_p * n)(
+        *[c.ctypes.data_as(ctypes.c_void_p).value for c in coefs])
+    if ss == 0 and ah == 0:
+        dc_bits, dc_vals, dc_nvals, dc_voff = _spec_arrays(dc_specs)
+    else:
+        dc_bits, dc_vals = bytes(16 * n), b""
+        dc_nvals, dc_voff = _ints([0] * n), _ints([0] * n)
+    if ss > 0:
+        ac_bits, ac_vals = bytes(ac_spec[0]), bytes(ac_spec[1])
+    else:
+        ac_bits, ac_vals = bytes(16), b""
+    snapshot = [c.copy() for c in coefs]
+    rc = lib.fennec_jpeg_decode_progressive_scan(
+        data, len(data), pos, n,
+        ctypes.cast(ptrs, ctypes.POINTER(ctypes.c_void_p)),
+        _ints(bw), _ints(hs), _ints(vs), mcus_x, mcus_y, _ints(nbw),
+        _ints(nbh), ss, se, ah, al, dc_bits, dc_vals, dc_nvals, dc_voff,
+        ac_bits, ac_vals, len(ac_vals), restart_interval)
+    if rc < 0:
+        for c, snap in zip(coefs, snapshot):
+            np.copyto(c, snap)
+        raise ValueError("fennec native: corrupt progressive scan")
+    return int(rc)
 
 
 # ── PNG ─────────────────────────────────────────────────────────────────────

@@ -50,13 +50,14 @@ def separable_resample(planes: torch.Tensor, wh: torch.Tensor,
 
 def lanczos_resize_device(img: torch.Tensor, wh: torch.Tensor,
                           wv: torch.Tensor) -> torch.Tensor:
-    """Resize (H, W, 4) float32 [0,255] → (H', W', 4) float32 integral
-    values, premultiplied-alpha filtering (reference resize.go:96-113)."""
+    """Resize (..., H, W, 4) float32 [0,255] → (..., H', W', 4) float32
+    integral values, premultiplied-alpha filtering (reference
+    resize.go:96-113).  Leading batch dimensions broadcast."""
     img = img.to(torch.float32)
     alpha = img[..., 3:4]
     premul = torch.cat([img[..., :3] * alpha, alpha], dim=-1)
-    out = separable_resample(premul.permute(2, 0, 1), wh, wv)
-    out = out.permute(1, 2, 0)
+    out = separable_resample(premul.movedim(-1, -3), wh, wv)
+    out = out.movedim(-3, -1)
     a = out[..., 3:4]
     keep = a > 0.5
     rgb = torch.where(keep, out[..., :3] / torch.where(keep, a, 1.0), 0.0)

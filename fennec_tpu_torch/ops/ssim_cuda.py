@@ -50,14 +50,15 @@ def find_nvcc() -> str:
 
 class WindowedSsimKernel:
     """Builds, loads and launches K1.  `launches` counts kernel launches
-    (one per call on CUDA tensors); `build_log` holds nvcc's report
-    (registers, shared memory, spills) of the last build."""
+    (one per call on CUDA tensors; see count_launch); `build_log` holds
+    nvcc's report (registers, shared memory, spills) of the last build."""
 
     def __init__(self) -> None:
         self.launches = 0
         self.build_log = ""
         self._lib = None
         self._lock = threading.Lock()
+        self._count_lock = threading.Lock()
 
     def build(self, force: bool = False) -> str:
         """Compile the source into the build directory; returns the path.
@@ -131,9 +132,16 @@ class WindowedSsimKernel:
                 partials.data_ptr(), out.data_ptr(), stream)
         if err != 0:
             msg = lib.fennec_cuda_error_string(err).decode()
-            raise RuntimeError(f"fennec: K1 launch failed: {msg} ({err})")
-        self.launches += 1
+            raise RuntimeError(f"fennec: K1 launch failed: CUDA error "
+                               f"{err}: {msg}")
+        self.count_launch()
         return out
+
+    def count_launch(self) -> None:
+        """Add one to `launches`, under a lock: the batch engines launch
+        from worker threads."""
+        with self._count_lock:
+            self.launches += 1
 
 
 def check_inputs(lum_a: torch.Tensor, lum_b: torch.Tensor) -> None:

@@ -21,6 +21,15 @@ import numpy as np
 VERSION = "1.0.0"
 
 
+# Parts of the JAX package's surface the port does not have yet; the API,
+# the batch engines and the CLI refuse them with these messages.
+TARGET_SIZE_NOT_PORTED = ("fennec: target-size mode is not ported to "
+                          "PyTorch yet")
+DEVICE_ENTROPY_NOT_PORTED = (
+    "fennec: device Huffman emission is not ported to PyTorch yet; use "
+    "device_entropy=None or False for the host C++ encoder")
+
+
 # ── Errors ───────────────────────────────────────────────────────────────────
 # Sentinel error analogues (reference types.go:17-30). Python callers use
 # ``isinstance`` / ``except`` where Go callers used errors.Is().
@@ -342,22 +351,23 @@ class Result:
             raise NoCompressedDataError()
         return w.write(self.compressed_data)
 
-    def load_image(self) -> np.ndarray:
+    def load_image(self, device=None) -> np.ndarray:
         """The final image as (H, W, 4) uint8.
 
         On the standard pixel pipeline this is the processed pre-encode
         image (`self.image`, reference types.go:224).  On the fused
         coefficient fast path pixels never reach the host by design, so
         `image` is None — this accessor then decodes `compressed_data`
-        on demand (identical dimensions; pixel values are the encoded
-        output, i.e. they include the final quantization).
+        on demand, on `device` (None → cuda; identical dimensions; pixel
+        values are the encoded output, i.e. they include the final
+        quantization).
         """
         if self.image is not None:
             return self.image
         if not self.compressed_data:
             raise NoCompressedDataError()
         from .codecs import decode_image
-        self.image = decode_image(self.compressed_data)
+        self.image = decode_image(self.compressed_data, device)
         return self.image
 
     def bytes(self) -> bytes:

@@ -29,9 +29,7 @@ from fennec_tpu_torch.codecs import huffopt as thuff
 from fennec_tpu_torch.codecs import jpeg as tjpeg
 from fennec_tpu_torch.codecs import png as tpng
 from fennec_tpu_torch.engine.compress import compress_png
-from fennec_tpu_torch.types import UnsupportedFormatError
 from test_cmyk import _encode_4comp
-from test_multiscan import build_multiscan_jpeg
 
 torch.set_num_threads(1)
 
@@ -155,12 +153,31 @@ class TestJpegDecode:
         np.testing.assert_array_equal(tjpeg.decode_jpeg(data, device="cpu"),
                                       jjpeg.decode_jpeg(data))
 
-    def test_progressive_raises(self):
-        data = pil_jpeg(make_test_image(32, 32), progressive=True)
-        with pytest.raises(UnsupportedFormatError, match="later slice"):
-            tjpeg.decode_jpeg(data, device="cpu")
 
-    def test_multiscan_raises(self):
-        data = build_multiscan_jpeg(make_noise_image(24, 16))
-        with pytest.raises(UnsupportedFormatError, match="later slice"):
-            tjpeg.decode_jpeg(data, device="cpu")
+def frequency_case(i):
+    """Symbol frequencies with the corner cases of the K.2 builder (after
+    tests/test_huffopt.py:103): empty classes, one live symbol, flat
+    tiny counts and Zipf tails."""
+    rng = np.random.default_rng(100 + i)
+    dcf = rng.integers(0, 5000, (2, 16)).astype(np.int64)
+    acf = (rng.zipf(1.35, (2, 256)) * rng.integers(0, 25)).astype(np.int64)
+    if i % 5 == 0:
+        acf[1] = 0
+    if i % 7 == 0:
+        dcf[:] = 0
+    if i % 9 == 0:
+        acf[0] = 0
+        acf[0, 3] = 1
+    if i % 11 == 0:
+        acf[0] = 1
+    return dcf, acf
+
+
+@pytest.mark.parametrize("i", range(24))
+def test_native_optimal_specs_match_python(i):
+    """The C++ K.2 builder the port encodes with gives the Python merge
+    loop's tables, and the JAX package's."""
+    dcf, acf = frequency_case(i)
+    got = thuff.specs_from_frequencies(dcf, acf)
+    assert got == thuff.specs_from_frequencies_py(dcf, acf)
+    assert got == jhuff._specs_from_frequencies_py(dcf, acf)

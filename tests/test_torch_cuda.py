@@ -77,3 +77,46 @@ def test_main_path_card_matches_cpu(cuda_device):
     assert r_gpu.format == r_cpu.format == T.JPEG
     assert r_gpu.jpeg_quality == r_cpu.jpeg_quality
     assert abs(r_gpu.ssim - r_cpu.ssim) <= ATOL
+
+
+def test_block_transform_rows_on_card(cuda_device):
+    """A block's DCT on the card is the same alone and inside a batch
+    (the GEMM row padding of ops/dct.py)."""
+    from fennec_tpu_torch.ops import dct
+
+    rng = np.random.default_rng(5)
+    for n in (1, 72, 3969):
+        x = torch.from_numpy(rng.normal(0, 60, (8, n, 64)).astype(
+            np.float32)).to(cuda_device)
+        batched = dct.dct2d_blocks(x)
+        assert all(torch.equal(dct.dct2d_blocks(x[i]), batched[i])
+                   for i in range(8))
+
+
+def test_batch_engines_on_card(cuda_device):
+    from fennec_tpu_torch.engine.batched import (
+        compress_jpeg_bytes_batched,
+        counters,
+    )
+
+    rng = np.random.default_rng(11)
+    imgs = []
+    for _ in range(6):
+        img = np.full((96, 128, 4), 255, np.uint8)
+        img[..., :3] = rng.integers(40, 200, (96, 128, 3), dtype=np.uint8)
+        imgs.append(img)
+    opts = T.Options(format=T.JPEG)
+    counters.reset()
+    batch = T.compress_images(None, imgs, opts, device=cuda_device)
+    for img, got in zip(imgs, batch):
+        want = T.compress_image(None, img, opts, device=cuda_device)
+        assert got.compressed_data == want.compressed_data
+    datas = [T.encode_to_bytes(img, T.JPEG, 92, device=cuda_device)
+             for img in imgs]
+    on_card = compress_jpeg_bytes_batched(None, datas, opts,
+                                          device=cuda_device)
+    on_cpu = compress_jpeg_bytes_batched(None, datas, opts, device="cpu")
+    for a, b in zip(on_card, on_cpu):
+        assert a.jpeg_quality == b.jpeg_quality
+        assert abs(a.ssim - b.ssim) <= ATOL
+    assert counters.snapshot()["routes"] == {"pixel": 6, "coefficient": 12}

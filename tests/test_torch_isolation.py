@@ -24,7 +24,10 @@ FORBIDDEN = re.compile(
 
 def test_import_leaves_jax_out():
     code = ("import sys, fennec_tpu_torch, fennec_tpu_torch.engine.compress,"
-            " fennec_tpu_torch.ops.ssim_cuda; "
+            " fennec_tpu_torch.ops.ssim_cuda, fennec_tpu_torch.batch,"
+            " fennec_tpu_torch.engine.batched, fennec_tpu_torch.cli,"
+            " fennec_tpu_torch.parallel.batched,"
+            " fennec_tpu_torch.codecs.progressive, fennec_tpu_torch.analyze; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'fennec_tpu' "
             "or m.startswith('fennec_tpu.')]; "
