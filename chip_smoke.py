@@ -38,10 +38,29 @@ Phases, each raising on failure:
      directory of the committed progressive and multi-scan fixtures, a
      baseline JPEG, a PNG, an EXIF-rotated JPEG and a truncated JPEG:
      only the truncated file fails, and the progressive fixture decodes
-     on the card as on the CPU.
+     on the card as on the CPU;
+ 10. target-size mode.  T1, per image, cold then warm: compress_file on
+     the 12 MP JPEG at 100 KB (AUTO), compress_bytes on a 1920x1080
+     JPEG at 200 KB and compress_image on a 500x500 photo at 20 KB and
+     at 128 KB (JPEG; S1 wins the last, and q+1 must overshoot).  T2:
+     compress_images over 64 photos of 500x500 at 20 KB, cold then warm,
+     and an AUTO bucket holding a transparent image, items against
+     per-image compress_image; then one bucket of 16 12 MP photos at
+     100 KB (JPEG) in the chunks the engine picks, with the peak device
+     bytes per pixel.  T3: compress_batch over 64 such files at 20 KB,
+     and the CLI's --target-size 100KB on the 12 MP file.  Then the same
+     160x120 search (S3 wins) on the card and on the CPU, and one 12 MP
+     palette map on both.  Every output fits its target or is the
+     fallback and decodes to its dimensions; its reported SSIM is honest
+     (S1/S2: within 0.01 of SSIMFast of the decoded output; S3/S4 report
+     the scaled image's SSIM before encoding, as the reference does,
+     reproduced within 1e-4).  Every timed compress_* call of T1-T3
+     must launch K1, counted from 0 just before it and read just after,
+     before any check runs.  The size oracle's bisection step and the
+     palette map per level are timed at 12 MP.
 
 The last lines: the kernel table as JSON (K1's launches summed over the
-main-path runs of phases 4 and 6-8, each counted from 0), the card's
+main-path runs of phases 4, 6-8 and 10, each counted from 0), the card's
 name and power limit as nvidia-smi reports them, and {"ok": true,
 "device": {...}}.  Images are made from numpy seeds; nothing is
 fetched.  Without a CUDA card the script fails before printing any
@@ -63,14 +82,23 @@ import torch
 
 SEED = 20261016
 SHAPES = [(3, 32, 32), (3, 64, 48), (3, 130, 100), (1, 384, 512),
-          (4, 288, 512), (1, 1080, 1920), (1, 2160, 3840), (64, 500, 500)]
-TIMED_SHAPES = [(1, 384, 512), (1, 2160, 3840), (64, 500, 500)]
+          (4, 288, 512), (1, 1080, 1920), (1, 2160, 3840), (64, 500, 500),
+          (1, 288, 512), (1, 500, 500), (5, 499, 499)]
+TIMED_SHAPES = [(1, 384, 512), (1, 2160, 3840), (64, 500, 500),
+                (1, 500, 500)]
 K1_ATOL = 1e-5  # the bound tests/test_ssim_pallas.py holds Pallas to
 DECODE_SSIM_ATOL = 1e-3  # probe model vs real decode: IDCT order, ties
 # The coefficient path's contract against per-image compression
 # (tests/test_coef_fastpath.py:60-97, tests/test_torch_batch.py).
 SIZE_ATOL = 16
 PIXEL_ATOL = 3
+# Target-size checks: the reported SSIM against SSIMFast of the decoded
+# output (tests/test_pipeline.py:43-46), and the batched engine's
+# contract against the per-image engine (tests/test_targetsize_batched.py
+# :28-42).
+TS_HONEST_ATOL = 0.01
+TS_SSIM_ATOL = 1e-4
+TS_SIZE_ATOL = 8
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -521,6 +549,386 @@ def phase_cli_mixed(T, dev, tmp):
     for line in proc.stdout.splitlines():
         log(f"  cli: {line}")
 
+# ── Target-size mode (phase 10) ─────────────────────────────────────────────
+
+
+def ts_strategy(res, w: int, h: int, target: int) -> str:
+    """Which strategy produced a target-size Result, from what it looks
+    like: S3 and S4 change the geometry, S1 keeps it as JPEG, S2 as PNG;
+    the fallback is a Q=1 JPEG or an over-target PNG scored 1.0."""
+    fmt = str(res.format)
+    if res.ssim == 1.0 and (res.jpeg_quality == 1 or (
+            fmt == "PNG" and res.compressed_size > target)):
+        return "fallback"
+    if tuple(res.final_dimensions) != (w, h):
+        return "s3" if fmt == "JPEG" else "s4"
+    return "s1" if fmt == "JPEG" else "s2"
+
+
+def check_ts(T, res, original, target: int, dev, tag: str):
+    """The target-size contract on one Result: under target unless it is
+    the fallback, JPEG quality >= 20, an S1 winner maximal (q+1
+    overshoots unless q is the top of its bounds), and the output
+    decoding to final_dimensions.  The reported SSIM must be honest: S1
+    and S2 report SSIMFast of what the file decodes to, so SSIMFast of
+    the decoded output against the original must agree within 0.01
+    (tests/test_pipeline.py:43-46); S3 and S4 report, as the reference
+    does (targetsize.go:210-232), the scaled image's SSIM before
+    encoding, which must be reproduced from that image within 1e-4.
+    Returns (strategy, SSIMFast of the decoded output)."""
+    from fennec_tpu_torch.engine.targetsize import (
+        MIN_JPEG_QUALITY,
+        _bpp_bounds,
+        _JpegSizer,
+    )
+    from fennec_tpu_torch.ops.ssim import compute_ssim_nrgba
+
+    h, w = original.shape[:2]
+    strategy = ts_strategy(res, w, h, target)
+    if strategy != "fallback" and res.compressed_size > target:
+        raise AssertionError(f"{tag}: {res.compressed_size} bytes over the "
+                             f"target {target} ({strategy})")
+    if (strategy != "fallback" and res.format == T.JPEG
+            and res.jpeg_quality < MIN_JPEG_QUALITY):
+        raise AssertionError(f"{tag}: quality {res.jpeg_quality} < 20")
+    if strategy == "s1":
+        hi = _bpp_bounds(target, w * h)[1]
+        if res.jpeg_quality < hi:
+            over = len(_JpegSizer(original, dev).encode(
+                res.jpeg_quality + 1))
+            if over <= target:
+                raise AssertionError(f"{tag}: q+1={res.jpeg_quality + 1} "
+                                     f"still fits ({over} bytes)")
+    out = T.codecs.decode_image(res.compressed_data, device=dev)
+    if (out.shape[1], out.shape[0]) != tuple(res.final_dimensions):
+        raise AssertionError(f"{tag}: decoded {out.shape}, want "
+                             f"{res.final_dimensions}")
+    decoded = compute_ssim_nrgba(original, out, dev)
+    if strategy in ("s1", "s2") and abs(decoded - res.ssim) > \
+            TS_HONEST_ATOL:
+        raise AssertionError(f"{tag}: reported ssim {res.ssim} vs "
+                             f"{decoded} of the decoded output")
+    if strategy in ("s3", "s4"):
+        scaled = compute_ssim_nrgba(original, res.image, dev)
+        if abs(scaled - res.ssim) > TS_SSIM_ATOL:
+            raise AssertionError(f"{tag}: reported ssim {res.ssim} vs "
+                                 f"{scaled} of the scaled image")
+    return strategy, decoded
+
+
+def ts_contract(T, got, want, target: int, tag: str) -> None:
+    """A batched target-size Result against per-image compress_image."""
+    same = (got.format == want.format
+            and got.jpeg_quality == want.jpeg_quality
+            and got.final_dimensions == want.final_dimensions
+            and abs(got.ssim - want.ssim) <= TS_SSIM_ATOL)
+    if got.compressed_data != want.compressed_data:
+        same = same and (
+            abs(got.compressed_size - want.compressed_size) <= TS_SIZE_ATOL
+            and (got.compressed_size <= target)
+            == (want.compressed_size <= target))
+    if not same:
+        raise AssertionError(
+            f"{tag}: batch {got.format} q={got.jpeg_quality} "
+            f"{got.final_dimensions} ssim={got.ssim} bytes="
+            f"{got.compressed_size} vs per-image {want.format} "
+            f"q={want.jpeg_quality} {want.final_dimensions} ssim={want.ssim}"
+            f" bytes={want.compressed_size}")
+
+
+def ts_seconds(counters) -> str:
+    st = counters.snapshot()["stage_seconds"]
+    return " ".join(f"{k}={st.get(k, 0):.3f}s"
+                    for k in ("ts_s1", "ts_s2", "ts_s3", "ts_s4",
+                              "ts_encode", "ts_png"))
+
+
+def phase_ts_single(T, dev, ssim_window, counters, big_path, big_img, tmp,
+                    mid=(1920, 1080), small=(500, 500)):
+    """T1: the per-image engine through compress_file, compress_bytes and
+    compress_image, cold then warm.  Returns K1's launches."""
+    mid_img = photo(*mid, SEED + 800)
+    mid_jpeg = T.encode_to_bytes(mid_img, T.JPEG, 92, device=dev)
+    mid_img = T.codecs.decode_image(mid_jpeg, device=dev)
+    small_img = photo(*small, SEED + 801)
+    runs = [
+        ("12mp_auto_100KB", 100 * 1024, big_img,
+         lambda: T.compress_file(None, big_path, os.path.join(
+             tmp, "ts_big.out"), T.Options(target_size=100 * 1024),
+             device=dev)),
+        ("1080p_jpeg_200KB", 200 * 1024, mid_img,
+         lambda: T.compress_bytes(None, mid_jpeg, T.Options(
+             format=T.JPEG, target_size=200 * 1024), device=dev)),
+        ("500_jpeg_20KB", 20 * 1024, small_img,
+         lambda: T.compress_image(None, small_img, T.Options(
+             format=T.JPEG, target_size=20 * 1024), device=dev)),
+        # A generous target, where S1 wins and its maximality is checked.
+        ("500_jpeg_128KB", 128 * 1024, small_img,
+         lambda: T.compress_image(None, small_img, T.Options(
+             format=T.JPEG, target_size=128 * 1024), device=dev)),
+    ]
+    total = 0
+    for tag, target, original, run in runs:
+        ssim_window.launches = 0
+        t = time.perf_counter()
+        run()
+        cold_ms = (time.perf_counter() - t) * 1e3
+        cold_launches = ssim_window.launches
+        counters.reset()
+        ssim_window.launches = 0
+        t = time.perf_counter()
+        res = run()  # the result is host bytes, so synced
+        warm_ms = (time.perf_counter() - t) * 1e3
+        warm_launches = ssim_window.launches
+        total += cold_launches + warm_launches
+        if dev.type == "cuda" and not (cold_launches and warm_launches):
+            raise AssertionError(f"T1 {tag}: K1 launches cold="
+                                 f"{cold_launches} warm={warm_launches}")
+        strategy, decoded = check_ts(T, res, original, target, dev,
+                                     f"T1 {tag}")
+        log(f"T1 {tag}: strategy={strategy} format={res.format} "
+            f"quality={res.jpeg_quality} geometry={res.final_dimensions} "
+            f"bytes={res.compressed_size} target={target} "
+            f"ssim={res.ssim:.6f} decoded_ssim={decoded:.6f} "
+            f"cold_ms={cold_ms:.1f} warm_ms={warm_ms:.1f} K1 launches "
+            f"cold={cold_launches} warm={warm_launches} "
+            f"warm {ts_seconds(counters)}")
+    log(f"T1: K1 launches={total} (the compress_* calls only)")
+    return total
+
+
+def transparent(w: int, h: int, seed: int) -> np.ndarray:
+    img = photo(w, h, seed)
+    img[..., 3] = np.linspace(0, 255, w, dtype=np.float32).astype(np.uint8)
+    return img
+
+
+def phase_ts_batch(T, dev, ssim_window, counters, n=64, w=500, h=500,
+                   n_auto=8):
+    """T2: compress_images over n photos at 20 KB (JPEG), cold then warm,
+    and an AUTO bucket holding a transparent image; items against
+    per-image compress_image.  Returns K1's launches in the compress_images
+    calls alone; each must launch it."""
+    target = 20 * 1024
+    images = [photo(w, h, SEED + 900 + k) for k in range(n)]
+    opts = T.Options(format=T.JPEG, target_size=target)
+    total = 0
+    for tag in ("cold", "warm"):
+        counters.reset()
+        reset_peak(dev)
+        ssim_window.launches = 0
+        t = time.perf_counter()
+        res = T.compress_images(None, images, opts, device=dev)
+        wall_ms = (time.perf_counter() - t) * 1e3
+        launches = ssim_window.launches
+        total += launches
+        if dev.type == "cuda" and launches == 0:
+            raise AssertionError(f"T2 {tag}: the batched pass never ran K1")
+        snap = counters.snapshot()
+        ev = snap["events"]
+        if snap["routes"] != {"target-size": n}:
+            raise AssertionError(f"T2 routes {snap['routes']}")
+        over = sum(r.compressed_size > target for r in res)
+        strategies = {}
+        for r in res:
+            k = ts_strategy(r, w, h, target)
+            strategies[k] = strategies.get(k, 0) + 1
+        log(f"T2 {n}x{w}x{h} {tag}: wall_ms={wall_ms:.1f} img_per_s="
+            f"{n / (wall_ms / 1e3):.2f} chunks={snap['chunk_items']} "
+            f"waves={ev.get('ts_waves', 0)} probes={ev.get('ts_probes', 0)}"
+            f" memo_hits={ev.get('ts_memo_hits', 0)} rounds="
+            f"{ev.get('ts_s3_rounds', 0)} over_target={over} strategies="
+            f"{strategies} K1 launches={launches} {ts_seconds(counters)}")
+        if over:
+            raise AssertionError(f"T2: {over} result(s) over the target")
+    log_peak(f"T2 {n}x{w}x{h} warm", dev, max(snap["chunk_items"]), w * h)
+    profile_device(lambda: T.compress_images(None, images, opts, device=dev),
+                   f"T2 {n}x{w}x{h}")
+    for i in range(0, n, 16):
+        want = T.compress_image(None, images[i], opts, device=dev)
+        ts_contract(T, res[i], want, target, f"T2 item {i}")
+        check_ts(T, res[i], images[i], target, dev, f"T2 item {i}")
+
+    auto = [photo(w, h, SEED + 950 + k) for k in range(n_auto)]
+    auto[3] = transparent(w, h, SEED + 960)
+    counters.reset()
+    ssim_window.launches = 0
+    t = time.perf_counter()
+    res = T.compress_images(None, auto, T.Options(target_size=target),
+                            device=dev)
+    wall_ms = (time.perf_counter() - t) * 1e3
+    launches = ssim_window.launches
+    total += launches
+    if dev.type == "cuda" and launches == 0:
+        raise AssertionError("T2 auto bucket: the batched pass never ran K1")
+    for i in (0, 3):
+        want = T.compress_image(None, auto[i], T.Options(target_size=target),
+                                device=dev)
+        ts_contract(T, res[i], want, target, f"T2 auto item {i}")
+        check_ts(T, res[i], auto[i], target, dev, f"T2 auto item {i}")
+    if res[3].format != T.PNG:
+        raise AssertionError(f"T2: the transparent image got {res[3].format}")
+    log(f"T2 auto bucket {n_auto}x{w}x{h}: wall_ms={wall_ms:.1f} formats="
+        f"{[str(r.format) for r in res]} K1 launches={launches} "
+        f"{ts_seconds(counters)}; items 0,16,..,{n - 16} and the AUTO "
+        f"bucket's 0 and 3 (transparent) agree with per-image "
+        f"compress_image")
+    log(f"T2: K1 launches={total} (the compress_images calls only)")
+    return total
+
+
+def phase_ts_full_size(T, dev, ssim_window, counters, big_img, n=16,
+                       target=100 * 1024):
+    """T2 at 12 MP: one compress_images bucket of n rolled copies of the
+    12 MP photo at 100 KB (JPEG), in the chunks the engine picks from the
+    card's free memory; the peak device bytes per pixel of a chunk, and
+    items 0 and n-1 against per-image compress_image.  Returns K1's
+    launches in the compress_images call."""
+    h, w = big_img.shape[:2]
+    images = [np.roll(big_img, (61 * i, 97 * i), axis=(0, 1))
+              for i in range(n)]
+    opts = T.Options(format=T.JPEG, target_size=target)
+    counters.reset()
+    reset_peak(dev)
+    ssim_window.launches = 0
+    t = time.perf_counter()
+    res = T.compress_images(None, images, opts, device=dev)
+    wall_ms = (time.perf_counter() - t) * 1e3
+    launches = ssim_window.launches
+    snap = counters.snapshot()
+    if dev.type == "cuda" and launches == 0:
+        raise AssertionError("T2 12 MP: the batched pass never ran K1")
+    if snap["routes"] != {"target-size": n}:
+        raise AssertionError(f"T2 12 MP routes {snap['routes']}")
+    over = sum(r.compressed_size > target for r in res)
+    if over:
+        raise AssertionError(f"T2 12 MP: {over} result(s) over the target")
+    log(f"T2 {n}x{w}x{h} at {target} B: wall_ms={wall_ms:.1f} img_per_s="
+        f"{n / (wall_ms / 1e3):.3f} chunks={snap['chunk_items']} "
+        f"geometries={sorted({r.final_dimensions for r in res})} "
+        f"K1 launches={launches} {ts_seconds(counters)}")
+    log_peak(f"T2 {n}x{w}x{h}", dev, max(snap["chunk_items"]), w * h)
+    for i in (0, n - 1):
+        want = T.compress_image(None, images[i], opts, device=dev)
+        ts_contract(T, res[i], want, target, f"T2 12 MP item {i}")
+    check_ts(T, res[0], images[0], target, dev, "T2 12 MP item 0")
+    log(f"T2 12 MP: items 0 and {n - 1} agree with per-image compress_image")
+    return launches
+
+
+def phase_ts_files(T, dev, ssim_window, counters, tmp, big_path, n=64,
+                   w=500, h=500):
+    """T3: compress_batch over n JPEG files at 20 KB and the CLI's
+    --target-size on the 12 MP file.  Returns K1's launches."""
+    target = 20 * 1024
+    src_dir = os.path.join(tmp, "ts_files")
+    os.makedirs(src_dir)
+    items = []
+    for i in range(n):
+        p = os.path.join(src_dir, f"in{i:02d}.jpg")
+        with open(p, "wb") as f:
+            f.write(T.encode_to_bytes(photo(w, h, SEED + 1000 + i), T.JPEG,
+                                      92, device=dev))
+        items.append(T.BatchItem(src=p, dst=os.path.join(tmp,
+                                                         f"ts_o{i}.jpg")))
+    counters.reset()
+    ssim_window.launches = 0
+    t = time.perf_counter()
+    res = T.compress_batch(None, items, T.BatchOptions(
+        default_opts=T.Options(format=T.JPEG, target_size=target)),
+        device=dev)
+    wall_ms = (time.perf_counter() - t) * 1e3
+    launches = ssim_window.launches
+    bad = [(r.item.src, r.err) for r in res if r.err is not None]
+    if bad:
+        raise AssertionError(f"T3: {len(bad)} item(s) failed: {bad[:3]}")
+    routes = counters.snapshot()["routes"]
+    if routes != {"target-size": n}:
+        raise AssertionError(f"T3 routes {routes}")
+    for r in res:
+        with open(r.item.dst, "rb") as f:
+            size = len(f.read())
+        if size == 0 or size > 2 * target:
+            raise AssertionError(f"T3 {r.item.dst}: {size} bytes")
+    if dev.type == "cuda" and launches == 0:
+        raise AssertionError("T3: K1 never ran")
+    log(f"T3 compress_batch {n}x{w}x{h}: wall_ms={wall_ms:.1f} img_per_s="
+        f"{n / (wall_ms / 1e3):.2f} every item written, <= 2x target, "
+        f"K1 launches={launches} {ts_seconds(counters)}")
+
+    out = os.path.join(tmp, "ts_cli.jpg")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fennec_tpu_torch", "--target-size", "100KB",
+         "--device", dev.type, big_path, out],
+        capture_output=True, text=True, cwd=HERE, env=env, timeout=600)
+    wall_ms = (time.perf_counter() - t) * 1e3
+    size = os.path.getsize(out) if os.path.exists(out) else -1
+    fallback = "SSIM: 1.0000" in proc.stdout
+    if proc.returncode != 0 or size <= 0 or (size > 100 * 1024
+                                             and not fallback):
+        raise AssertionError(f"T3 cli: rc={proc.returncode} size={size}\n"
+                             f"{proc.stdout}\n{proc.stderr[-3000:]}")
+    log(f"T3 cli --target-size 100KB on 12 MP: rc=0 bytes={size} "
+        f"wall_ms={wall_ms:.1f} (process start included): "
+        f"{proc.stdout.strip()}")
+    return launches
+
+
+def phase_ts_card_vs_cpu(T, dev, big_img):
+    """The same S3 search on the card and on the CPU, and one 12 MP
+    palette map on both."""
+    from fennec_tpu_torch.engine.targetsize import hit_target_size
+    from fennec_tpu_torch.ops.quantize import apply_palette, median_cut
+
+    img = photo(160, 120, SEED + 9)
+    target = 1600
+    opts = T.Options(format=T.JPEG, target_size=target)
+    on_card = hit_target_size(None, img, target, opts, dev)
+    on_cpu = hit_target_size(None, img, target, opts, "cpu")
+    got = [(r.format, r.quality, r.final_w, r.final_h)
+           for r in (on_card, on_cpu)]
+    if (got[0] != got[1] or (on_card.final_w, on_card.final_h) == (160, 120)
+            or abs(on_card.ssim - on_cpu.ssim) > TS_SSIM_ATOL
+            or abs(len(on_card.data) - len(on_cpu.data)) > TS_SIZE_ATOL):
+        raise AssertionError(f"card vs cpu 160x120: {got}, ssim "
+                             f"{on_card.ssim}/{on_cpu.ssim}, bytes "
+                             f"{len(on_card.data)}/{len(on_cpu.data)}")
+    pal = median_cut(big_img, 256)
+    idx_card = apply_palette(big_img, pal, dev)
+    idx_cpu = apply_palette(big_img, pal, "cpu")
+    if not np.array_equal(idx_card, idx_cpu):
+        raise AssertionError(
+            f"palette map: {int(np.count_nonzero(idx_card != idx_cpu))} "
+            f"indices differ between the card and the CPU")
+    log(f"card vs cpu: 160x120 at {target} B: {got[0]} (S3) on both, ssim "
+        f"{on_card.ssim:.7f}/{on_cpu.ssim:.7f}, bytes_identical="
+        f"{on_card.data == on_cpu.data}; 12 MP palette map (256 colours) "
+        f"identical on both")
+
+
+def time_ts_device_work(dev, big_img) -> None:
+    """CUDA-event times at 12 MP: one size-oracle bisection step (quantize
+    + exact scan bits) and the palette map of one level."""
+    from fennec_tpu_torch.codecs.jpeg import forward_dct
+    from fennec_tpu_torch.engine.size_search import scan_bytes_at
+    from fennec_tpu_torch.ops.quantize import median_cut, palette_indices
+
+    h, w = big_img.shape[:2]
+    img = torch.from_numpy(big_img).to(dev).to(torch.float32)
+    coefs = forward_dct(img, True)
+    q = torch.tensor(50, device=dev)
+    step_ms = cuda_ms(lambda: scan_bytes_at(coefs, q, h + (-h) % 16,
+                                            w + (-w) % 16, True), 10)
+    rgb = img[..., :3].reshape(-1, 3).to(torch.int32)
+    pal = torch.from_numpy(np.ascontiguousarray(
+        median_cut(big_img, 256)[:, :3])).to(dev).to(torch.int32)
+    map_ms = cuda_ms(lambda: palette_indices(rgb, pal), 5)
+    log(f"ts device work at {w}x{h}: oracle_step_ms={step_ms:.3f} "
+        f"(quantize + scan bits, one of 7 per bisection) "
+        f"palette_map_ms={map_ms:.3f} (256 colours, one level)")
+
 
 def main() -> int:
     # 1. Environment.  The port is imported before anything is printed,
@@ -633,6 +1041,22 @@ def main() -> int:
         total_launches += phase_full_size(T, dev, ssim_window, counters,
                                           tmp)
         phase_cli_mixed(T, dev, tmp)
+
+    # 10. Target-size mode.
+    with tempfile.TemporaryDirectory() as tmp:
+        big_path = os.path.join(tmp, "photo_12mp.jpg")
+        with open(big_path, "wb") as f:
+            f.write(big_jpeg)
+        big_img = T.codecs.decode_image(big_jpeg, device=dev)
+        time_ts_device_work(dev, big_img)
+        total_launches += phase_ts_single(T, dev, ssim_window, counters,
+                                          big_path, big_img, tmp)
+        total_launches += phase_ts_batch(T, dev, ssim_window, counters)
+        total_launches += phase_ts_full_size(T, dev, ssim_window, counters,
+                                             big_img)
+        total_launches += phase_ts_files(T, dev, ssim_window, counters, tmp,
+                                         big_path)
+        phase_ts_card_vs_cpu(T, dev, big_img)
 
     k_ms, p_ms = times[(1, 384, 512)]
     print(json.dumps({"kernels": [{

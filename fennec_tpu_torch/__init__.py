@@ -5,8 +5,10 @@ and imports neither jax nor fennec_tpu.  Ported so far: the single-image
 path (decode of baseline, multi-scan and progressive JPEG and of PNG,
 orient, resize, the SSIM-guided JPEG quality search with windowed SSIM in
 the CUDA kernel csrc/ssim_window.cu, the host C++ Huffman encode, the PNG
-optimizer), the batch engines behind compress_images and compress_batch,
-analyze, and the CLI (python -m fennec_tpu_torch).
+optimizer), target-file-size mode (Options(target_size=...), per image
+and in lockstep batches), the batch engines behind compress_images and
+compress_batch, ssim_fast and pixel_ssim, analyze, and the CLI (python -m
+fennec_tpu_torch).
 
 Every entry point takes `device`; None means "cuda", and a missing card
 raises (device.py).  Quick start::
@@ -40,6 +42,7 @@ from .batch import (  # noqa: F401
 )
 from .exif import Orientation, apply_orientation, read_orientation  # noqa
 from .io import encode_to_bytes, open_image, open_with_orientation  # noqa
+from .ops.ssim import pixel_ssim, ssim_fast  # noqa: F401
 from .types import (  # noqa: F401
     AGGRESSIVE,
     AUTO,

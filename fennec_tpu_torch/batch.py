@@ -4,9 +4,10 @@ fennec_tpu/batch.py.
 compress_batch keeps input order, captures one error per bad item (one
 bad file never aborts the batch), honours cooperative cancellation and
 reports progress.  Homogeneous batches (no per-item options) go through
-the device engines of engine/batched.py: every upright JPEG that
-qualifies takes the coefficient path, grouped by geometry; the rest
-(PNGs, progressive, multi-scan and EXIF-rotated files) are decoded on
+the device engines of engine/batched.py: in standard mode with JPEG
+output every upright JPEG that qualifies takes the coefficient path,
+grouped by geometry; the rest (PNGs, progressive, multi-scan and
+EXIF-rotated files), and every file in target-size mode, are decoded on
 the host and take the pixel path.  Otherwise, or when the fused path
 fails for a reason other than an item or the device, a per-file worker
 pool runs compress_file on the same device.
@@ -57,8 +58,8 @@ class BatchResult:
 class BatchOptions:
     """Batch configuration (reference batch.go:33-41).
 
-    fused: None (auto) routes homogeneous standard-mode batches of 8+
-    items through the device engines (engine/batched.py); True forces
+    fused: None (auto) routes homogeneous batches of 8+ items through
+    the device engines (engine/batched.py); True forces
     them for homogeneous batches (no per-item opts: a lockstep search
     needs one Options for the whole batch, so heterogeneous batches
     always use the per-file pool); False forces the per-file pool.
@@ -88,10 +89,8 @@ def compress_batch(ctx: Optional[Context], items: List[BatchItem],
     if use_fused is None:
         use_fused = homogeneous and len(items) >= 8
     opts = batch_opts.default_opts
-    # Target-size mode and device Huffman emission are not ported: the
-    # pool reports them per item.
-    ported = opts.target_size == 0 and not opts.device_entropy
-    if use_fused and homogeneous and ported:
+    # Device Huffman emission is not ported: the pool reports it per item.
+    if use_fused and homogeneous and not opts.device_entropy:
         return _compress_batch_fused(ctx, items, batch_opts, device)
 
     workers = batch_opts.workers if batch_opts.workers > 0 \
@@ -219,9 +218,10 @@ def _compress_batch_fused(ctx: Optional[Context], items: List[BatchItem],
     sub_opts = dataclasses.replace(opts, auto_orient=False)
     try:
         pixel_items = list(live)
-        if opts.format == Format.JPEG:
+        if opts.format == Format.JPEG and opts.target_size == 0:
             # Every upright qualifying JPEG takes the coefficient path,
-            # grouped by geometry; the rest take the pixel path.
+            # grouped by geometry; the rest take the pixel path, as does
+            # target-size mode (JAX batch.py:224).
             groups: dict = {}
             pixel_items = []
             for i in live:

@@ -5,8 +5,8 @@ Usage: python -m fennec_tpu_torch [options] <input> [output]
        fennec-tpu-torch [options] <input> [output]
 
 --device names the torch device (default cuda; cpu runs the plain
-versions of the kernels).  --target-size and --device-entropy on exit
-non-zero: target-size mode and device Huffman emission are not ported.
+versions of the kernels).  --device-entropy on exits non-zero: device
+Huffman emission is not ported.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from . import (
     compress_file,
     open_image,
 )
-from .types import DEVICE_ENTROPY_NOT_PORTED, TARGET_SIZE_NOT_PORTED
+from .types import DEVICE_ENTROPY_NOT_PORTED
 
 
 def parse_size(s: str) -> int:
@@ -90,7 +90,7 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--max-width", type=int, default=0, help="Max width")
     p.add_argument("--max-height", type=int, default=0, help="Max height")
     p.add_argument("--target-size", default="",
-                   help="Target file size (not ported yet)")
+                   help="Target file size (e.g. 100KB, 2MB)")
     p.add_argument("--ssim", type=float, default=0.0,
                    help="Custom SSIM target")
     p.add_argument("--no-orient", action="store_true",
@@ -217,9 +217,7 @@ def _build_options(args) -> Optional[Options]:
         except ValueError as e:
             print(f"Error: {e}", file=sys.stderr)
             return None
-        if size > 0:
-            print(f"Error: {TARGET_SIZE_NOT_PORTED}", file=sys.stderr)
-            return None
+        opts.target_size = size
     opts.quality = parse_quality(args.quality)
     opts.format = parse_format(args.format)
     return opts

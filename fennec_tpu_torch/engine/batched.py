@@ -61,14 +61,13 @@ from .. import device as _device
 from ..codecs.jpeg import encode_quantized
 from ..image import analyze_format, is_opaque, to_nrgba, validate_image
 from ..ops.resize import (
-    resize_weights,
+    lanczos_weights_device,
     smart_resize,
     smart_resize_dims,
-    weights_on,
 )
 from ..types import (
     DEVICE_ENTROPY_NOT_PORTED,
-    TARGET_SIZE_NOT_PORTED,
+    CanceledError,
     Context,
     Format,
     Options,
@@ -93,10 +92,14 @@ OnError = Callable[[int, BaseException], None]
 class EngineCounters:
     """What the batch engines did, for a caller that must show where a
     batch went: items finished per route ("coefficient", "pixel", "png",
-    and "pool" for batch.py's per-file pool), device chunks with their
-    item counts, the bytes uploaded to the device, and host-clock
-    seconds per stage ("prep" and "device" per chunk, "encode" summed
-    over items and threads)."""
+    "target-size", and "pool" for batch.py's per-file pool), device
+    chunks with their item counts, the bytes uploaded to the device,
+    host-clock seconds per stage ("prep" and "device" per chunk, "encode"
+    summed over items and threads, "ts_s1" .. "ts_s4" per target-size
+    strategy, "ts_encode" and "ts_png" for its host JPEG encode rounds
+    and PNG deflates, which overlap the strategies' seconds) and event
+    counts (the target-size engines' "ts_waves",
+    "ts_probes", "ts_memo_hits" and "ts_s3_rounds")."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -108,6 +111,7 @@ class EngineCounters:
             self.chunk_items: List[int] = []
             self.uploaded_bytes = 0
             self.stage_seconds: collections.Counter = collections.Counter()
+            self.events: collections.Counter = collections.Counter()
 
     def add_time(self, stage: str, seconds: float) -> None:
         with self._lock:
@@ -116,6 +120,10 @@ class EngineCounters:
     def add_route(self, route: str, n: int = 1) -> None:
         with self._lock:
             self.routes[route] += n
+
+    def add_event(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self.events[name] += n
 
     def add_chunk(self, n_items: int, nbytes: int) -> None:
         with self._lock:
@@ -127,7 +135,8 @@ class EngineCounters:
             return {"routes": dict(self.routes),
                     "chunk_items": list(self.chunk_items),
                     "uploaded_bytes": self.uploaded_bytes,
-                    "stage_seconds": dict(self.stage_seconds)}
+                    "stage_seconds": dict(self.stage_seconds),
+                    "events": dict(self.events)}
 
 
 # The one instance both engines and batch.py count into.
@@ -389,39 +398,31 @@ def compress_images_batched(ctx: Optional[Context],
                             device: _device.DeviceLike = None,
                             on_error: Optional[OnError] = None
                             ) -> List[Result]:
-    """Standard-mode compression of many decoded images with shared
-    options, device-batched; Results in input order (JAX :1840).
+    """Compression of many decoded images with shared options,
+    device-batched; Results in input order (JAX :1840).
 
     Equivalent to [compress_image(ctx, im, opts) for im in images]: the
     chunks upload the RGB (RGBA where an image has alpha) pixels the
     single-image path uploads, so each image's bytes are the same.
     on_chunk streams [(index, Result)] groups as they become final,
     on_error (index, error) pairs; FusedChunkError follows the work when
-    any item failed.  workers sizes the host encode pool (0 = auto)."""
+    any item failed.  workers sizes the host encode pool (0 = auto).
+    Target-size mode goes to _compress_images_targetsize."""
     _check_options(opts)
-    if opts.target_size > 0:
-        raise NotImplementedError(TARGET_SIZE_NOT_PORTED)
     n = len(images)
     if n == 0:
         return []
     dev = _device.resolve(device)
+    results, prepped = _prepare(ctx, images, opts, dev)
+    if opts.target_size > 0:
+        return _compress_images_targetsize(ctx, results, prepped, opts, dev,
+                                           workers, on_chunk, chunk_size,
+                                           on_error)
     target = _target(opts)
-    results: List[Optional[Result]] = [None] * n
-    prepped: List[Optional[np.ndarray]] = [None] * n
     buckets: Dict[Tuple[int, int], List[int]] = {}
-    for i, img in enumerate(images):
-        if ctx is not None:
-            ctx.raise_if_done()
-        arr = to_nrgba(validate_image(img))
-        res = Result(original_dimensions=(arr.shape[1], arr.shape[0]))
-        if opts.max_width > 0 or opts.max_height > 0:
-            arr = smart_resize(arr, opts.max_width, opts.max_height, dev)
-        res.image = arr
-        res.final_dimensions = (arr.shape[1], arr.shape[0])
+    for i, (res, arr) in enumerate(zip(results, prepped)):
         res.format = analyze_format(arr) if opts.format == Format.AUTO \
             else opts.format
-        results[i] = res
-        prepped[i] = arr
         if res.format == Format.PNG:
             res.compressed_data = compress_png(arr, opts)
             res.ssim = 1.0
@@ -440,7 +441,7 @@ def compress_images_batched(ctx: Optional[Context],
         step = chunk_size_for(h * w, dev, chunk_size)
         chunks += [idxs[s:s + step] for s in range(0, len(idxs), step)]
     if not chunks:
-        return results  # type: ignore[return-value]
+        return results
 
     subsample = bool(opts.subsample)
     pipe = _Pipeline(ctx, dev, results, "pixel", workers, on_chunk,
@@ -468,7 +469,118 @@ def compress_images_batched(ctx: Optional[Context],
         return _finish(results[i], out, j, w, h, opts)
 
     pipe.run(chunks, prep, run_device, encode)
-    return results  # type: ignore[return-value]
+    return results
+
+
+def _prepare(ctx: Optional[Context], images: List[np.ndarray],
+             opts: Options, dev: torch.device
+             ) -> Tuple[List[Result], List[np.ndarray]]:
+    """Validate, convert to NRGBA and smart-resize every image: a Result
+    per image (dimensions and image set) and the pixels to compress."""
+    results, prepped = [], []
+    for img in images:
+        if ctx is not None:
+            ctx.raise_if_done()
+        arr = to_nrgba(validate_image(img))
+        res = Result(original_dimensions=(arr.shape[1], arr.shape[0]))
+        if opts.max_width > 0 or opts.max_height > 0:
+            arr = smart_resize(arr, opts.max_width, opts.max_height, dev)
+        res.image = arr
+        res.final_dimensions = (arr.shape[1], arr.shape[0])
+        results.append(res)
+        prepped.append(arr)
+    return results, prepped
+
+
+def _compress_images_targetsize(ctx: Optional[Context],
+                                results: List[Result],
+                                prepped: List[np.ndarray], opts: Options,
+                                dev: torch.device, workers: int,
+                                on_chunk: Optional[OnChunk],
+                                chunk_size: int,
+                                on_error: Optional[OnError]
+                                ) -> List[Result]:
+    """Target-size mode over many images (JAX :1787): same-shape buckets
+    go through the lockstep engine (engine/targetsize_batched.py) in
+    chunks sized by chunk_size_for, and a chunk of one image takes the
+    per-image engine.  Each image's result does not depend on its chunk,
+    so it is compress_image's with the same options.  A failed chunk
+    fails its own items (on_error, then FusedChunkError at the end);
+    out-of-memory retries the chunk as two half chunks, down to one
+    image, as _Pipeline does; a CUDA error other than out-of-memory
+    fails every unfinished item and wedges the batch."""
+    from .pipeline import apply_size_result
+    from .targetsize import hit_target_size
+    from .targetsize_batched import hit_target_size_batched
+
+    buckets: Dict[Tuple[int, int], List[int]] = {}
+    for i, arr in enumerate(prepped):
+        buckets.setdefault(arr.shape[:2], []).append(i)
+    chunks = []
+    for (h, w), idxs in buckets.items():
+        step = chunk_size_for(h * w, dev, chunk_size)
+        chunks += [idxs[s:s + step] for s in range(0, len(idxs), step)]
+    errors: Dict[int, BaseException] = {}
+    done: set = set()
+
+    def fail(ids: List[int], exc: BaseException) -> None:
+        for i in ids:
+            errors[i] = exc
+            if on_error is not None:
+                on_error(i, exc)
+
+    def run(ids: List[int]) -> None:
+        """One chunk; a CUDA error other than out-of-memory propagates."""
+        try:
+            if len(ids) >= 2:
+                srs = hit_target_size_batched(
+                    ctx, [prepped[i] for i in ids], opts.target_size, opts,
+                    dev, workers)
+            else:
+                srs = [hit_target_size(ctx, prepped[ids[0]],
+                                       opts.target_size, opts, dev)]
+        except CanceledError:
+            raise
+        except torch.cuda.OutOfMemoryError as exc:
+            # Drop the frames that hold the chunk's tensors.
+            oom = exc.with_traceback(None)
+        except Exception as exc:  # noqa: BLE001 — classified below
+            if _is_cuda_error(exc):
+                raise
+            fail(ids, exc)
+            return
+        else:
+            for i, sr in zip(ids, srs):
+                apply_size_result(results[i], sr)
+            done.update(ids)
+            counters.add_chunk(len(ids), sum(prepped[i].nbytes for i in ids))
+            counters.add_route("target-size", len(ids))
+            if on_chunk is not None:
+                on_chunk([(i, results[i]) for i in ids])
+            return
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        if len(ids) == 1:
+            fail(ids, oom)
+            return
+        half = len(ids) // 2
+        run(ids[:half])
+        run(ids[half:])
+
+    for ids in chunks:
+        if ctx is not None:
+            ctx.raise_if_done()
+        try:
+            run(ids)
+        except Exception as exc:  # noqa: BLE001 — classified below
+            if not _is_cuda_error(exc):
+                raise
+            fail([i for c in chunks for i in c
+                  if i not in done and i not in errors], exc)
+            raise FusedChunkError(errors, wedged=True) from exc
+    if errors:
+        raise FusedChunkError(errors)
+    return results
 
 
 # ── Coefficient path ────────────────────────────────────────────────────────
@@ -556,7 +668,7 @@ def compress_jpeg_bytes_batched(ctx: Optional[Context],
         dst_w, dst_h = smart_resize_dims(w, h, opts.max_width,
                                          opts.max_height)
         if (dst_w, dst_h) != (w, h):
-            rwh, rwv = weights_on(resize_weights(w, h, dst_w, dst_h), dev)
+            rwh, rwv = lanczos_weights_device(w, h, dst_w, dst_h, dev)
 
     n = len(datas)
     results: List[Result] = [

@@ -31,17 +31,17 @@ from ..codecs.jpeg import encode_jpeg_from_coefs, forward_dct
 from ..image import is_grayscale, to_gray, to_nrgba_ref
 from ..ops import dct as dct_ops
 from ..ops.color import clamp_u8, ycbcr_to_rgb
-from ..ops.resize import box_resize_weights, separable_resample, weights_on
+from ..ops.resize import box_weights_device, separable_resample
 from ..ops.ssim import (
-    SSIM_C1,
-    SSIM_C2,
     WINDOW_SIZE,
+    pixel_ssim_lum,
     ssim_fast_dims,
     ssim_map_pre,
     ssim_premaps,
 )
 from ..ops.ssim_cuda import ssim_window
 from ..types import DEVICE_ENTROPY_NOT_PORTED, Options
+from .size_search import quality_tables_on
 
 MAX_BISECT_STEPS = 7  # ceil(log2(100)) — covers any [lo, hi] ⊆ [1, 100]
 
@@ -145,15 +145,21 @@ class SearchInputs:
 def prepare_search(imgs: torch.Tensor, subsample: bool):
     """(B, H, W, 4) float32 images on the device → (SearchInputs, their
     forward-DCT coefficient blocks (y, cb, cr), each (B, N, 64))."""
+    coefs = forward_dct(imgs, subsample)
+    return search_inputs(imgs, coefs, subsample), coefs
+
+
+def search_inputs(imgs: torch.Tensor, coefs, subsample: bool
+                  ) -> SearchInputs:
+    """SearchInputs of (B, H, W, 4) float32 images whose forward-DCT
+    blocks `coefs` are already computed."""
     dev = imgs.device
     h, w = int(imgs.shape[1]), int(imgs.shape[2])
-    coefs = forward_dct(imgs, subsample)
     ds_w, ds_h = ssim_fast_dims(w, h)
     box_wh = box_wv = None
     planes = imgs[..., :3].permute(0, 3, 1, 2)  # (B, 3, H, W) r, g, b
     if (ds_w, ds_h) != (w, h):
-        box_wh, box_wv = weights_on(box_resize_weights(w, h, ds_w, ds_h),
-                                    dev)
+        box_wh, box_wv = box_weights_device(w, h, ds_w, ds_h, dev)
         planes = _box_down_plane(planes, box_wh, box_wv)
     lum_orig = _luminance(planes[:, 0], planes[:, 1], planes[:, 2])
 
@@ -163,12 +169,10 @@ def prepare_search(imgs: torch.Tensor, subsample: bool):
     cplanes = (dct_ops.from_blocks(coefs[0], ph, pw),
                dct_ops.from_blocks(coefs[1], ch, cw),
                dct_ops.from_blocks(coefs[2], ch, cw))
-    tables = torch.from_numpy(
-        dct_ops.all_quality_tables().astype(np.float32)).to(dev)
+    tables = quality_tables_on(dev)
     dmat = torch.from_numpy(dct_ops.dct_matrix().astype(np.float32)).to(dev)
-    inp = SearchInputs(cplanes, lum_orig.contiguous(), box_wh, box_wv,
-                       tables, dmat, subsample, h, w)
-    return inp, coefs
+    return SearchInputs(cplanes, lum_orig.contiguous(), box_wh, box_wv,
+                        tables, dmat, subsample, h, w)
 
 
 def probe_luminance(inp: SearchInputs, quality: torch.Tensor) -> torch.Tensor:
@@ -181,21 +185,6 @@ def probe_luminance(inp: SearchInputs, quality: torch.Tensor) -> torch.Tensor:
         r, g, b = (_box_down_plane(p, inp.box_wh, inp.box_wv)
                    for p in (r, g, b))
     return _luminance(r, g, b)
-
-
-def _pixel_ssim(lum_a: torch.Tensor, lum_b: torch.Tensor) -> torch.Tensor:
-    """Global-moment SSIM of (B, H, W) pairs, for images under 8 px
-    (reference ssim.go:169-204)."""
-    mu_a = lum_a.mean(dim=(1, 2))
-    mu_b = lum_b.mean(dim=(1, 2))
-    da = lum_a - mu_a[:, None, None]
-    db = lum_b - mu_b[:, None, None]
-    num = (2 * mu_a * mu_b + SSIM_C1) * (2 * (da * db).mean(dim=(1, 2))
-                                         + SSIM_C2)
-    den = ((mu_a ** 2 + mu_b ** 2 + SSIM_C1)
-           * ((da * da).mean(dim=(1, 2)) + (db * db).mean(dim=(1, 2))
-              + SSIM_C2))
-    return num / den
 
 
 def _bisect_device_batch(inp: SearchInputs, targets: torch.Tensor,
@@ -221,7 +210,7 @@ def _bisect_device_batch(inp: SearchInputs, targets: torch.Tensor,
             return ssim_map_pre(pre_a, inp.lum_orig, lum).mean(dim=(-2, -1))
         if constant_one:
             return torch.ones_like(targets)
-        return _pixel_ssim(inp.lum_orig, lum)
+        return pixel_ssim_lum(inp.lum_orig, lum)
 
     bsz = targets.shape[0]
     dev = targets.device

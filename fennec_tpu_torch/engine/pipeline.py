@@ -1,8 +1,8 @@
 """Shared compression pipeline (reference fennec.go:107-205).
 
 Counterpart of fennec_tpu/engine/pipeline.py: validate → NRGBA → EXIF
-orient → smart resize → standard mode (SSIM-guided JPEG search or
-optimized PNG).  Target-size mode is not ported yet and raises.
+orient → smart resize → target-size mode (engine/targetsize.py) or
+standard mode (SSIM-guided JPEG search or optimized PNG).
 """
 
 from __future__ import annotations
@@ -16,7 +16,6 @@ from ..exif import Orientation, apply_orientation
 from ..image import analyze_format, to_nrgba, validate_image
 from ..ops.resize import smart_resize
 from ..types import (
-    TARGET_SIZE_NOT_PORTED,
     Context,
     Format,
     Options,
@@ -51,8 +50,32 @@ def compress_image_internal(ctx: Optional[Context], img: np.ndarray,
     opts.report_progress(ctx, ProgressStage.COMPRESSING, 0.2)
 
     if opts.target_size > 0:
-        raise NotImplementedError(TARGET_SIZE_NOT_PORTED)
+        return _handle_target_size_mode(ctx, src, opts, result, device)
     return _handle_standard_mode(ctx, src, opts, result, device)
+
+
+def _handle_target_size_mode(ctx: Optional[Context], src: np.ndarray,
+                             opts: Options, result: Result,
+                             device: _device.DeviceLike) -> Result:
+    # reference fennec.go:143-160
+    from .targetsize import hit_target_size
+
+    sr = hit_target_size(ctx, src, opts.target_size, opts, device)
+    apply_size_result(result, sr)
+    return result
+
+
+def apply_size_result(result: Result, sr) -> None:
+    """Copy a target-size SizeResult into the caller's Result."""
+    result.compressed_data = sr.data
+    result.format = sr.format
+    result.jpeg_quality = sr.quality
+    result.ssim = sr.ssim
+    result.final_dimensions = (sr.final_w, sr.final_h)
+    if sr.img is not None:
+        result.image = sr.img
+    result.compressed_size = len(sr.data)
+    result.compute_stats()
 
 
 def _handle_standard_mode(ctx: Optional[Context], src: np.ndarray,

@@ -7,11 +7,18 @@ un-premultiplies after (reference resize.go:96-113); box downsample
 averages each channel on its own and rounds to integral values, as the
 reference's SSIMFast scores uint8 images (ssim.go:244-309).  TF32 stays
 off (device.py), so both products are full float32.
+
+Weight matrices on the device are cached per (kind, source, destination,
+device), bounded by bytes (box_weights_device, lanczos_weights_device):
+the target-size search resamples one source at many probe geometries,
+and a 12 MP pair is megabytes.
 """
 
 from __future__ import annotations
 
+import collections
 import math
+import threading
 from typing import Tuple
 
 import numpy as np
@@ -41,6 +48,48 @@ def weights_on(pair, device: torch.device):
     return tuple(torch.from_numpy(w).to(device) for w in pair)
 
 
+WEIGHT_CACHE_BYTES = 128 * 1024 * 1024  # of device memory, per process
+_weight_cache: "collections.OrderedDict" = collections.OrderedDict()
+_weight_cache_lock = threading.Lock()
+
+
+def _cached_weights(kind: str, make, src_w: int, src_h: int, dst_w: int,
+                    dst_h: int, device: torch.device):
+    """(wh, wv) for one geometry on `device`, built on first use.  The
+    least recently used pairs leave once the cache holds more than
+    WEIGHT_CACHE_BYTES.  The batch engines call this from worker
+    threads, hence the lock; a concurrent duplicate build is harmless."""
+    key = (kind, src_w, src_h, dst_w, dst_h, str(device))
+    with _weight_cache_lock:
+        hit = _weight_cache.get(key)
+        if hit is not None:
+            _weight_cache.move_to_end(key)
+            return hit
+    pair = weights_on(make(src_w, src_h, dst_w, dst_h), device)
+    with _weight_cache_lock:
+        _weight_cache[key] = pair
+        total = sum(w.nbytes for p in _weight_cache.values() for w in p)
+        while len(_weight_cache) > 1 and total > WEIGHT_CACHE_BYTES:
+            _, old = _weight_cache.popitem(last=False)
+            total -= sum(w.nbytes for w in old)
+    return pair
+
+
+def box_weights_device(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                       device: torch.device):
+    """Box weights (counterpart of box_weights_device, JAX :141)."""
+    return _cached_weights("box", box_resize_weights, src_w, src_h, dst_w,
+                           dst_h, device)
+
+
+def lanczos_weights_device(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                           device: torch.device):
+    """Lanczos-3 weights (counterpart of lanczos_weights_device,
+    JAX :148)."""
+    return _cached_weights("lanczos", resize_weights, src_w, src_h, dst_w,
+                           dst_h, device)
+
+
 def separable_resample(planes: torch.Tensor, wh: torch.Tensor,
                        wv: torch.Tensor) -> torch.Tensor:
     """(..., H, W) planes → (..., H', W'): horizontal pass with wh (W', W),
@@ -65,6 +114,29 @@ def lanczos_resize_device(img: torch.Tensor, wh: torch.Tensor,
     return clamp_u8(torch.cat([rgb, a_out], dim=-1))
 
 
+def box_downsample_device(img: torch.Tensor, wh: torch.Tensor,
+                          wv: torch.Tensor) -> torch.Tensor:
+    """Box-filter downsample (..., H, W, C) → (..., H', W', C), channels
+    averaged on their own (reference ssim.go:244-309), rounded to
+    integral float32 values."""
+    planes = img.to(torch.float32).movedim(-1, -3)
+    return clamp_u8(separable_resample(planes, wh, wv)).movedim(-3, -1)
+
+
+def box_downsample(img, dst_w: int, dst_h: int,
+                   device: _device.DeviceLike = None) -> np.ndarray:
+    """Box-filter downsample (reference ssim.go:243-284): (H, W, 4) uint8
+    → (dst_h, dst_w, 4) uint8, computed on `device`."""
+    arr = to_nrgba_ref(np.asarray(img))
+    src_h, src_w = arr.shape[:2]
+    if src_w <= 0 or src_h <= 0 or dst_w <= 0 or dst_h <= 0:
+        return np.zeros((max(dst_h, 0), max(dst_w, 0), 4), dtype=np.uint8)
+    dev = _device.resolve(device)
+    wh, wv = box_weights_device(src_w, src_h, dst_w, dst_h, dev)
+    out = box_downsample_device(torch.from_numpy(arr).to(dev), wh, wv)
+    return out.to(torch.uint8).cpu().numpy()
+
+
 def lanczos_resize(img, dst_w: int, dst_h: int,
                    device: _device.DeviceLike = None) -> np.ndarray:
     """Lanczos-3 resize (reference resize.go:34-53): (H, W, 4) uint8 →
@@ -76,7 +148,7 @@ def lanczos_resize(img, dst_w: int, dst_h: int,
     if src_w == dst_w and src_h == dst_h:
         return arr.copy()
     dev = _device.resolve(device)
-    wh, wv = weights_on(resize_weights(src_w, src_h, dst_w, dst_h), dev)
+    wh, wv = lanczos_weights_device(src_w, src_h, dst_w, dst_h, dev)
     x = torch.from_numpy(arr).to(dev)
     out = lanczos_resize_device(x, wh, wv)
     return out.to(torch.uint8).cpu().numpy()

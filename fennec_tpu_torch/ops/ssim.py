@@ -10,6 +10,12 @@ pass first, taps added in order k = 0..7: the arithmetic of the JAX
 package, op for op.  Not conv2d: cuDNN would run it in TF32 by default.
 This module is what the CPU runs and what the CUDA kernel
 (ops/ssim_cuda.py) is held against on the card.
+
+It also holds SSIMFast on images (ssim_fast_images, and the host APIs
+ssim_fast, pixel_ssim and compute_ssim_nrgba, JAX ops/ssim.py:239-281,
+398-404): box-downsample to at most 512 px, luminance, then windowed SSIM
+through K1's wrapper, which launches the kernel on CUDA tensors and takes
+batched_ssim_plain on CPU tensors.
 """
 
 from __future__ import annotations
@@ -17,9 +23,19 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
+from .. import device as _device
+from ..image import to_nrgba_ref
+from .color import luminance
 from .filters import gaussian_window_1d
+from .resize import (
+    box_downsample_device,
+    box_weights_device,
+    lanczos_resize_device,
+    lanczos_weights_device,
+)
 
 SSIM_K1 = 0.01
 SSIM_K2 = 0.03
@@ -113,3 +129,89 @@ def ssim_fast_dims(w: int, h: int, max_dim: int = 512) -> Tuple[int, int]:
     new_w = int(max(8, math.floor(w * scale + 0.5)))
     new_h = int(max(8, math.floor(h * scale + 0.5)))
     return new_w, new_h
+
+
+def pixel_ssim_lum(lum_a: torch.Tensor, lum_b: torch.Tensor) -> torch.Tensor:
+    """Global-moment SSIM of (B, H, W) luminance pairs, for images under
+    8 px (reference ssim.go:169-204) → (B,)."""
+    mu_a = lum_a.mean(dim=(1, 2))
+    mu_b = lum_b.mean(dim=(1, 2))
+    da = lum_a - mu_a[:, None, None]
+    db = lum_b - mu_b[:, None, None]
+    num = (2 * mu_a * mu_b + SSIM_C1) * (2 * (da * db).mean(dim=(1, 2))
+                                         + SSIM_C2)
+    den = ((mu_a ** 2 + mu_b ** 2 + SSIM_C1)
+           * ((da * da).mean(dim=(1, 2)) + (db * db).mean(dim=(1, 2))
+              + SSIM_C2))
+    return num / den
+
+
+def ssim_fast_images(imgs_a: torch.Tensor, imgs_b: torch.Tensor,
+                     max_dim: int = 512) -> torch.Tensor:
+    """SSIMFast of (B, H, W, C>=3) image pairs of one shape → (B,)
+    float32 on their device (reference ssim.go:48-70; the routing of
+    JAX parallel/batched.py:1306-1334 and ops/ssim.py:263-281).
+
+    Over max_dim the RGB channels are box-downsampled and rounded, then
+    scored as luminance; a side of exactly 8 px has no window position
+    (1.0, ssim.go:162-164), a side under 8 px takes the global-moment
+    SSIM, and windowed SSIM goes through K1's wrapper."""
+    from .ssim_cuda import ssim_window
+
+    bsz, h, w = imgs_a.shape[:3]
+    dev = imgs_a.device
+    a = imgs_a[..., :3].to(torch.float32)
+    b = imgs_b[..., :3].to(torch.float32)
+    new_w, new_h = ssim_fast_dims(w, h, max_dim)
+    if (new_w, new_h) != (w, h):
+        wh, wv = box_weights_device(w, h, new_w, new_h, dev)
+        a = box_downsample_device(a, wh, wv)
+        b = box_downsample_device(b, wh, wv)
+        w, h = new_w, new_h
+    ones = torch.ones((bsz,), dtype=torch.float32, device=dev)
+    if w < WINDOW_SIZE or h < WINDOW_SIZE:
+        if w * h == 0:
+            return ones
+        return pixel_ssim_lum(luminance(a), luminance(b))
+    if w == WINDOW_SIZE or h == WINDOW_SIZE:
+        return ones
+    return ssim_window(luminance(a).contiguous(), luminance(b).contiguous())
+
+
+def _image_tensor(img, dev: torch.device) -> torch.Tensor:
+    """An (H, W, C) image (numpy, or a tensor) as float32 NRGBA on dev."""
+    if isinstance(img, torch.Tensor):
+        return img.to(dev, torch.float32)
+    arr = to_nrgba_ref(np.asarray(img))
+    return torch.from_numpy(arr).to(dev).to(torch.float32)
+
+
+def pixel_ssim(img_a, img_b, device: _device.DeviceLike = None) -> float:
+    """Global-moment SSIM of two images (reference ssim.go:169-204)."""
+    dev = _device.resolve(device)
+    a, b = _image_tensor(img_a, dev), _image_tensor(img_b, dev)
+    if a.shape[0] * a.shape[1] == 0:
+        return 1.0
+    return float(pixel_ssim_lum(luminance(a)[None], luminance(b)[None])[0])
+
+
+def ssim_fast(img1, img2, max_dim: int = 512,
+              device: _device.DeviceLike = None) -> float:
+    """SSIM on box-downsampled inputs capped at max_dim px (reference
+    ssim.go:48-70).  Inputs must share dimensions."""
+    dev = _device.resolve(device)
+    a, b = _image_tensor(img1, dev), _image_tensor(img2, dev)
+    return float(ssim_fast_images(a[None], b[None], max_dim)[0])
+
+
+def compute_ssim_nrgba(a, b, device: _device.DeviceLike = None) -> float:
+    """SSIMFast with b Lanczos-resized to a's dimensions first
+    (reference targetsize.go:563-568).  The resize stays on the device:
+    its output is integral, so it scores as the uint8 image would."""
+    dev = _device.resolve(device)
+    ta, tb = _image_tensor(a, dev), _image_tensor(b, dev)
+    h, w = ta.shape[:2]
+    if tb.shape[:2] != (h, w):
+        wh, wv = lanczos_weights_device(tb.shape[1], tb.shape[0], w, h, dev)
+        tb = lanczos_resize_device(tb, wh, wv)
+    return float(ssim_fast_images(ta[None], tb[None])[0])

@@ -1,11 +1,13 @@
-"""The coefficient path's device chunk: JPEG blocks in, JPEG blocks out.
+"""Batch device work: the coefficient path's chunk, and batched SSIMFast.
 
 Counterpart of the part of fennec_tpu/parallel/batched.py the batch
 engines run.  batched_decode_resize_search_quantize (:515) reconstructs a
 chunk of same-geometry JPEGs from their quantized blocks, optionally
 Lanczos-resizes them and runs the lockstep quality search; pixels never
-leave the device.  `_dense_to_imgs` (:663) is engine/compress.py's
-decode_jpeg_image here, which already takes the whole batch.
+leave the device.  batched_ssim_fast (:1306) scores a batch of image
+pairs with one K1 call on a CUDA device.  `_dense_to_imgs` (:663) is
+engine/compress.py's decode_jpeg_image here, which already takes the
+whole batch.
 
 The JAX package's sparse upload layouts (COO, CSR, dense int8 with an
 exception list, :542-807) exist to cut uploads over a ~42 MB/s link to a
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..engine.compress import (
@@ -24,6 +27,7 @@ from ..engine.compress import (
     decode_jpeg_image,
 )
 from ..ops.resize import lanczos_resize_device
+from ..ops.ssim import ssim_fast_images
 
 
 def batched_decode_resize_search_quantize(
@@ -40,3 +44,12 @@ def batched_decode_resize_search_quantize(
     if resize_wh is not None:
         imgs = lanczos_resize_device(imgs, resize_wh, resize_wv)
     return batched_quality_search_quantize(imgs, targets, out_subsample)
+
+
+def batched_ssim_fast(imgs_a: torch.Tensor,
+                      imgs_b: torch.Tensor) -> np.ndarray:
+    """SSIMFast per pair of two (B, H, W, 4) image batches of one shape
+    on one device (reference ssim.go:48-70, with ops/ssim.ssim_fast's
+    routing of small images) → (B,) host floats.  On a CUDA device the
+    windowed score is one K1 call for the batch."""
+    return ssim_fast_images(imgs_a, imgs_b).cpu().numpy()

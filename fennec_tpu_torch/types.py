@@ -21,10 +21,8 @@ import numpy as np
 VERSION = "1.0.0"
 
 
-# Parts of the JAX package's surface the port does not have yet; the API,
-# the batch engines and the CLI refuse them with these messages.
-TARGET_SIZE_NOT_PORTED = ("fennec: target-size mode is not ported to "
-                          "PyTorch yet")
+# A part of the JAX package's surface the port does not have yet; the API,
+# the batch engines and the CLI refuse it with this message.
 DEVICE_ENTROPY_NOT_PORTED = (
     "fennec: device Huffman emission is not ported to PyTorch yet; use "
     "device_entropy=None or False for the host C++ encoder")

@@ -142,9 +142,13 @@ def test_auto_routing_and_png_stream_first():
 
 def test_empty_and_unported_options():
     assert T.compress_images(None, [], T.Options(), device=CPU) == []
-    with pytest.raises(NotImplementedError, match="target-size"):
-        T.compress_images(None, [photo(16, 16, 1)],
-                          T.Options(target_size=1000), device=CPU)
+    # Target-size mode runs (tests/test_torch_targetsize.py): one image
+    # takes the per-image engine and gives compress_image's result.
+    opts = T.Options(format=T.JPEG, target_size=1000)
+    got = T.compress_images(None, [photo(40, 40, 1)], opts, device=CPU)[0]
+    want = T.compress_image(None, photo(40, 40, 1), opts, device=CPU)
+    assert got.compressed_data == want.compressed_data
+    assert got.compressed_size <= 1000
     with pytest.raises(NotImplementedError, match="Huffman"):
         T.compress_images(None, [photo(16, 16, 1)],
                           T.Options(format=T.JPEG, device_entropy=True),

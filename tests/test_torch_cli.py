@@ -5,8 +5,8 @@ files, the port's with --device cpu: single-file, --batch and --analyze
 must give the same exit code, the same chosen quality (read back from
 each output's quantization table) and the same analysis lines.  One run
 of `python -m fennec_tpu_torch` in a subprocess shows the module entry
-point works.  --target-size and --device-entropy on exit non-zero: those
-are not ported yet.
+point works.  --device-entropy on (not ported yet), an unparsable
+--target-size and an out-of-range --ssim exit non-zero.
 """
 
 import os
@@ -173,7 +173,7 @@ def test_analyze_fields_match_jax(make):
 
 
 @pytest.mark.parametrize("flags,msg", [
-    (["--target-size", "4KB"], "target-size mode is not ported"),
+    (["--target-size", "4XB"], "invalid size '4XB'"),
     (["--device-entropy", "on"], "device Huffman emission is not ported"),
     (["--ssim", "1.5"], "--ssim must be in"),
 ], ids=["target-size", "device-entropy", "bad-ssim"])

@@ -120,3 +120,55 @@ def test_batch_engines_on_card(cuda_device):
         assert a.jpeg_quality == b.jpeg_quality
         assert abs(a.ssim - b.ssim) <= ATOL
     assert counters.snapshot()["routes"] == {"pixel": 6, "coefficient": 12}
+
+
+def photo(w, h, seed):
+    """Smooth gradients with coarse noise: compressible, photo-like."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.full((h, w, 4), 255, np.uint8)
+    base = np.stack([255 * x / w, 255 * y / h, 128 + 60 * np.sin(x / 17)],
+                    axis=-1)
+    noise = np.kron(rng.normal(0, 12, (h // 8 + 1, w // 8 + 1, 3)),
+                    np.ones((8, 8, 1)))[:h, :w]
+    img[..., :3] = np.clip(base + noise, 0, 255).astype(np.uint8)
+    return img
+
+
+def test_target_size_on_card_matches_cpu(cuda_device):
+    """The per-image and lockstep target-size engines give the same
+    results on the card as on the CPU, and score SSIM through K1."""
+    from fennec_tpu_torch.engine.targetsize import hit_target_size
+    from fennec_tpu_torch.engine.targetsize_batched import (
+        hit_target_size_batched,
+    )
+
+    imgs = [photo(160, 120, s) for s in range(3)]
+    opts = T.Options(format=T.JPEG, target_size=1600)
+    before = ssim_window.launches
+    on_card = hit_target_size_batched(None, imgs, 1600, opts,
+                                      device=cuda_device)
+    assert ssim_window.launches > before
+    for img, got in zip(imgs, on_card):
+        want = hit_target_size(None, img, 1600, opts, device="cpu")
+        assert (got.format, got.quality, got.final_w, got.final_h) == (
+            want.format, want.quality, want.final_w, want.final_h)
+        assert abs(got.ssim - want.ssim) <= 1e-4
+        assert abs(len(got.data) - len(want.data)) <= 8
+
+
+def test_size_oracle_and_palette_map_on_card(cuda_device):
+    from fennec_tpu_torch.ops.jpeg_size import scan_bits
+    from fennec_tpu_torch.ops.quantize import apply_palette, median_cut
+
+    rng = np.random.default_rng(3)
+    blocks = [rng.integers(-60, 60, (n, 64)).astype(np.float32)
+              * (rng.random((n, 64)) < 0.2) for n in (48, 12, 12)]
+    cpu = scan_bits(*(torch.from_numpy(b) for b in blocks), 64, 48, True)
+    card = scan_bits(*(torch.from_numpy(b).to(cuda_device) for b in blocks),
+                     64, 48, True)
+    assert int(card) == int(cpu)
+    img = photo(300, 200, 4)
+    pal = median_cut(img, 64)
+    np.testing.assert_array_equal(apply_palette(img, pal, cuda_device),
+                                  apply_palette(img, pal, "cpu"))

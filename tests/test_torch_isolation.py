@@ -27,7 +27,11 @@ def test_import_leaves_jax_out():
             " fennec_tpu_torch.ops.ssim_cuda, fennec_tpu_torch.batch,"
             " fennec_tpu_torch.engine.batched, fennec_tpu_torch.cli,"
             " fennec_tpu_torch.parallel.batched,"
-            " fennec_tpu_torch.codecs.progressive, fennec_tpu_torch.analyze; "
+            " fennec_tpu_torch.codecs.progressive, fennec_tpu_torch.analyze,"
+            " fennec_tpu_torch.engine.targetsize,"
+            " fennec_tpu_torch.engine.targetsize_batched,"
+            " fennec_tpu_torch.engine.size_search,"
+            " fennec_tpu_torch.ops.jpeg_size, fennec_tpu_torch.ops.quantize; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'fennec_tpu' "
             "or m.startswith('fennec_tpu.')]; "

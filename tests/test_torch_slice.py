@@ -258,9 +258,18 @@ def test_png_alpha_roundtrip_via_compress():
 
 
 def test_target_size_not_ported():
-    with pytest.raises(NotImplementedError, match="target-size"):
-        T.compress_image(None, make_test_image(32, 32),
-                         T.Options(target_size=1000), device="cpu")
+    """Target-size mode runs through compress_image: the JAX package's
+    format, quality, geometry and bytes (tests/test_torch_targetsize.py
+    holds every strategy to it)."""
+    img = photo_image(96, 64, seed=4)
+    opts = dict(format=J.JPEG, target_size=3000)
+    rj = J.compress_image(None, img, J.Options(**opts))
+    rt = T.compress_image(None, img, T.Options(**opts), device="cpu")
+    assert (rt.format, rt.jpeg_quality, rt.final_dimensions) == (
+        rj.format, rj.jpeg_quality, rj.final_dimensions)
+    assert rt.compressed_size <= 3000
+    assert rt.compressed_data == rj.compressed_data
+    assert rt.ssim == pytest.approx(rj.ssim, abs=1e-4)
 
 
 def test_device_entropy_not_ported():
