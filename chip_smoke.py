@@ -9,7 +9,13 @@ Phases, each raising on failure:
      the sources in this checkout;
   3. K1 against its plain PyTorch version on the card, at the shapes the
      main paths give it and beyond, the batch engines' (64, 500, 500)
-     included (max |diff| <= 1e-5), with both times;
+     included, and at ragged shapes for its strips and bands: max |diff|
+     <= 1e-5, an identical pair 1.0, two calls bit-identical, the last
+     image alone bit-identical to its score in the batch.  At the
+     timed shapes: K1's device time (torch.profiler, its kernel's rows
+     only), its CUDA-event time per call (host cost included), its host
+     time per call, its bound and share of it, and the plain version's
+     CUDA-event time;
   4. the single-image path through the public entry points: compress_file
      on a 12 MP (4032x3024) photo-like JPEG, cold then warm; with
      max_width=1920; compress_bytes on four 1920x1080 requests at ULTRA,
@@ -83,10 +89,19 @@ import torch
 SEED = 20261016
 SHAPES = [(3, 32, 32), (3, 64, 48), (3, 130, 100), (1, 384, 512),
           (4, 288, 512), (1, 1080, 1920), (1, 2160, 3840), (64, 500, 500),
-          (1, 288, 512), (1, 500, 500), (5, 499, 499)]
-TIMED_SHAPES = [(1, 384, 512), (1, 2160, 3840), (64, 500, 500),
-                (1, 500, 500)]
+          (1, 288, 512), (1, 500, 500), (5, 499, 499),
+          # Ragged for K1's strips of 128 columns and bands of rows.
+          (1, 9, 9), (2, 9, 300), (1, 1000, 9), (3, 137, 261),
+          (1, 2161, 3839)]
+TIMED_SHAPES = [(1, 384, 512), (1, 288, 512), (1, 500, 500), (5, 499, 499),
+                (64, 500, 500), (1, 2160, 3840)]
 K1_ATOL = 1e-5  # the bound tests/test_ssim_pallas.py holds Pallas to
+# K1's bound: 174 flops per window position (3 products, 150 in the two
+# window passes, 21 in the formula and the sum) and 8 bytes per pixel,
+# against an H100 SXM's 67 TFLOP/s fp32 and 3.35 TB/s.
+K1_FLOPS_PER_POSITION = 174
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
 DECODE_SSIM_ATOL = 1e-3  # probe model vs real decode: IDCT order, ties
 # The coefficient path's contract against per-image compression
 # (tests/test_coef_fastpath.py:60-97, tests/test_torch_batch.py).
@@ -154,8 +169,65 @@ def photo(w: int, h: int, seed: int, fine: float = 3.0) -> np.ndarray:
     return out
 
 
+def k1_bound(shape):
+    """(least ms the card could take, "operations" or "bytes") for one K1
+    call: each input read once, each output written once."""
+    bsz, h, w = shape
+    flops = K1_FLOPS_PER_POSITION * bsz * (h - 8) * (w - 8)
+    nbytes = 8 * bsz * h * w + 4 * bsz
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def profiled_device_ms(fn, iters: int, name: str,
+                       per_call: int = 1) -> float:
+    """Device ms per fn() call, which launches `per_call` kernels whose
+    names hold `name`, from torch.profiler's CUDA rows of those kernels:
+    their mean time per launch times per_call.  The profiler on the card
+    drops some records of a long run of short launches, so the mean is
+    taken over the launches it recorded (profiled again, up to three
+    times, while it records none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for e in prof.key_averages():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and name in e.key):
+                total += getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0))
+                count += e.count
+        if count:
+            return total / count * per_call / 1e3
+    raise AssertionError(f"torch.profiler recorded no launch of '{name}' "
+                         f"in {iters} calls")
+
+
+def host_us(fn, iters: int) -> float:
+    """Host µs per fn() call: the time to enqueue it, the device not
+    awaited."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def phase_kernel(dev, ssim_window, batched_ssim_plain):
-    """K1 against the plain version; returns (max_abs_err, times)."""
+    """K1 against the plain version at every shape: within K1_ATOL, an
+    identical pair 1.0, two calls bit-identical.  Returns (max_abs_err,
+    {shape: times}) for the timed shapes."""
     rng = np.random.default_rng(SEED)
     worst = 0.0
     times = {}
@@ -165,25 +237,43 @@ def phase_kernel(dev, ssim_window, batched_ssim_plain):
         a = torch.from_numpy(a_np).to(dev)
         b = torch.from_numpy(b_np.astype(np.float32)).to(dev)
         got = ssim_window(a, b)
+        again = ssim_window(a, b)
         want = batched_ssim_plain(a, b)
         ones = ssim_window(a, a.clone())
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         one_err = float((ones - 1.0).abs().max())
+        repeat = torch.equal(got, again)
+        # The batch engines hold batch results to per-image ones bit for
+        # bit: the last image alone must score what it scores in the batch.
+        alone = torch.equal(got[-1:], ssim_window(a[-1:].contiguous(),
+                                                  b[-1:].contiguous()))
         if not (torch.isfinite(got).all() and err <= K1_ATOL
-                and one_err <= K1_ATOL):
+                and one_err <= K1_ATOL and repeat and alone):
             raise AssertionError(f"K1 {shape}: |diff| {err}, identical "
-                                 f"pair off 1.0 by {one_err}")
+                                 f"pair off 1.0 by {one_err}, repeat "
+                                 f"bit-identical {repeat}, alone as in "
+                                 f"the batch {alone}")
         worst = max(worst, err, one_err)
         log(f"k1 shape={shape} max_abs_err={err:.3e} "
-            f"identical_err={one_err:.3e} ssim={got.tolist()[:2]}")
+            f"identical_err={one_err:.3e} repeat_identical={repeat} "
+            f"alone_identical={alone} ssim={got.tolist()[:2]}")
         if shape in TIMED_SHAPES:
-            iters = 200 if a.numel() < 1_000_000 else 30
-            k_ms = cuda_ms(lambda: ssim_window(a, b), iters)
-            p_ms = cuda_ms(lambda: batched_ssim_plain(a, b), iters)
-            times[shape] = (k_ms, p_ms)
-            log(f"k1 time shape={shape} kernel_ms={k_ms:.5f} "
-                f"plain_ms={p_ms:.5f}")
+            iters = 200 if a.numel() < 1_000_000 else 50
+            t = {"ms": profiled_device_ms(lambda: ssim_window(a, b), iters,
+                                          "ssim_window_kernel"),
+                 "event_ms": cuda_ms(lambda: ssim_window(a, b), iters),
+                 "host_us": host_us(lambda: ssim_window(a, b), iters),
+                 "plain_ms": cuda_ms(lambda: batched_ssim_plain(a, b),
+                                     iters // 5)}
+            t["bound_ms"], t["bound_by"] = k1_bound(shape)
+            t["share"] = t["bound_ms"] / t["ms"]
+            times[shape] = t
+            log(f"k1 time shape={shape} device_us={t['ms'] * 1e3:.2f} "
+                f"event_us={t['event_ms'] * 1e3:.2f} host_us="
+                f"{t['host_us']:.2f} bound_us={t['bound_ms'] * 1e3:.2f} "
+                f"({t['bound_by']}) share={t['share']:.3f} "
+                f"plain_event_ms={t['plain_ms']:.4f}")
     return worst, times
 
 
@@ -1058,7 +1148,7 @@ def main() -> int:
                                          big_path)
         phase_ts_card_vs_cpu(T, dev, big_img)
 
-    k_ms, p_ms = times[(1, 384, 512)]
+    t = times[(1, 384, 512)]
     print(json.dumps({"kernels": [{
         "name": "ssim_window",
         "route": "cuda",
@@ -1067,8 +1157,16 @@ def main() -> int:
         "replaces": "fennec_tpu/ops/ssim_pallas.py:130",
         "launches": total_launches,
         "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
+        "shape": [1, 384, 512],
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "share": t["share"],
+        # No single PyTorch call computes windowed SSIM.
+        "library_ms": None,
+        "event_ms": t["event_ms"],
+        "host_us": t["host_us"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,16 +6,25 @@ on a CUDA tensor the source is compiled with nvcc for sm_90a into
 fennec_tpu_torch/_build/ and loaded with ctypes (plain extern "C" entry
 points that return a cudaError_t).  A CPU tensor goes to the plain
 version in ops/ssim.py; a CUDA tensor launches the kernel or raises.
+
+A call is one launch.  launch_plan cuts it into CTAs: strips of 128
+output columns, and bands of rows whose height follows from the shape and
+from how many CTAs the card holds at once.  Each call allocates its own
+scratch (the means, one ticket per image, zeroed on the stream before the
+launch, and the partial sums), so calls from several threads and streams
+share nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
 import tempfile
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -32,8 +41,46 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "ssim_window.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 _SO = os.path.join(BUILD_DIR, "libssim_window.so")
+# --fmad=false: no multiply and add is contracted into an FMA, so the
+# window sums round as the plain version's do.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+STRIP = 128  # output columns per CTA (csrc/ssim_window.cu kStrip)
+BLOCK_ROWS = 4  # output rows per partial sum (kBlockRows), whole in a band
+WARPS = 2  # warps per CTA, one partial sum each per block (kWarps)
+H100_SMS = 132
+H100_CTAS_PER_SM = 6  # K1's occupancy on an H100 (168 registers a thread)
+
+
+class LaunchPlan(NamedTuple):
+    """Grid (strips, bands, batch); each band covers band_rows output rows
+    (the last may cover fewer); `partials` partial sums per image."""
+
+    strips: int
+    bands: int
+    band_rows: int
+    partials: int
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(bsz: int, h: int, w: int, sms: int = H100_SMS,
+                ctas_per_sm: int = H100_CTAS_PER_SM) -> LaunchPlan:
+    """How K1 covers a (bsz, h, w) call on a card of `sms` SMs that holds
+    `ctas_per_sm` of its CTAs at once: as many bands as one resident wave
+    of CTAs holds, so that every SM is busy to the end and no second,
+    part-filled wave follows.  Large shapes get tall bands (few halo rows
+    read again), small ones short bands (more CTAs in flight).  The
+    partial sums follow blocks of the image's rows, not the bands, so the
+    plan changes no bit of the result."""
+    oh, ow = h - WINDOW_SIZE, w - WINDOW_SIZE
+    strips = -(-ow // STRIP)
+    wave = max(1, sms * ctas_per_sm // (bsz * strips))
+    band_rows = -(-oh // min(wave, oh))
+    band_rows = -(-band_rows // BLOCK_ROWS) * BLOCK_ROWS
+    return LaunchPlan(strips, -(-oh // band_rows), band_rows,
+                      -(-oh // BLOCK_ROWS) * strips * WARPS)
 
 
 def find_nvcc() -> str:
@@ -51,36 +98,45 @@ def find_nvcc() -> str:
 class WindowedSsimKernel:
     """Builds, loads and launches K1.  `launches` counts kernel launches
     (one per call on CUDA tensors; see count_launch); `build_log` holds
-    nvcc's report (registers, shared memory, spills) of the last build."""
+    nvcc's report (registers, shared memory, spills) of the last build.
+    `source` and `library` name another build of the same interface, for
+    timing one against the other."""
 
-    def __init__(self) -> None:
+    def __init__(self, source: str = SOURCE, library: str = _SO) -> None:
+        self.source = source
+        self.library = library
         self.launches = 0
         self.build_log = ""
         self._lib = None
         self._lock = threading.Lock()
         self._count_lock = threading.Lock()
+        self._cards = {}  # device index -> (SMs, CTAs per SM)
+        self._taps = (ctypes.c_float * WINDOW_SIZE)(
+            *gaussian_window_1d(WINDOW_SIZE, GAUSS_SIGMA))
+        self._taps_ptr = ctypes.cast(self._taps, ctypes.c_void_p)
 
     def build(self, force: bool = False) -> str:
         """Compile the source into the build directory; returns the path.
         Skips the compile when the library is newer than the source."""
-        if (not force and os.path.exists(_SO)
-                and os.path.getmtime(_SO) >= os.path.getmtime(SOURCE)):
-            return _SO
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        so = self.library
+        if (not force and os.path.exists(so)
+                and os.path.getmtime(so) >= os.path.getmtime(self.source)):
+            return so
+        os.makedirs(os.path.dirname(so), exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(so))
         os.close(fd)
         try:
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             self.build_log = proc.stdout + proc.stderr
             if proc.returncode != 0:
                 raise RuntimeError(f"fennec: nvcc failed ({proc.returncode})"
                                    f":\n{self.build_log}")
-            os.replace(tmp, _SO)
+            os.replace(tmp, so)
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
-        return _SO
+        return so
 
     def load(self) -> ctypes.CDLL:
         with self._lock:
@@ -88,6 +144,8 @@ class WindowedSsimKernel:
                 lib = ctypes.CDLL(self.build())
                 lib.fennec_cuda_error_string.restype = ctypes.c_char_p
                 lib.fennec_cuda_error_string.argtypes = [ctypes.c_int]
+                lib.fennec_ssim_window_ctas_per_sm.restype = ctypes.c_int
+                lib.fennec_ssim_window_ctas_per_sm.argtypes = []
                 lib.fennec_ssim_window_partials_per_image.restype = \
                     ctypes.c_int
                 lib.fennec_ssim_window_partials_per_image.argtypes = [
@@ -95,9 +153,13 @@ class WindowedSsimKernel:
                 lib.fennec_ssim_window.restype = ctypes.c_int
                 lib.fennec_ssim_window.argtypes = [
                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                    ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-                    ctypes.c_void_p, ctypes.c_void_p]
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_void_p, ctypes.c_float,
+                    ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+                if (lib.fennec_ssim_window_partials_per_image(2161, 3839)
+                        != launch_plan(1, 2161, 3839).partials):
+                    raise RuntimeError("fennec: K1 library and wrapper "
+                                       "disagree on the partial sums")
                 self._lib = lib
             return self._lib
 
@@ -113,29 +175,45 @@ class WindowedSsimKernel:
                              f"{lum_a.device}")
         return self._launch(lum_a, lum_b)
 
+    def card(self, dev: torch.device):
+        """(SMs, CTAs of K1 per SM) of a CUDA device, asked once."""
+        found = self._cards.get(dev.index)
+        if found is None:
+            lib = self.load()
+            with torch.cuda.device(dev):
+                per_sm = lib.fennec_ssim_window_ctas_per_sm()
+            if per_sm <= 0:
+                msg = lib.fennec_cuda_error_string(-per_sm).decode()
+                raise RuntimeError(f"fennec: K1 occupancy query failed: "
+                                   f"{msg}")
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            found = self._cards[dev.index] = (sms, per_sm)
+        return found
+
     def _launch(self, lum_a: torch.Tensor,
                 lum_b: torch.Tensor) -> torch.Tensor:
+        dev = lum_a.device
+        if dev.index != torch.cuda.current_device():
+            with torch.cuda.device(dev):
+                return self._launch(lum_a, lum_b)
         lib = self.load()
         bsz, h, w = lum_a.shape
-        dev = lum_a.device
-        per_image = lib.fennec_ssim_window_partials_per_image(h, w)
-        partials = torch.empty((bsz, per_image), dtype=torch.float32,
-                               device=dev)
-        out = torch.empty((bsz,), dtype=torch.float32, device=dev)
-        taps = (ctypes.c_float * WINDOW_SIZE)(
-            *gaussian_window_1d(WINDOW_SIZE, GAUSS_SIGMA))
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.fennec_ssim_window(
-                lum_a.data_ptr(), lum_b.data_ptr(), bsz, h, w,
-                ctypes.cast(taps, ctypes.c_void_p), SSIM_C1, SSIM_C2,
-                partials.data_ptr(), out.data_ptr(), stream)
+        plan = launch_plan(bsz, h, w, *self.card(dev))
+        scratch = torch.empty(bsz * (2 + plan.partials),
+                              dtype=torch.float32, device=dev)
+        # The raw handle of the current stream: torch.cuda.current_stream
+        # builds a Python object, several µs per call.
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        err = lib.fennec_ssim_window(
+            lum_a.data_ptr(), lum_b.data_ptr(), bsz, h, w, plan.strips,
+            plan.bands, plan.band_rows, self._taps_ptr, SSIM_C1, SSIM_C2,
+            scratch.data_ptr(), stream)
         if err != 0:
             msg = lib.fennec_cuda_error_string(err).decode()
             raise RuntimeError(f"fennec: K1 launch failed: CUDA error "
                                f"{err}: {msg}")
         self.count_launch()
-        return out
+        return scratch[:bsz]
 
     def count_launch(self) -> None:
         """Add one to `launches`, under a lock: the batch engines launch

@@ -36,20 +36,81 @@ def noise_pair(shape, seed, device):
     return (torch.from_numpy(a).to(device), torch.from_numpy(b).to(device))
 
 
+# The main path's shapes and ragged ones: one window position, a strip
+# of output columns or a band of rows cut short, edges past 4K.
 @pytest.mark.parametrize("shape", [(3, 32, 32), (3, 64, 48), (3, 130, 100),
                                    (1, 384, 512), (4, 288, 512),
-                                   (2, 9, 300)])
+                                   (2, 9, 300), (1, 9, 9), (1, 1000, 9),
+                                   (3, 137, 261), (1, 2161, 3839),
+                                   (64, 500, 500), (5, 499, 499)])
 def test_kernel_matches_plain(cuda_device, shape):
     a, b = noise_pair(shape, sum(shape), cuda_device)
     before = ssim_window.launches
     got = ssim_window(a, b)
     ones = ssim_window(a, a.clone())
+    again = ssim_window(a, b)
     torch.cuda.synchronize()
-    assert ssim_window.launches == before + 2
+    assert ssim_window.launches == before + 3
     torch.testing.assert_close(got, batched_ssim_plain(a, b), atol=ATOL,
                                rtol=0)
     torch.testing.assert_close(ones, torch.ones_like(ones), atol=ATOL,
                                rtol=0)
+    assert torch.equal(got, again)
+
+
+def test_image_scores_the_same_alone_and_in_a_batch(cuda_device):
+    """The batch engines hold batch results to per-image ones bit for
+    bit: an image's partial sums follow its rows, not the launch plan."""
+    a, b = noise_pair((64, 500, 500), 17, cuda_device)
+    batch = ssim_window(a, b)
+    for i in (0, 31, 63):
+        assert torch.equal(batch[i:i + 1],
+                           ssim_window(a[i:i + 1].contiguous(),
+                                       b[i:i + 1].contiguous()))
+
+
+def test_kernel_on_a_side_stream(cuda_device):
+    a, b = noise_pair((4, 288, 512), 21, cuda_device)
+    want = ssim_window(a, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = ssim_window(a, b)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_concurrent_calls_share_no_scratch(cuda_device):
+    """Two threads launch at once, each on its own stream, as the batch
+    engines' workers do: each result equals a sequential call's."""
+    import threading
+
+    pairs = [noise_pair((16, 500, 500), 30 + i, cuda_device)
+             for i in range(2)]
+    want = [ssim_window(a, b) for a, b in pairs]
+    torch.cuda.synchronize()
+    got = [[] for _ in pairs]
+    start = threading.Barrier(len(pairs))
+
+    def work(i):
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            start.wait()
+            for _ in range(20):
+                got[i].append(ssim_window(*pairs[i]))
+        stream.synchronize()
+
+    threads = [threading.Thread(target=work, args=(i,))
+               for i in range(len(pairs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    torch.cuda.synchronize()
+    for i in range(len(pairs)):
+        assert len(got[i]) == 20
+        assert all(torch.equal(g, want[i]) for g in got[i])
 
 
 def test_kernel_is_deterministic(cuda_device):
