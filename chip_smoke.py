@@ -5,8 +5,8 @@ them.
 
 Phases, each raising on failure:
   1. environment: a CUDA card, its name and power limit, TF32 off;
-  2. build: kernel K1 (nvcc, sm_90a) and the host C++ entropy coder, from
-     the sources in this checkout;
+  2. build: kernels K1 and K3 (nvcc, sm_90a) and the host C++ entropy
+     coder, from the sources in this checkout, all three at once;
   3. K1 against its plain PyTorch version on the card, at the shapes the
      main paths give it and beyond, the batch engines' (64, 500, 500)
      included, and at ragged shapes for its strips and bands: max |diff|
@@ -22,7 +22,11 @@ Phases, each raising on failure:
      HIGH, BALANCED and AGGRESSIVE.  Every output must decode to its
      dimensions, meet its SSIM target (or be the Q=100 fallback), agree
      with SSIM scored on its own decode, and K1 must have run at least 7
-     times per image.  Each accept/reject decision at the boundary (the
+     times per image.  With the default Options every image is
+     Huffman-coded on the card: K3 counted from 0 before each call must
+     have launched for it (phases 6-8 and T2/T3 of 10 the same, per
+     device chunk or encode round; T1 keeps the host encoder, as the JAX
+     package's per-image target-size engine does).  Each accept/reject decision at the boundary (the
      chosen quality q, and q-1) is re-scored with the plain scorer, and
      the whole bisection is replayed with it;
   5. a small noisy image through the same entry point on the card and on
@@ -64,11 +68,25 @@ Phases, each raising on failure:
      must launch K1, counted from 0 just before it and read just after,
      before any check runs.  The size oracle's bisection step and the
      palette map per level are timed at 12 MP.
+ 11. K3 against its plain version on the card, at the main path's
+     shapes (12 MP and 1080p 4:2:0 at the qualities phase 4 chose, a
+     64-image 500x500 chunk, 1080p 4:4:4, ragged 17x9 and 1x1), with the
+     standard and with optimal tables: block bits, histograms and words
+     bit-identical, and every file byte-identical to the C++ encoder's.
+     K3a's and K3b's device time (torch.profiler), host time per call,
+     bound and share, the plain version's CUDA-event time, and the whole
+     device emission against the download and the C++ encoder;
+ 12. the A/B of device_entropy=None (K3) against False (the host C++
+     encoder), in turns: warm 12 MP compress_file, the 512-file batch
+     and T2; the outputs byte-identical;
+ 13. the rest of the surface at 12 MP: ssim (K1 at (1, 3024, 4032)) and
+     ms_ssim on the card against the CPU within 1e-5, and the effects
+     (sharpen, adaptive_sharpen, gaussian_blur) uint8-identical.
 
-The last lines: the kernel table as JSON (K1's launches summed over the
-main-path runs of phases 4, 6-8 and 10, each counted from 0), the card's
-name and power limit as nvidia-smi reports them, and {"ok": true,
-"device": {...}}.  Images are made from numpy seeds; nothing is
+The last lines: the kernel table as JSON (K1's and K3's launches summed
+over the main-path runs of phases 4, 6-8 and 10, each counted from 0),
+the card's name and power limit as nvidia-smi reports them, and {"ok":
+true, "device": {...}}.  Images are made from numpy seeds; nothing is
 fetched.  Without a CUDA card the script fails before printing any
 result.
 """
@@ -90,11 +108,13 @@ SEED = 20261016
 SHAPES = [(3, 32, 32), (3, 64, 48), (3, 130, 100), (1, 384, 512),
           (4, 288, 512), (1, 1080, 1920), (1, 2160, 3840), (64, 500, 500),
           (1, 288, 512), (1, 500, 500), (5, 499, 499),
+          # ssim() at full resolution on a 12 MP photo.
+          (1, 3024, 4032),
           # Ragged for K1's strips of 128 columns and bands of rows.
           (1, 9, 9), (2, 9, 300), (1, 1000, 9), (3, 137, 261),
           (1, 2161, 3839)]
 TIMED_SHAPES = [(1, 384, 512), (1, 288, 512), (1, 500, 500), (5, 499, 499),
-                (64, 500, 500), (1, 2160, 3840)]
+                (64, 500, 500), (1, 2160, 3840), (1, 3024, 4032)]
 K1_ATOL = 1e-5  # the bound tests/test_ssim_pallas.py holds Pallas to
 # K1's bound: 174 flops per window position (3 products, 150 in the two
 # window passes, 21 in the formula and the sum) and 8 bytes per pixel,
@@ -102,6 +122,16 @@ K1_ATOL = 1e-5  # the bound tests/test_ssim_pallas.py holds Pallas to
 K1_FLOPS_PER_POSITION = 174
 FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# K3's bound: 128 bytes per block per pass, or its instructions reckoned
+# from csrc/jpeg_emit.cu (per block: staging, the DC symbol and 63
+# iterations of a shared-memory load, a compare and a branch; per nonzero
+# AC coefficient: the size, the symbol, the table load and the sums, plus
+# K3a's histogram atomics or K3b's accumulator) at an H100 SXM's issue
+# rate, 132 SMs x 4 schedulers x 32 lanes at 1.98 GHz.
+K3_INSTR_PER_BLOCK = 300
+K3A_INSTR_PER_NONZERO = 16
+K3B_INSTR_PER_NONZERO = 22
+INT_ISSUE_PER_S = 33.4e12
 DECODE_SSIM_ATOL = 1e-3  # probe model vs real decode: IDCT order, ties
 # The coefficient path's contract against per-image compression
 # (tests/test_coef_fastpath.py:60-97, tests/test_torch_batch.py).
@@ -224,6 +254,34 @@ def host_us(fn, iters: int) -> float:
     return us
 
 
+# K3's launches on the main path (phases 4, 6-8 and 10), each call counted
+# from 0 just before it and read just after.
+K3_MAIN = {"block_stats": 0, "deposit": 0}
+
+
+def k3_zero() -> None:
+    from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
+
+    k3.block_stats.launches = 0
+    k3.deposit.launches = 0
+
+
+def k3_take(tag: str, dev, emissions: int):
+    """K3's launches since k3_zero, added to the main path's totals.  On a
+    CUDA device every JPEG of the call must have been coded by K3: at
+    least `emissions` K3b launches (one per image or device chunk coded)
+    and no fewer K3a launches."""
+    from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
+
+    a, b = k3.block_stats.launches, k3.deposit.launches
+    K3_MAIN["block_stats"] += a
+    K3_MAIN["deposit"] += b
+    if dev.type == "cuda" and (b < max(1, emissions) or a < b):
+        raise AssertionError(f"{tag}: K3 launches K3a={a} K3b={b}, want "
+                             f">= {emissions} emissions")
+    return a, b
+
+
 def phase_kernel(dev, ssim_window, batched_ssim_plain):
     """K1 against the plain version at every shape: within K1_ATOL, an
     identical pair 1.0, two calls bit-identical.  Returns (max_abs_err,
@@ -274,6 +332,169 @@ def phase_kernel(dev, ssim_window, batched_ssim_plain):
                 f"{t['host_us']:.2f} bound_us={t['bound_ms'] * 1e3:.2f} "
                 f"({t['bound_by']}) share={t['share']:.3f} "
                 f"plain_event_ms={t['plain_ms']:.4f}")
+    return worst, times
+
+
+def quantized_stack(images, quality: int, subsample: bool, dev):
+    """(B, NT, 64) int16 blocks of (h, w, 4) uint8 images quantized at
+    `quality` on the card, y|cb|cr as the engines hold them."""
+    from fennec_tpu_torch.codecs.jpeg import forward_dct, quantize_coefs
+    from fennec_tpu_torch.ops.dct import all_quality_tables
+
+    x = torch.from_numpy(np.stack(images)).to(dev).to(torch.float32)
+    qt = torch.from_numpy(np.array(all_quality_tables()[quality])).to(dev)
+    parts = quantize_coefs(forward_dct(x, subsample), qt)
+    return torch.cat(parts, dim=1).to(torch.int16).contiguous()
+
+
+def k3_bound(packed: torch.Tensor, n_words: int, deposit: bool):
+    """(least ms, "bytes" or "operations") for one K3a or K3b launch over
+    these blocks: each block read once (128 B) and its bit count written
+    (4 B), or for K3b its offset read (8 B) and the words written; the
+    instructions reckoned from csrc/jpeg_emit.cu, counting this run's
+    nonzero AC coefficients, at one instruction per lane and clock."""
+    blocks = packed.shape[0] * packed.shape[1]
+    nnz = int((packed[..., 1:] != 0).sum())
+    if deposit:
+        nbytes = blocks * (128 + 8) + 4 * n_words
+        instr = blocks * K3_INSTR_PER_BLOCK + nnz * K3B_INSTR_PER_NONZERO
+    else:
+        nbytes = blocks * (128 + 4)
+        instr = blocks * K3_INSTR_PER_BLOCK + nnz * K3A_INSTR_PER_NONZERO
+    t_ops, t_bytes = instr / INT_ISSUE_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_k3(T, dev, cases, timed: bool = True):
+    """K3 against its plain version at the main path's shapes, with the
+    standard and with optimal tables: block bits, histograms and words
+    bit-identical, the flag word 0, and every image's bytes through
+    emit_scans equal to the host C++ encoder's.  Returns (the largest
+    absolute difference seen, {(tag, optimize): times}, empty unless
+    timed)."""
+    from fennec_tpu_torch.codecs.jpeg import encode_quantized
+    from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
+    from fennec_tpu_torch.ops.jpeg_emit import (
+        block_stats_plain,
+        deposit_plain,
+        layout_on,
+        std_tables_on,
+    )
+    from fennec_tpu_torch.parallel.batched import (
+        _optimal_tables,
+        emit_scans,
+        hist_bits,
+    )
+
+    times = {}
+    worst = 0
+    for tag, w, h, n, sub, quality, seed in cases:
+        images = [photo(w, h, seed + k) for k in range(n)]
+        packed = quantized_stack(images, quality, sub, dev)
+        mult = 16 if sub else 8
+        ph, pw = h + (-h) % mult, w + (-w) % mult
+        lay = layout_on(ph, pw, sub, dev)
+        host = packed.cpu().numpy().astype(np.int32)
+        ny = lay.ny
+        nc = (packed.shape[1] - ny) // 2
+        for optimize in (False, True):
+            if optimize:
+                hist = block_stats_plain(packed, lay, std_tables_on(dev),
+                                         False, True)[1].cpu().numpy()
+                dcf = hist[:, :32].reshape(-1, 2, 16).astype(np.int64)
+                acf = hist[:, 32:].reshape(-1, 2, 256).astype(np.int64)
+                _specs, tabs_np, errors = _optimal_tables(dcf, acf)
+                assert not errors, errors
+                tables = torch.from_numpy(tabs_np).to(dev)
+            else:
+                tables = std_tables_on(dev)
+            bits_k, hist_k = k3.block_stats(packed, lay, tables)
+            bits_p, hist_p = block_stats_plain(packed, lay, tables)
+            totals = bits_p.sum(dim=1, dtype=torch.int64).cpu().numpy()
+            if optimize and not np.array_equal(
+                    totals, hist_bits(dcf, acf, tabs_np)):
+                raise AssertionError(f"K3 {tag}: histogram bits disagree")
+            base = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum((totals + 31) // 32, out=base[1:])
+            off = torch.cumsum(bits_p, 1, dtype=torch.int64) - bits_p
+            wb = torch.from_numpy(base).to(dev)
+            words_k = k3.deposit(packed, lay, tables, off, wb, int(base[-1]))
+            words_p = deposit_plain(packed, lay, tables, off, wb)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            same = (torch.equal(bits_k, bits_p), torch.equal(hist_k, hist_p),
+                    torch.equal(words_k, words_p))
+            for got, want in ((bits_k, bits_p), (hist_k, hist_p),
+                              (words_k, words_p)):
+                worst = max(worst, int((got.to(torch.int64)
+                                        - want.to(torch.int64)).abs().max()))
+            flag = int(words_k[-1])
+            scans = emit_scans(packed, h, w, sub, optimize)
+            mismatched = []
+            for j in range(n):
+                got = scans.jpeg(j, w, h, quality, sub)
+                blk = host[j]
+                want = encode_quantized(blk[:ny], blk[ny:ny + nc],
+                                        blk[ny + nc:], w, h, quality, sub,
+                                        optimize)
+                if got != want:
+                    mismatched.append(j)
+            if not all(same) or flag or mismatched:
+                raise AssertionError(
+                    f"K3 {tag} optimize={optimize}: bits/hist/words equal "
+                    f"{same}, flag {flag}, bytes differ for images "
+                    f"{mismatched[:8]}")
+            log(f"k3 {tag} optimize={optimize} blocks={packed.shape[1]}x{n}"
+                f" scan_bits={int(totals.sum())} words={int(base[-1])}: "
+                f"K3a bits+hist and K3b words bit-identical to the plain "
+                f"version; {n} file(s) byte-identical to the C++ encoder")
+            if not timed:
+                continue
+            nw = int(base[-1])
+            iters = 50
+            t = {
+                "k3a_ms": profiled_device_ms(
+                    lambda: k3.block_stats(packed, lay, tables, True,
+                                           False), iters,
+                    "block_stats_kernel"),
+                "k3b_ms": profiled_device_ms(
+                    lambda: k3.deposit(packed, lay, tables, off, wb, nw),
+                    iters, "deposit_kernel"),
+                "k3a_host_us": host_us(
+                    lambda: k3.block_stats(packed, lay, tables, True, False),
+                    iters),
+                "k3b_host_us": host_us(
+                    lambda: k3.deposit(packed, lay, tables, off, wb, nw),
+                    iters),
+                "k3a_plain_ms": cuda_ms(lambda: block_stats_plain(
+                    packed, lay, tables, True, False), 5),
+                "k3b_plain_ms": cuda_ms(lambda: deposit_plain(
+                    packed, lay, tables, off, wb), 5),
+            }
+            t["k3a_bound_ms"], t["k3a_bound_by"] = k3_bound(packed, nw,
+                                                            False)
+            t["k3b_bound_ms"], t["k3b_bound_by"] = k3_bound(packed, nw, True)
+            # The whole device emission (both pulls included) against the
+            # host route: one download of the blocks and the C++ encoder.
+            t0 = time.perf_counter()
+            for _ in range(3):
+                emit_scans(packed, h, w, sub, optimize)
+            t["emit_scans_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+            t0 = time.perf_counter()
+            for _ in range(3):
+                blocks = packed.cpu().numpy().astype(np.int32)
+                for j in range(n):
+                    encode_quantized(blocks[j, :ny], blocks[j, ny:ny + nc],
+                                     blocks[j, ny + nc:], w, h, quality,
+                                     sub, optimize)
+            t["host_encode_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+            times[(tag, optimize)] = t
+            log(f"k3 time {tag} optimize={optimize}: "
+                + " ".join(f"{k}={v:.4f}" if isinstance(v, float)
+                           else f"{k}={v}" for k, v in t.items())
+                + f" share_a={t['k3a_bound_ms'] / t['k3a_ms']:.3f}"
+                f" share_b={t['k3b_bound_ms'] / t['k3b_ms']:.3f}")
     return worst, times
 
 
@@ -379,16 +600,20 @@ def exif_orientation_segment(orient: int) -> bytes:
 def run_batch(T, ssim_window, counters, items, dev, tag: str):
     """One compress_batch pass with the counts set to 0 just before it:
     every item through the coefficient route and, on a CUDA device, K1
-    at least 7 times per device chunk.  Returns (results, wall ms, K1
+    at least 7 times per device chunk and K3 coding every chunk.  Returns (results, wall ms, K1
     launches, engine counters)."""
     counters.reset()
     ssim_window.launches = 0
+    k3_zero()
     t = time.perf_counter()
     res = T.compress_batch(None, items, T.BatchOptions(
         fused=True, default_opts=T.Options(format=T.JPEG)), device=dev)
     wall_ms = (time.perf_counter() - t) * 1e3
     launches = ssim_window.launches
     snap = counters.snapshot()
+    k3a, k3b = k3_take(tag, dev, len(snap["chunk_items"]))
+    log(f"{tag}: K3 launches K3a={k3a} K3b={k3b} for "
+        f"{len(snap['chunk_items'])} chunks")
     bad = [(r.item.src, r.err) for r in res if r.err is not None]
     if bad:
         raise AssertionError(f"{tag}: {len(bad)} item(s) failed: {bad[:3]}")
@@ -457,9 +682,9 @@ def log_peak(tag: str, dev, chunk: int, pixels: int) -> None:
             f"{peak / (chunk * pixels):.1f}")
 
 
-def phase_batch_files(T, dev, ssim_window, counters, tmp, n=512, w=500,
-                      h=500):
-    """Phase 6: 512 files of 500x500 at Q92 through compress_batch."""
+def write_files500(T, dev, src_dir, n=512, w=500, h=500):
+    """bench.py's workload: n JPEG files of w x h at Q92 (64 distinct
+    photos, shifted by 4 px every 64 files).  Returns (paths, datas)."""
     canvases = [photo(w + 32, h + 32, SEED + 100 + k) for k in range(64)]
     datas = []
     for i in range(n):
@@ -467,13 +692,20 @@ def phase_batch_files(T, dev, ssim_window, counters, tmp, n=512, w=500,
         img = np.ascontiguousarray(canvases[i % 64][off:off + h,
                                                     off:off + w])
         datas.append(T.encode_to_bytes(img, T.JPEG, 92, device=dev))
-    src_dir = os.path.join(tmp, "files500")
     os.makedirs(src_dir)
     paths = []
     for i, data in enumerate(datas):
         paths.append(os.path.join(src_dir, f"in{i:03d}.jpg"))
         with open(paths[-1], "wb") as f:
             f.write(data)
+    return paths, datas
+
+
+def phase_batch_files(T, dev, ssim_window, counters, tmp, n=512, w=500,
+                      h=500):
+    """Phase 6: 512 files of 500x500 at Q92 through compress_batch."""
+    paths, datas = write_files500(T, dev, os.path.join(tmp, "files500"), n,
+                                  w, h)
 
     def items(tag):
         return [T.BatchItem(src=p, dst=os.path.join(tmp, f"{tag}{i}.jpg"))
@@ -516,11 +748,13 @@ def phase_pixel_path(T, dev, ssim_window, counters, w=500, h=500):
     for tag in ("cold", "warm"):
         counters.reset()
         ssim_window.launches = 0
+        k3_zero()
         t = time.perf_counter()
         res = T.compress_images(None, images, opts, device=dev)
         wall_ms = (time.perf_counter() - t) * 1e3
         total += ssim_window.launches
         snap = counters.snapshot()
+        k3_take(f"images256 {tag}", dev, len(snap["chunk_items"]))
         if snap["routes"] != {"pixel": 256}:
             raise AssertionError(f"pixel path routes {snap['routes']}")
         st = snap["stage_seconds"]
@@ -758,6 +992,8 @@ def phase_ts_single(T, dev, ssim_window, counters, big_path, big_img, tmp,
              format=T.JPEG, target_size=128 * 1024), device=dev)),
     ]
     total = 0
+    from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
+
     for tag, target, original, run in runs:
         ssim_window.launches = 0
         t = time.perf_counter()
@@ -766,10 +1002,14 @@ def phase_ts_single(T, dev, ssim_window, counters, big_path, big_img, tmp,
         cold_launches = ssim_window.launches
         counters.reset()
         ssim_window.launches = 0
+        k3_zero()
         t = time.perf_counter()
         res = run()  # the result is host bytes, so synced
         warm_ms = (time.perf_counter() - t) * 1e3
         warm_launches = ssim_window.launches
+        # The per-image target-size engine encodes on the host C++
+        # encoder, as the JAX package's does (engine/targetsize.py:197).
+        k3_warm = (k3.block_stats.launches, k3.deposit.launches)
         total += cold_launches + warm_launches
         if dev.type == "cuda" and not (cold_launches and warm_launches):
             raise AssertionError(f"T1 {tag}: K1 launches cold="
@@ -781,7 +1021,8 @@ def phase_ts_single(T, dev, ssim_window, counters, big_path, big_img, tmp,
             f"bytes={res.compressed_size} target={target} "
             f"ssim={res.ssim:.6f} decoded_ssim={decoded:.6f} "
             f"cold_ms={cold_ms:.1f} warm_ms={warm_ms:.1f} K1 launches "
-            f"cold={cold_launches} warm={warm_launches} "
+            f"cold={cold_launches} warm={warm_launches} K3 launches warm "
+            f"{k3_warm} (host encoder) "
             f"warm {ts_seconds(counters)}")
     log(f"T1: K1 launches={total} (the compress_* calls only)")
     return total
@@ -807,10 +1048,12 @@ def phase_ts_batch(T, dev, ssim_window, counters, n=64, w=500, h=500,
         counters.reset()
         reset_peak(dev)
         ssim_window.launches = 0
+        k3_zero()
         t = time.perf_counter()
         res = T.compress_images(None, images, opts, device=dev)
         wall_ms = (time.perf_counter() - t) * 1e3
         launches = ssim_window.launches
+        k3a, k3b = k3_take(f"T2 {tag}", dev, 1)
         total += launches
         if dev.type == "cuda" and launches == 0:
             raise AssertionError(f"T2 {tag}: the batched pass never ran K1")
@@ -828,7 +1071,8 @@ def phase_ts_batch(T, dev, ssim_window, counters, n=64, w=500, h=500,
             f"waves={ev.get('ts_waves', 0)} probes={ev.get('ts_probes', 0)}"
             f" memo_hits={ev.get('ts_memo_hits', 0)} rounds="
             f"{ev.get('ts_s3_rounds', 0)} over_target={over} strategies="
-            f"{strategies} K1 launches={launches} {ts_seconds(counters)}")
+            f"{strategies} K1 launches={launches} K3 launches K3a={k3a} "
+            f"K3b={k3b} {ts_seconds(counters)}")
         if over:
             raise AssertionError(f"T2: {over} result(s) over the target")
     log_peak(f"T2 {n}x{w}x{h} warm", dev, max(snap["chunk_items"]), w * h)
@@ -843,11 +1087,13 @@ def phase_ts_batch(T, dev, ssim_window, counters, n=64, w=500, h=500,
     auto[3] = transparent(w, h, SEED + 960)
     counters.reset()
     ssim_window.launches = 0
+    k3_zero()
     t = time.perf_counter()
     res = T.compress_images(None, auto, T.Options(target_size=target),
                             device=dev)
     wall_ms = (time.perf_counter() - t) * 1e3
     launches = ssim_window.launches
+    k3_take("T2 auto bucket", dev, 1)
     total += launches
     if dev.type == "cuda" and launches == 0:
         raise AssertionError("T2 auto bucket: the batched pass never ran K1")
@@ -881,11 +1127,13 @@ def phase_ts_full_size(T, dev, ssim_window, counters, big_img, n=16,
     counters.reset()
     reset_peak(dev)
     ssim_window.launches = 0
+    k3_zero()
     t = time.perf_counter()
     res = T.compress_images(None, images, opts, device=dev)
     wall_ms = (time.perf_counter() - t) * 1e3
     launches = ssim_window.launches
     snap = counters.snapshot()
+    k3_take("T2 12 MP", dev, 1)
     if dev.type == "cuda" and launches == 0:
         raise AssertionError("T2 12 MP: the batched pass never ran K1")
     if snap["routes"] != {"target-size": n}:
@@ -923,12 +1171,14 @@ def phase_ts_files(T, dev, ssim_window, counters, tmp, big_path, n=64,
                                                          f"ts_o{i}.jpg")))
     counters.reset()
     ssim_window.launches = 0
+    k3_zero()
     t = time.perf_counter()
     res = T.compress_batch(None, items, T.BatchOptions(
         default_opts=T.Options(format=T.JPEG, target_size=target)),
         device=dev)
     wall_ms = (time.perf_counter() - t) * 1e3
     launches = ssim_window.launches
+    k3_take("T3", dev, 1)
     bad = [(r.item.src, r.err) for r in res if r.err is not None]
     if bad:
         raise AssertionError(f"T3: {len(bad)} item(s) failed: {bad[:3]}")
@@ -1020,6 +1270,119 @@ def time_ts_device_work(dev, big_img) -> None:
         f"palette_map_ms={map_ms:.3f} (256 colours, one level)")
 
 
+def k3_cases(q12: int, q1080: int, q500: int):
+    """Phase 11's shapes: the main path's 12 MP and 1080p photos at the
+    qualities BALANCED picked in phase 4, a 64-image 500x500 chunk at the
+    quality BALANCED picks for such a photo, T2's encode round (64 lanes
+    at the 499x499 geometry S3 settles on, near its Q70), 1080p in 4:4:4,
+    and ragged geometries (17x9, 1x1)."""
+    return [("12mp_420", 4032, 3024, 1, True, q12, SEED),
+            ("1080p_420", 1920, 1080, 1, True, q1080, SEED + 2),
+            ("500x500x64_420", 500, 500, 64, True, q500, SEED + 100),
+            ("t2_lanes_499x499x64_420", 499, 499, 64, True, 70, SEED + 900),
+            ("1080p_444", 1920, 1080, 1, False, q1080, SEED + 2),
+            ("ragged_17x9", 17, 9, 3, True, 100, SEED + 5),
+            ("ragged_1x1_444", 1, 1, 2, False, 50, SEED + 6)]
+
+
+def ab_run(tag: str, runs, check) -> dict:
+    """Phase 12's A/B: each route once cold, then twice None, False,
+    False, None warm (host clock; every call returns host bytes, so it
+    ends synchronised).  check(outputs of None, outputs of False) must
+    hold.  Returns {route: [four warm ms]}."""
+    warm = {None: [], False: []}
+    outs = {}
+    for route in (None, False):
+        outs[route] = runs[route]()
+    for route in (None, False, False, None) * 2:
+        t = time.perf_counter()
+        runs[route]()
+        warm[route].append((time.perf_counter() - t) * 1e3)
+    check(outs[None], outs[False])
+    log(f"A/B {tag}: device_entropy=None (K3) warm_ms="
+        f"{[round(x, 1) for x in warm[None]]} device_entropy=False (host "
+        f"encoder) warm_ms={[round(x, 1) for x in warm[False]]}; outputs "
+        f"byte-identical")
+    return warm
+
+
+def phase_ab(T, dev, tmp, big_path):
+    """Phase 12: device_entropy=None (K3 on the card) against False (the
+    host C++ encoder) in this call, on warm 12 MP compress_file, the
+    512-file batch and T2; every output byte-identical between them."""
+    out = {}
+
+    def same_results(a, b):
+        for x, y in zip(a, b):
+            if x.compressed_data != y.compressed_data:
+                raise AssertionError("A/B: the two routes' bytes differ")
+
+    out["12mp_compress_file"] = ab_run("12 MP compress_file", {
+        route: (lambda route=route: [T.compress_file(
+            None, big_path, os.path.join(tmp, f"ab_{route}.jpg"),
+            T.Options(device_entropy=route), device=dev)])
+        for route in (None, False)}, same_results)
+
+    paths, _ = write_files500(T, dev, os.path.join(tmp, "ab500"))
+
+    def batch(route):
+        res = T.compress_batch(None, [
+            T.BatchItem(src=p, dst=os.path.join(tmp, f"ab_{route}_{i}.jpg"))
+            for i, p in enumerate(paths)], T.BatchOptions(
+                fused=True, default_opts=T.Options(
+                    format=T.JPEG, device_entropy=route)), device=dev)
+        bad = [r for r in res if r.err is not None]
+        if bad:
+            raise AssertionError(f"A/B batch: {len(bad)} item(s) failed")
+        return [r.result for r in res]
+
+    out["batch512"] = ab_run("512-file compress_batch", {
+        route: (lambda route=route: batch(route))
+        for route in (None, False)}, same_results)
+
+    images = [photo(500, 500, SEED + 900 + k) for k in range(64)]
+    out["t2_64x500"] = ab_run("T2 compress_images 64x500x500 at 20 KB", {
+        route: (lambda route=route: T.compress_images(
+            None, images, T.Options(format=T.JPEG, target_size=20 * 1024,
+                                    device_entropy=route), device=dev))
+        for route in (None, False)}, same_results)
+    return out
+
+
+def phase_surface(T, dev, big_img):
+    """Phase 13: ssim and ms_ssim at 12 MP on the card against the CPU
+    (within K1_ATOL), and the effects at 12 MP (uint8, equal)."""
+    from fennec_tpu_torch.ops import effects
+
+    h, w = big_img.shape[:2]
+    other = np.roll(big_img, (3, 5), axis=(0, 1))
+    for name, fn in (("ssim", T.ssim), ("ms_ssim", T.ms_ssim)):
+        t = time.perf_counter()
+        card = fn(big_img, other, device=dev)
+        card_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        card = fn(big_img, other, device=dev)
+        warm_ms = (time.perf_counter() - t) * 1e3
+        cpu = fn(big_img, other, device="cpu")
+        if not (np.isfinite(card) and abs(card - cpu) <= K1_ATOL):
+            raise AssertionError(f"{name} 12 MP: card {card} cpu {cpu}")
+        log(f"surface {name} {w}x{h}: card={card:.7f} cpu={cpu:.7f} "
+            f"cold_ms={card_ms:.1f} warm_ms={warm_ms:.1f}")
+    for name, arg in (("sharpen", 0.6), ("adaptive_sharpen", 0.5),
+                      ("gaussian_blur", 1.5)):
+        fn = getattr(effects, name)
+        t = time.perf_counter()
+        card = fn(big_img, arg, device=dev)
+        card_ms = (time.perf_counter() - t) * 1e3
+        cpu = fn(big_img, arg, device="cpu")
+        diff = np.abs(card.astype(np.int32) - cpu.astype(np.int32))
+        if diff.max() != 0:
+            raise AssertionError(f"{name} 12 MP: {np.count_nonzero(diff)} "
+                                 f"values differ, by up to {diff.max()}")
+        log(f"surface {name}({arg}) {w}x{h}: uint8 identical on the card "
+            f"and the CPU, card_ms={card_ms:.1f}")
+
+
 def main() -> int:
     # 1. Environment.  The port is imported before anything is printed,
     # so a copy of this script without the repository prints nothing.
@@ -1037,20 +1400,29 @@ def main() -> int:
             or torch.backends.cudnn.allow_tf32):
         raise AssertionError("TF32 is on")
 
-    # 2. Build.
+    # 2. Build: the two nvcc builds and the g++ build at once.
+    from concurrent.futures import ThreadPoolExecutor
+
     from fennec_tpu_torch import native
+    from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
     from fennec_tpu_torch.ops.ssim import batched_ssim_plain
     from fennec_tpu_torch.ops.ssim_cuda import SOURCE, ssim_window
 
-    t0 = time.perf_counter()
-    ssim_window.build(force=True)
+    def timed_build(build):
+        t = time.perf_counter()
+        build(force=True)
+        return time.perf_counter() - t
+
+    with ThreadPoolExecutor(3) as pool:
+        secs = list(pool.map(timed_build, (ssim_window.build,
+                                           k3.library.build, native.build)))
     ssim_window.load()
-    t1 = time.perf_counter()
-    native.build(force=True)
+    k3.library.load()
     native.load()
-    t2 = time.perf_counter()
-    log(f"build k1_nvcc_s={t1 - t0:.3f} native_gxx_s={t2 - t1:.3f}")
+    log(f"build k1_nvcc_s={secs[0]:.3f} k3_nvcc_s={secs[1]:.3f} "
+        f"native_gxx_s={secs[2]:.3f} (in parallel)")
     log(ssim_window.build_log.strip())
+    log(k3.library.build_log.strip())
 
     # 3. K1 against its plain version.
     max_err, times = phase_kernel(dev, ssim_window, batched_ssim_plain)
@@ -1082,12 +1454,16 @@ def main() -> int:
                   q.target_ssim(), (1920, 1080)) for q, data in requests]
         n_images = 0
         for tag, run, target, wh in runs:
+            k3_zero()
             t = time.perf_counter()
             run()  # cold: first call at this shape
             cold_ms = (time.perf_counter() - t) * 1e3
+            k3_take(f"{tag} cold", dev, 1)
+            k3_zero()
             t = time.perf_counter()
             res = run()  # warm; the result is host bytes, so synced
             warm_ms = (time.perf_counter() - t) * 1e3
+            k3_take(f"{tag} warm", dev, 1)
             n_images += 2
             results.append((tag, res, target, wh, cold_ms, warm_ms))
     launches = ssim_window.launches
@@ -1096,7 +1472,8 @@ def main() -> int:
         raise AssertionError(f"K1 ran {launches} times for {n_images} "
                              f"images; the main path must launch it "
                              f">= 7 times per image")
-    log(f"main path: {n_images} images, K1 launches={launches}")
+    log(f"main path: {n_images} images, K1 launches={launches}, K3 "
+        f"launches {K3_MAIN} (one K3b per image, coding it on the card)")
 
     for tag, res, target, wh, cold_ms, warm_ms in results:
         checked, s_dec = check_result(T, res, dev, target, wh, tag)
@@ -1147,7 +1524,51 @@ def main() -> int:
         total_launches += phase_ts_files(T, dev, ssim_window, counters, tmp,
                                          big_path)
         phase_ts_card_vs_cpu(T, dev, big_img)
+    log(f"main path K3 launches (phases 4, 6-8, 10): {K3_MAIN}")
 
+    # 11. K3 against its plain version at the main path's shapes.
+    quality = {tag: res.jpeg_quality for tag, res, *_ in results}
+    q500 = T.compress_image(None, photo(500, 500, SEED + 100),
+                            T.Options(format=T.JPEG), device=dev).jpeg_quality
+    k3_err, k3_times = phase_k3(T, dev, k3_cases(
+        quality["12mp_balanced"], quality["1080p_balanced"], q500))
+
+    # 12. The two encode routes, in this call; 13. the rest of the surface.
+    with tempfile.TemporaryDirectory() as tmp:
+        big_path = os.path.join(tmp, "photo_12mp.jpg")
+        with open(big_path, "wb") as f:
+            f.write(big_jpeg)
+        ab = phase_ab(T, dev, tmp, big_path)
+    phase_surface(T, dev, big_img)
+    log("A/B summary (warm ms, K3 vs host encoder): " + json.dumps(
+        {k: {"k3": v[None], "host": v[False]} for k, v in ab.items()}))
+
+    k3t = k3_times[("12mp_420", True)]
+    k3_rows = []
+    for part, name, fn_line, key in (
+            ("k3a", "jpeg_block_stats", "fennec_tpu/ops/jpeg_emit.py:306",
+             "block_stats"),
+            ("k3b", "jpeg_deposit", "fennec_tpu/ops/jpeg_emit.py:587",
+             "deposit")):
+        k3_rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": os.path.relpath(k3.SOURCE, os.path.dirname(
+                os.path.abspath(__file__))),
+            # An XLA program of the JAX package, not a Pallas kernel.
+            "replaces": fn_line,
+            "launches": K3_MAIN[key],
+            "max_abs_err": k3_err,
+            "shape": [1, 285768, 64],
+            "ms": k3t[f"{part}_ms"],
+            "plain_ms": k3t[f"{part}_plain_ms"],
+            "bound_ms": k3t[f"{part}_bound_ms"],
+            "bound_by": k3t[f"{part}_bound_by"],
+            "share": k3t[f"{part}_bound_ms"] / k3t[f"{part}_ms"],
+            # No PyTorch call computes Huffman emission.
+            "library_ms": None,
+            "host_us": k3t[f"{part}_host_us"],
+        })
     t = times[(1, 384, 512)]
     print(json.dumps({"kernels": [{
         "name": "ssim_window",
@@ -1167,7 +1588,7 @@ def main() -> int:
         "library_ms": None,
         "event_ms": t["event_ms"],
         "host_us": t["host_us"],
-    }]}), flush=True)
+    }] + k3_rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

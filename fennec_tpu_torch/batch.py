@@ -88,9 +88,7 @@ def compress_batch(ctx: Optional[Context], items: List[BatchItem],
     use_fused = batch_opts.fused
     if use_fused is None:
         use_fused = homogeneous and len(items) >= 8
-    opts = batch_opts.default_opts
-    # Device Huffman emission is not ported: the pool reports it per item.
-    if use_fused and homogeneous and not opts.device_entropy:
+    if use_fused and homogeneous:
         return _compress_batch_fused(ctx, items, batch_opts, device)
 
     workers = batch_opts.workers if batch_opts.workers > 0 \

@@ -5,8 +5,10 @@ Usage: python -m fennec_tpu_torch [options] <input> [output]
        fennec-tpu-torch [options] <input> [output]
 
 --device names the torch device (default cuda; cpu runs the plain
-versions of the kernels).  --device-entropy on exits non-zero: device
-Huffman emission is not ported.
+versions of the kernels).  --device-entropy on|off|auto: Huffman-code
+JPEGs on the device (kernel K3 on cuda, its plain version on cpu), on
+the host C++ encoder, or on the device exactly when it is cuda (the
+default); every route writes the same bytes.
 """
 
 from __future__ import annotations
@@ -26,7 +28,6 @@ from . import (
     compress_file,
     open_image,
 )
-from .types import DEVICE_ENTROPY_NOT_PORTED
 
 
 def parse_size(s: str) -> int:
@@ -108,8 +109,8 @@ def main(argv: Optional[list] = None) -> int:
                         "per-image optimal tables (faster, ~3-8% larger)")
     p.add_argument("--device-entropy", choices=("auto", "on", "off"),
                    default="auto",
-                   help="Assemble the JPEG bitstream on the device (not "
-                        "ported yet: only auto and off run)")
+                   help="Assemble the JPEG bitstream on the device "
+                        "(auto: on when --device is cuda)")
     p.add_argument("--device", default="cuda",
                    help="torch device (cuda, cuda:N, or cpu for the plain "
                         "versions of the kernels)")
@@ -192,7 +193,7 @@ def run_analyze(input_path: str, device: str) -> int:
 
 def _build_options(args) -> Optional[Options]:
     """Shared Options construction (reference cmd/fennec/main.go:131-158).
-    Returns None (after printing) on invalid or not-yet-ported flags."""
+    Returns None (after printing) on invalid flags."""
     opts = Options()
     opts.max_width = args.max_width
     opts.max_height = args.max_height
@@ -201,11 +202,8 @@ def _build_options(args) -> Optional[Options]:
     if getattr(args, "no_optimize_huffman", False):
         opts.optimize_huffman = False
     de = getattr(args, "device_entropy", "auto")
-    if de == "on":
-        print(f"Error: {DEVICE_ENTROPY_NOT_PORTED}", file=sys.stderr)
-        return None
-    if de == "off":
-        opts.device_entropy = False
+    if de != "auto":
+        opts.device_entropy = (de == "on")
     if args.ssim > 0:
         if args.ssim > 1.0:
             print("Error: --ssim must be in (0, 1]", file=sys.stderr)

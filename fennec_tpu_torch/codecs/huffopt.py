@@ -96,7 +96,64 @@ def specs_from_frequencies(dc_freq: np.ndarray, ac_freq: np.ndarray):
     minimal valid table.  The C++ builder does the work."""
     from .. import native
 
-    return native.jpeg_build_optimal_specs(dc_freq, ac_freq)
+    return _specs_from_raw(*native.jpeg_build_optimal_specs(
+        np.reshape(dc_freq, (1, 2, 16)), np.reshape(ac_freq, (1, 2, 256))))[0]
+
+
+def _specs_from_raw(bits: np.ndarray, vals: np.ndarray,
+                    nvals: np.ndarray) -> list:
+    """(B, 4, 16) / (B, 4, 256) / (B, 4) C-builder output → per-image
+    (dc_specs, ac_specs); table order dc-luma, dc-chroma, ac-luma,
+    ac-chroma."""
+    out = []
+    for j in range(bits.shape[0]):
+        specs = [(bits[j, t].tolist(), vals[j, t, :nvals[j, t]].tolist())
+                 for t in range(4)]
+        out.append((specs[:2], specs[2:]))
+    return out
+
+
+def code_tables_batch(bits: np.ndarray, vals: np.ndarray,
+                      nvals: np.ndarray, size: int) -> np.ndarray:
+    """Canonical code tables of N specs at once (JAX :183-212): bits
+    (N, 16), vals (N, V) in canonical (length, value) order, nvals (N,)
+    → (N, size) int32, each entry code << 5 | length, 0 for an absent
+    symbol.  The canonical walk in closed form: the k-th code is
+    (2^L_k · Σ_{j<k} 2^(16-L_j)) >> 16, exact in int64 because lengths
+    do not decrease."""
+    n, v = vals.shape
+    k = np.arange(v, dtype=np.int64)
+    cum = np.cumsum(bits.astype(np.int64), axis=1)  # (N, 16)
+    lens = 1 + np.sum(k[None, None, :] >= cum[:, :, None], axis=1)
+    valid = k[None, :] < nvals[:, None].astype(np.int64)
+    lens = np.where(valid, lens, 0)
+    kraft = np.where(valid, np.int64(1) << (16 - lens), 0)
+    pre = np.cumsum(kraft, axis=1) - kraft
+    codes = ((np.int64(1) << lens) * pre) >> 16
+    packed = ((codes << 5) | lens).astype(np.int32)
+    out = np.zeros((n, size + 1), np.int32)  # invalid lanes: a spill column
+    tgt = np.where(valid, vals.astype(np.int64), size)
+    np.put_along_axis(out, tgt, np.where(valid, packed, 0), axis=1)
+    return out[:, :size]
+
+
+def specs_and_tables_batch(dc_freq: np.ndarray, ac_freq: np.ndarray):
+    """Everything the optimal-table emission needs, in one C call (JAX
+    :231-260): per-image (dc_specs, ac_specs) for the DHT segments, and
+    the (B, 2, 16) DC and (B, 2, 256) AC packed code tables (code << 5 |
+    length).  Raises ValueError like the builder when a code would
+    exceed 32 bits."""
+    from .. import native
+
+    bits, vals, nvals = native.jpeg_build_optimal_specs(dc_freq, ac_freq)
+    b = bits.shape[0]
+    dcp = code_tables_batch(bits[:, :2].reshape(b * 2, 16),
+                            vals[:, :2].reshape(b * 2, -1),
+                            nvals[:, :2].reshape(-1), 16).reshape(b, 2, 16)
+    acp = code_tables_batch(bits[:, 2:].reshape(b * 2, 16),
+                            vals[:, 2:].reshape(b * 2, -1),
+                            nvals[:, 2:].reshape(-1), 256).reshape(b, 2, 256)
+    return _specs_from_raw(bits, vals, nvals), dcp, acp
 
 
 def specs_from_frequencies_py(dc_freq: np.ndarray, ac_freq: np.ndarray):

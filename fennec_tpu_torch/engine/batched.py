@@ -18,9 +18,14 @@ copies (_run_a / _run_b):
   host prep     one thread fills the next chunk's host tensors (per-item
                 work on the worker pool), pinned when the device is CUDA;
   device chunk  on one CUDA stream: upload, [decode, resize,] search,
-                quantize and one device→host copy;
-  host encode   the C++ Huffman encode of each item on the worker pool
-                (the ctypes calls release the GIL).
+                quantize, and either one device→host copy of the blocks
+                or, with device Huffman emission (kernel K3; the routing
+                of compress.device_entropy_on), the histogram pull, the
+                K.2 tables built on the host in one C call, the emission
+                and the pull of the scan words;
+  host encode   per item on the worker pool: the C++ Huffman encode (the
+                ctypes calls release the GIL), or with device emission
+                the scan's padding and byte stuffing and the container.
 
 At most two chunks are in flight: the device works on chunk k while
 chunk k+1 is prepared and chunk k-1 is encoded.  Chunks are sized from a
@@ -66,14 +71,17 @@ from ..ops.resize import (
     smart_resize_dims,
 )
 from ..types import (
-    DEVICE_ENTROPY_NOT_PORTED,
     CanceledError,
     Context,
     Format,
     Options,
     Result,
 )
-from .compress import batched_quality_search_quantize, compress_png
+from .compress import (
+    batched_quality_search_quantize,
+    compress_png,
+    device_entropy_on,
+)
 
 MAX_CHUNK = 64  # the JAX package's BATCH_CHUNK
 # Peak device bytes per pixel of one image inside a chunk: the float32
@@ -215,13 +223,17 @@ def _split_blocks(blocks: np.ndarray, h: int, w: int, subsample: bool):
 
 def _finish(res: Result, out, j: int, w: int, h: int, opts: Options
             ) -> Result:
-    """Host encode of item j of a device chunk's output into `res`."""
-    q, s, found, blocks = out
+    """Item j of a device chunk's output into `res`: the host encode of
+    its blocks, or the file around its scan when the chunk was
+    Huffman-coded on the device."""
+    q, s, found, coded = out
     quality, ssim_val = (int(q[j]), float(s[j])) if found[j] else (100, 1.0)
-    data = encode_quantized(*_split_blocks(blocks[j], h, w,
-                                           bool(opts.subsample)),
-                            w, h, quality, bool(opts.subsample),
-                            opts.optimize_huffman)
+    sub = bool(opts.subsample)
+    if isinstance(coded, np.ndarray):
+        data = encode_quantized(*_split_blocks(coded[j], h, w, sub), w, h,
+                                quality, sub, opts.optimize_huffman)
+    else:
+        data = coded.jpeg(j, w, h, quality, sub)
     res.format = Format.JPEG
     res.jpeg_quality = quality
     res.ssim = ssim_val
@@ -373,12 +385,6 @@ def _timed(stage: str, fn):
     return call
 
 
-def _check_options(opts: Options) -> None:
-    opts.validate()
-    if opts.device_entropy:
-        raise NotImplementedError(DEVICE_ENTROPY_NOT_PORTED)
-
-
 def _target(opts: Options) -> float:
     target = opts.quality.target_ssim()
     if 0.0 < opts.target_ssim <= 1.0:
@@ -408,7 +414,7 @@ def compress_images_batched(ctx: Optional[Context],
     on_error (index, error) pairs; FusedChunkError follows the work when
     any item failed.  workers sizes the host encode pool (0 = auto).
     Target-size mode goes to _compress_images_targetsize."""
-    _check_options(opts)
+    opts.validate()
     n = len(images)
     if n == 0:
         return []
@@ -444,6 +450,7 @@ def compress_images_batched(ctx: Optional[Context],
         return results
 
     subsample = bool(opts.subsample)
+    emit = device_entropy_on(opts, dev)
     pipe = _Pipeline(ctx, dev, results, "pixel", workers, on_chunk,
                      on_error)
 
@@ -462,7 +469,8 @@ def compress_images_batched(ctx: Optional[Context],
     def run_device(payload):
         stack, targets = payload
         imgs = stack.to(dev, non_blocking=True).to(torch.float32)
-        return batched_quality_search_quantize(imgs, targets, subsample)
+        return batched_quality_search_quantize(imgs, targets, subsample,
+                                               emit, opts.optimize_huffman)
 
     def encode(i, out, j):
         h, w = prepped[i].shape[:2]
@@ -636,8 +644,10 @@ def compress_jpeg_bytes_batched(ctx: Optional[Context],
                                 ) -> Optional[List[Result]]:
     """JPEG→JPEG batch on the device (JAX :500): the host entropy-decodes
     each file to int16 blocks, the device reconstructs, optionally
-    resizes, searches and re-quantizes, and the host Huffman-codes the
-    winners.  Results in input order, with image None (pixels never
+    resizes, searches and re-quantizes, and the winners are
+    Huffman-coded on the device (K3) or on the host as
+    compress.device_entropy_on says, on the host whenever the chunk is
+    resized.  Results in input order, with image None (pixels never
     reach the host; Result.load_image decodes on demand).
 
     Returns None when the inputs do not qualify (a format other than
@@ -650,7 +660,7 @@ def compress_jpeg_bytes_batched(ctx: Optional[Context],
 
     if opts.format != Format.JPEG or opts.target_size > 0:
         return None
-    _check_options(opts)
+    opts.validate()
     if not datas:
         return []
     if qualify_key is None:
@@ -669,6 +679,9 @@ def compress_jpeg_bytes_batched(ctx: Optional[Context],
                                          opts.max_height)
         if (dst_w, dst_h) != (w, h):
             rwh, rwv = lanczos_weights_device(w, h, dst_w, dst_h, dev)
+    # As in the JAX engine (:598-604), a resized chunk keeps the host
+    # encoder.
+    emit = device_entropy_on(opts, dev) and rwh is None
 
     n = len(datas)
     results: List[Result] = [
@@ -714,7 +727,7 @@ def compress_jpeg_bytes_batched(ctx: Optional[Context],
         return batched_decode_resize_search_quantize(
             blocks.to(dev, non_blocking=True),
             qtabs.to(dev, non_blocking=True), h, w, in_sub, subsample,
-            targets, rwh, rwv)
+            targets, rwh, rwv, emit, opts.optimize_huffman)
 
     def encode(i, out, j):
         return _finish(results[i], out, j, dst_w, dst_h, opts)

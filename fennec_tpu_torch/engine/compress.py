@@ -10,7 +10,9 @@ decode → SSIM on the host per bisection step (compress.go:21-87).  Here:
      scores windowed SSIM against the cached downsampled original (kernel
      K1 on CUDA tensors, ops/ssim_cuda.py).  No value leaves the device
      inside the loop; one copy to the host follows it;
-  3. one host C++ Huffman encode writes the winning quality.
+  3. the winning quality is Huffman-coded on the device (kernel K3,
+     parallel/batched.emit_scans) or by the host C++ encoder, as
+     Options.device_entropy says (device_entropy_on).
 
 Search semantics match compress.go: lo seeded by target (≥0.99→75,
 ≥0.97→50, ≥0.94→30, ≥0.90→15), target 1.0 clamped to 0.999, accept when
@@ -40,7 +42,7 @@ from ..ops.ssim import (
     ssim_premaps,
 )
 from ..ops.ssim_cuda import ssim_window
-from ..types import DEVICE_ENTROPY_NOT_PORTED, Options
+from ..types import Options
 from .size_search import quality_tables_on
 
 MAX_BISECT_STEPS = 7  # ceil(log2(100)) — covers any [lo, hi] ⊆ [1, 100]
@@ -242,13 +244,22 @@ def _search_targets(targets, dev: torch.device):
                          device=dev))
 
 
+def device_entropy_on(opts: Options, dev: torch.device) -> bool:
+    """Whether JPEGs are Huffman-coded on the device: JAX's rule "auto =
+    the accelerator" (engine/compress.py:663-666).  None → kernel K3 on a
+    CUDA device, the host C++ encoder on the CPU; True → device emission
+    (K3 on CUDA, its plain version on the CPU); False → the host C++
+    encoder.  Both write the same bytes."""
+    if opts.device_entropy is None:
+        return dev.type == "cuda"
+    return bool(opts.device_entropy)
+
+
 def compress_jpeg_optimal(src: np.ndarray, target_ssim: float, opts: Options,
                           device: _device.DeviceLike = None
                           ) -> Tuple[int, float, bytes]:
     """Find the lowest JPEG quality meeting the target SSIM (reference
     compress.go:21-87).  Returns (quality, ssim, jpeg bytes)."""
-    if opts.device_entropy:
-        raise NotImplementedError(DEVICE_ENTROPY_NOT_PORTED)
     dev = _device.resolve(device)
     arr = to_nrgba_ref(np.asarray(src))
     h, w = arr.shape[:2]
@@ -265,9 +276,39 @@ def compress_jpeg_optimal(src: np.ndarray, target_ssim: float, opts: Options,
         # Nothing met the target: the reference encodes at the initial hi
         # (Q=100) and reports bestSSIM=1.0 (compress.go:29-32,82-86).
         quality, ssim_val = 100, 1.0
-    data = encode_jpeg_from_coefs([c[0] for c in coefs], w, h, quality,
-                                  subsample, optimize=opts.optimize_huffman)
+    if device_entropy_on(opts, dev):
+        data = _encode_from_coefs_device(coefs, w, h, quality, subsample,
+                                         opts.optimize_huffman)
+    else:
+        data = encode_jpeg_from_coefs([c[0] for c in coefs], w, h, quality,
+                                      subsample,
+                                      optimize=opts.optimize_huffman)
     return quality, ssim_val, data
+
+
+def _quantize_packed(coefs, qtabs: torch.Tensor) -> torch.Tensor:
+    """(B, NT, 64) int16 blocks, y|cb|cr, of (B, N, 64) coefficient
+    blocks quantized at (B, 2, 64) [luma, chroma] tables."""
+    return torch.cat([
+        dct_ops.quantize_blocks(coefs[0], qtabs[:, None, 0]),
+        dct_ops.quantize_blocks(coefs[1], qtabs[:, None, 1]),
+        dct_ops.quantize_blocks(coefs[2], qtabs[:, None, 1])],
+        dim=1).to(torch.int16)
+
+
+def _encode_from_coefs_device(coefs, w: int, h: int, quality: int,
+                              subsample: bool, optimize: bool) -> bytes:
+    """One image's file with device Huffman emission (JAX :676-734):
+    quantize at `quality` on the device and emit with the standard or
+    the image's optimal tables; what comes to the host is the histograms
+    and the scan's words, not the blocks.  The same bytes as the host
+    C++ encoder."""
+    from ..parallel.batched import emit_scans
+
+    qtab = quality_tables_on(coefs[0].device)[quality][None]
+    packed = _quantize_packed(coefs, qtab).contiguous()
+    return emit_scans(packed, h, w, subsample, optimize).jpeg(
+        0, w, h, quality, subsample)
 
 
 # ── Batch counterparts (engine/batched.py drives them) ──────────────────────
@@ -309,7 +350,8 @@ def decode_jpeg_image(blocks: torch.Tensor, qtabs: torch.Tensor, h: int,
 
 
 def batched_quality_search_quantize(imgs: torch.Tensor, targets,
-                                    subsample: bool):
+                                    subsample: bool, emit: bool = False,
+                                    optimize: bool = True):
     """The lockstep search for a whole chunk (counterpart of
     batched_quality_search_quantize_device and _batched_search_core,
     compress.py:348-429).
@@ -318,27 +360,33 @@ def batched_quality_search_quantize(imgs: torch.Tensor, targets,
     stack gets alpha 255); targets: B per-image SSIM targets.  Every
     probe scores the whole chunk with one K1 call on a CUDA device.
     Returns host arrays (q (B,) int, ssim (B,) float32, found (B,) bool,
-    blocks (B, NT, 64) int16 quantized at each image's final quality:
-    the search's quality, or 100 where nothing met the target), which
-    come back in one device→host copy."""
+    then the blocks (B, NT, 64) int16 quantized at each image's final
+    quality: the search's quality, or 100 where nothing met the target).
+    Without `emit` the blocks come back with the rest in one device→host
+    copy; with it they stay on the device, are Huffman-coded there
+    (parallel/batched.emit_scans, optimal tables when `optimize`) and
+    the fourth output is the emitted scans (a HostScans)."""
     dev = imgs.device
     if imgs.shape[-1] == 3:
         imgs = torch.cat([imgs, torch.full_like(imgs[..., :1], 255.0)],
                          dim=-1)
-    bsz = imgs.shape[0]
+    bsz, h, w = imgs.shape[:3]
     t, lo0 = _search_targets(targets, dev)
     inp, coefs = prepare_search(imgs, subsample)
     best_q, best_ssim, found = _bisect_device_batch(inp, t, lo0)
-    qtabs = inp.tables[torch.where(found, best_q, 100)]  # (B, 2, 64)
-    blocks = torch.cat([
-        dct_ops.quantize_blocks(coefs[0], qtabs[:, None, 0]),
-        dct_ops.quantize_blocks(coefs[1], qtabs[:, None, 1]),
-        dct_ops.quantize_blocks(coefs[2], qtabs[:, None, 1])],
-        dim=1).to(torch.int16)
+    blocks = _quantize_packed(coefs, inp.tables[torch.where(found, best_q,
+                                                            100)])
     head = torch.cat([best_q.to(torch.int16)[:, None],
                       found.to(torch.int16)[:, None],
                       best_ssim.contiguous().view(torch.int16).reshape(
                           bsz, 2)], dim=1)
+    if emit:
+        from ..parallel.batched import emit_scans
+
+        scans = emit_scans(blocks.contiguous(), h, w, subsample, optimize)
+        out = head.cpu().numpy()
+        ssim = np.ascontiguousarray(out[:, 2:4]).view(np.float32)[:, 0]
+        return out[:, 0].astype(np.int64), ssim, out[:, 1] != 0, scans
     wire = torch.cat([head, blocks.reshape(bsz, -1)], dim=1)
     host = torch.empty(wire.shape, dtype=torch.int16,
                        pin_memory=wire.is_cuda)

@@ -9,7 +9,10 @@ device:
   * S1 (targetsize.go:125-176): one forward DCT and one size bisection
     for every image; byte verification (0xFF stuffing) and the
     optimal-Huffman ascent run as rounds that re-encode only the pending
-    lanes on the host C++ encoder (worker pool).  The winners' SSIM is
+    lanes: on the device (kernel K3, as the JAX engine's
+    _encode_two_stage) or on the host C++ encoder (worker pool), as
+    compress.device_entropy_on says; the same bytes either way.  The
+    winners' SSIM is
     their reconstruction at the winning quality from the resident
     coefficients, scored by K1 over the bucket.
   * S2 (targetsize.go:180-206): median cut per image on the pool, one
@@ -64,7 +67,7 @@ from ..ops.ssim import WINDOW_SIZE, ssim_fast_dims
 from ..ops.ssim_cuda import ssim_window
 from ..parallel.batched import batched_ssim_fast
 from ..types import Context, Format, Options
-from .compress import probe_luminance, search_inputs
+from .compress import device_entropy_on, probe_luminance, search_inputs
 from .size_search import quantize_at, size_bisect
 from .targetsize import (
     FIXED_SCALES,
@@ -109,12 +112,17 @@ def _host(*tensors: torch.Tensor) -> List[np.ndarray]:
 
 
 def _encode_lanes(pool, coefs, qvec: np.ndarray, sel: Sequence[int],
-                  h: int, w: int) -> List[Tuple[int, bytes]]:
+                  h: int, w: int, emit: bool) -> List[Tuple[int, bytes]]:
     """Encode the selected lanes of the resident coefficient stack, each
     at its quality qvec[lane], with per-image optimal Huffman tables (the
     target-size engine always optimizes, like _JpegSizer): quantize on
-    the device, one int16 copy back, the C++ encoder on the pool.
-    Returns (lane, bytes) pairs."""
+    the device, then with `emit` Huffman-code on the device (the
+    histograms down, the K.2 tables on the host, K3, the words down; JAX
+    _encode_two_stage, :331-381) and wrap each file on the pool, else one
+    int16 copy back and the C++ encoder on the pool.  Returns (lane,
+    bytes) pairs."""
+    from ..parallel.batched import emit_scans
+
     dev = coefs[0].device
     lanes = torch.as_tensor(np.asarray(sel, np.int64), device=dev)
     sub = tuple(c.index_select(0, lanes) for c in coefs)
@@ -128,13 +136,18 @@ def _encode_lanes(pool, coefs, qvec: np.ndarray, sel: Sequence[int],
     with stage_clock("encode"):
         qy, qcb, qcr = quantize_at(sub, torch.as_tensor(quals, device=dev))
         ny, nc = qy.shape[1], qcb.shape[1]
-        packed = torch.cat([qy, qcb, qcr], dim=1).to(
-            torch.int16).cpu().numpy()
+        packed = torch.cat([qy, qcb, qcr], dim=1).to(torch.int16)
+        if emit:
+            scans = emit_scans(packed, h, w, True, True)
+            return list(zip(sel, pool.map(
+                lambda k: scans.jpeg(k, w, h, quals[k], True),
+                range(len(sel)))))
+        packed = packed.cpu().numpy()
         return list(zip(sel, pool.map(enc, range(len(sel)))))
 
 
 def _s1_search_batch(pool, stack: torch.Tensor, h: int, w: int,
-                     target_bytes: int):
+                     target_bytes: int, emit: bool):
     """_JpegSizer.search over (B, h, w, 4) images on the device.
 
     Returns (qualities (B,), ok (B,) bool, data list, the resident
@@ -158,7 +171,7 @@ def _s1_search_batch(pool, stack: torch.Tensor, h: int, w: int,
     pending = ok.copy()
     while pending.any():
         for j, e in _encode_lanes(pool, coefs, q, np.nonzero(pending)[0],
-                                  h, w):
+                                  h, w, emit):
             if len(e) <= target_bytes:
                 data[j] = e
                 pending[j] = False
@@ -175,7 +188,7 @@ def _s1_search_batch(pool, stack: torch.Tensor, h: int, w: int,
     while climbing.any():
         trial = np.where(climbing, q + 1, q)
         for j, e in _encode_lanes(pool, coefs, trial,
-                                  np.nonzero(climbing)[0], h, w):
+                                  np.nonzero(climbing)[0], h, w, emit):
             if len(e) <= target_bytes:
                 q[j] += 1
                 data[j] = e
@@ -197,8 +210,8 @@ def _ssim_at_q(stack: torch.Tensor, coefs, q: np.ndarray) -> np.ndarray:
 
 
 def _s1_batched(pool, stack: torch.Tensor, arrs: List[np.ndarray], h: int,
-                w: int, target_bytes: int,
-                idxs: List[int]) -> List[Optional[SizeResult]]:
+                w: int, target_bytes: int, idxs: List[int],
+                emit: bool) -> List[Optional[SizeResult]]:
     """Strategy 1 for the bucket's JPEG-eligible images idxs (reference
     targetsize.go:125-176)."""
     b = len(arrs)
@@ -208,7 +221,8 @@ def _s1_batched(pool, stack: torch.Tensor, arrs: List[np.ndarray], h: int,
     if len(idxs) < b:
         stack = stack.index_select(0, torch.as_tensor(idxs,
                                                       device=stack.device))
-    q, ok, data, coefs = _s1_search_batch(pool, stack, h, w, target_bytes)
+    q, ok, data, coefs = _s1_search_batch(pool, stack, h, w, target_bytes,
+                                          emit)
     winners = [(k, i) for k, i in enumerate(idxs) if ok[k]]
     if not winners:
         return out
@@ -353,10 +367,12 @@ def _spec_geoms(w: int, h: int, lo: float, hi: float, depth: int,
 
 def _s3_batched(ctx: Optional[Context], pool, stack: torch.Tensor,
                 arrs: List[np.ndarray], h: int, w: int, target_bytes: int,
-                idxs: List[int]) -> List[Optional[SizeResult]]:
+                idxs: List[int],
+                emit: bool = False) -> List[Optional[SizeResult]]:
     """Strategy 3 for the bucket: lockstep binary scale search, the fixed
     scale grid and final re-searches grouped by output geometry
-    (reference targetsize.go:210-281)."""
+    (reference targetsize.go:210-281).  `emit`: encode on the device
+    (_encode_lanes)."""
     b = len(arrs)
     out: List[Optional[SizeResult]] = [None] * b
     if not idxs:
@@ -430,13 +446,14 @@ def _s3_batched(ctx: Optional[Context], pool, stack: torch.Tensor,
     for (fw, fh), group in finals.items():
         if _ctx_err(ctx):
             break
-        _final_group(pool, stack, w, h, fw, fh, group, target_bytes, out)
+        _final_group(pool, stack, w, h, fw, fh, group, target_bytes, out,
+                     emit)
     return out
 
 
 def _final_group(pool, stack: torch.Tensor, w: int, h: int, fw: int,
                  fh: int, group: List[int], target_bytes: int,
-                 out: List[Optional[SizeResult]]) -> None:
+                 out: List[Optional[SizeResult]], emit: bool) -> None:
     """One output geometry of S3: Lanczos-resize the group, run S1 on the
     scaled stack, and score SSIM against the originals after upscaling
     back (compute_ssim_nrgba semantics, targetsize.go:563-568)."""
@@ -446,7 +463,7 @@ def _final_group(pool, stack: torch.Tensor, w: int, h: int, fw: int,
     dwh, dwv = lanczos_weights_device(w, h, fw, fh, dev)
     scaled = lanczos_resize_device(src, dwh, dwv)
     q2, ok2, data2, _ = _s1_search_batch(pool, scaled, fh, fw,
-                                         target_bytes)
+                                         target_bytes, emit)
     uwh, uwv = lanczos_weights_device(fw, fh, w, h, dev)
     ssims = batched_ssim_fast(src, lanczos_resize_device(scaled, uwh, uwv))
 
@@ -479,6 +496,7 @@ def hit_target_size_batched(ctx: Optional[Context],
     b = len(arrs)
     arrs = [to_nrgba_ref(a) for a in arrs]
     h, w = arrs[0].shape[:2]
+    emit = device_entropy_on(opts, dev)
     want_png = opts.format == Format.PNG
     want_jpeg = opts.format == Format.JPEG
     jpeg_idx = [i for i in range(b)
@@ -491,7 +509,7 @@ def hit_target_size_batched(ctx: Optional[Context],
         if jpeg_idx and not _ctx_err(ctx):
             with stage_clock("s1"):
                 s1 = _s1_batched(pool, stack, arrs, h, w, target_bytes,
-                                 jpeg_idx)
+                                 jpeg_idx, emit)
             for i in jpeg_idx:
                 if s1[i] is not None and s1[i].quality >= MIN_JPEG_QUALITY:
                     candidates[i].append(s1[i])
@@ -505,7 +523,7 @@ def hit_target_size_batched(ctx: Optional[Context],
         if jpeg_idx and not _ctx_err(ctx):
             with stage_clock("s3"):
                 s3 = _s3_batched(ctx, pool, stack, arrs, h, w,
-                                 target_bytes, jpeg_idx)
+                                 target_bytes, jpeg_idx, emit)
             for i in jpeg_idx:
                 if s3[i] is not None:
                     candidates[i].append(s3[i])

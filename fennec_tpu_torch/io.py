@@ -1,10 +1,12 @@
 """File I/O with EXIF orientation (reference io.go); counterpart of
-fennec_tpu/io.py for the paths the port has (open, compress_file's read,
-the plain encode)."""
+fennec_tpu/io.py: open (with or without orientation), save and encode
+with fennec's optimization, and the plain fixed-quality encode.  Every
+function takes `device` for its device work."""
 
 from __future__ import annotations
 
-from typing import Tuple
+import os
+from typing import BinaryIO, Optional, Tuple
 
 import numpy as np
 
@@ -12,9 +14,9 @@ from . import device as _device
 from .codecs import decode_image
 from .codecs import png as png_codec
 from .codecs.jpeg import encode_jpeg
-from .exif import Orientation, read_orientation
-from .image import to_nrgba_ref
-from .types import Format, UnsupportedFormatError
+from .exif import Orientation, apply_orientation, read_orientation
+from .image import to_nrgba, to_nrgba_ref
+from .types import Format, Options, UnsupportedFormatError
 
 
 def open_image(filename: str,
@@ -25,6 +27,19 @@ def open_image(filename: str,
     with open(filename, "rb") as f:
         data = f.read()
     return decode_image(data, device)
+
+
+def open_and_orient(filename: str,
+                    device: _device.DeviceLike = None) -> np.ndarray:
+    """Load an image and correct its EXIF orientation (reference
+    io.go:34-61).  JPEG transforms run on `device`."""
+    with open(filename, "rb") as f:
+        data = f.read()
+    orient = read_orientation(data)
+    img = decode_image(data, device)
+    if orient <= Orientation.NORMAL:
+        return img
+    return apply_orientation(to_nrgba(img), orient)
 
 
 def open_with_orientation(filename: str, device: _device.DeviceLike = None
@@ -50,3 +65,42 @@ def encode_to_bytes(img: np.ndarray, fmt: Format, quality: int,
     if fmt == Format.PNG:
         return png_codec.encode_png_rgba(src)
     raise UnsupportedFormatError()
+
+
+def save(img: np.ndarray, filename: str, opts: Optional[Options] = None,
+         device: _device.DeviceLike = None) -> None:
+    """Save with the format from the extension, .jpg/.jpeg or .png
+    (reference io.go:91-110)."""
+    ext = os.path.splitext(filename)[1].lower()
+    if ext in (".jpg", ".jpeg"):
+        fmt = Format.JPEG
+    elif ext == ".png":
+        fmt = Format.PNG
+    else:
+        raise UnsupportedFormatError(
+            f"fennec: unsupported extension {ext!r} (use .jpg or .png)")
+    with open(filename, "wb") as f:
+        encode(f, img, fmt, opts, device)
+
+
+def encode(w: BinaryIO, img: np.ndarray, fmt: Format,
+           opts: Optional[Options] = None,
+           device: _device.DeviceLike = None) -> None:
+    """Write img to w in the given format with fennec's optimization
+    (reference io.go:113-129): the SSIM-guided quality search for JPEG,
+    the PNG optimizer for PNG."""
+    from .engine.compress import compress_jpeg_optimal, compress_png
+
+    opts = opts if opts is not None else Options()
+    src = to_nrgba_ref(np.asarray(img))
+    if fmt == Format.JPEG:
+        target = opts.quality.target_ssim()
+        if opts.target_ssim > 0:
+            target = opts.target_ssim
+        _, _, data = compress_jpeg_optimal(src, target, opts, device)
+        w.write(data)
+    elif fmt == Format.PNG:
+        w.write(compress_png(src, opts))
+    else:
+        raise UnsupportedFormatError(
+            "fennec: unsupported format for encode (use JPEG or PNG)")

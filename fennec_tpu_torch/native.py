@@ -169,18 +169,23 @@ def jpeg_encode_scan_custom(comps, dc_specs, ac_specs,
 
 
 def jpeg_build_optimal_specs(dc_freq: np.ndarray, ac_freq: np.ndarray):
-    """T.81 K.2 optimal tables for one image: (2, 16) DC and (2, 256) AC
-    symbol frequencies [luma, chroma] → (dc_specs, ac_specs), each a
-    [luma, chroma] list of (BITS, VALS); an empty class gets a minimal
+    """T.81 K.2 optimal tables for B images in one C call: (B, 2, 16) DC
+    and (B, 2, 256) AC symbol frequencies [luma, chroma] → (bits (B, 4,
+    16) uint8, vals (B, 4, 256) uint8, nvals (B, 4) int32), tables
+    dc-luma, dc-chroma, ac-luma, ac-chroma; an empty class gets a minimal
     valid table.  Raises ValueError like the Python builder
-    (codecs/huffopt.optimal_spec) when a code would exceed 32 bits."""
-    dcf = np.ascontiguousarray(dc_freq, dtype=np.int64).reshape(1, 2, 16)
-    acf = np.ascontiguousarray(ac_freq, dtype=np.int64).reshape(1, 2, 256)
-    bits = np.zeros((1, 4, 16), dtype=np.uint8)
-    vals = np.zeros((1, 4, 256), dtype=np.uint8)
-    nvals = np.zeros((1, 4), dtype=np.int32)
+    (codecs/huffopt.optimal_spec) when any image's code would exceed 32
+    bits."""
+    dcf = np.ascontiguousarray(dc_freq, dtype=np.int64)
+    acf = np.ascontiguousarray(ac_freq, dtype=np.int64)
+    n = dcf.shape[0]
+    if dcf.shape != (n, 2, 16) or acf.shape != (n, 2, 256):
+        raise ValueError(f"fennec: frequencies {dcf.shape} / {acf.shape}")
+    bits = np.zeros((n, 4, 16), dtype=np.uint8)
+    vals = np.zeros((n, 4, 256), dtype=np.uint8)
+    nvals = np.zeros((n, 4), dtype=np.int32)
     rc = load().fennec_build_optimal_specs(
-        1, dcf.ctypes.data_as(ctypes.c_void_p),
+        n, dcf.ctypes.data_as(ctypes.c_void_p),
         acf.ctypes.data_as(ctypes.c_void_p),
         bits.ctypes.data_as(ctypes.c_void_p),
         vals.ctypes.data_as(ctypes.c_void_p),
@@ -190,9 +195,7 @@ def jpeg_build_optimal_specs(dc_freq: np.ndarray, ac_freq: np.ndarray):
             "fennec: optimal Huffman code length exceeds 32 bits")
     if rc != 0:
         raise RuntimeError("fennec native: build_optimal_specs failed")
-    specs = [(bits[0, t].tolist(), vals[0, t, :nvals[0, t]].tolist())
-             for t in range(4)]  # dc-luma, dc-chroma, ac-luma, ac-chroma
-    return specs[:2], specs[2:]
+    return bits, vals, nvals
 
 
 def _spec_arrays(specs):

@@ -147,6 +147,22 @@ def component_scan_bits(qblocks: torch.Tensor, order: torch.Tensor,
     return dc_bits + ac_bits + eob
 
 
+def bits_std_from_hist(dc_freq: torch.Tensor,
+                       ac_freq: torch.Tensor) -> torch.Tensor:
+    """Exact standard-table scan bits from symbol histograms (JAX
+    :165-188): a DC symbol s costs len(dc_code[s]) + s bits, an AC symbol
+    rs costs len(ac_code[rs]) + (rs & 15), and ZRL and EOB carry no
+    magnitude bits, so the total is one dot product.  dc_freq
+    (..., 2, 16), ac_freq (..., 2, 256) → (...,) int64."""
+    dc_l, ac_l, dc_c, ac_c = (torch.from_numpy(t) for t in
+                              _host_tables()[:4])
+    extra = torch.arange(256, dtype=torch.int64)
+    dc_cost = (torch.stack([dc_l, dc_c]) + extra[:16]).to(dc_freq.device)
+    ac_cost = (torch.stack([ac_l, ac_c]) + (extra & 15)).to(ac_freq.device)
+    return ((dc_freq.to(torch.int64) * dc_cost).sum(dim=(-2, -1))
+            + (ac_freq.to(torch.int64) * ac_cost).sum(dim=(-2, -1)))
+
+
 def scan_bits(qy: torch.Tensor, qcb: torch.Tensor, qcr: torch.Tensor,
               padded_h: int, padded_w: int, subsample: bool) -> torch.Tensor:
     """Exact entropy-coded bits (stuffing excluded) of a 3-component

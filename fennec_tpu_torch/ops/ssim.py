@@ -11,9 +11,10 @@ package, op for op.  Not conv2d: cuDNN would run it in TF32 by default.
 This module is what the CPU runs and what the CUDA kernel
 (ops/ssim_cuda.py) is held against on the card.
 
-It also holds SSIMFast on images (ssim_fast_images, and the host APIs
-ssim_fast, pixel_ssim and compute_ssim_nrgba, JAX ops/ssim.py:239-281,
-398-404): box-downsample to at most 512 px, luminance, then windowed SSIM
+It also holds the host APIs (JAX ops/ssim.py:239-404): ssim at full
+resolution, SSIMFast on images (ssim_fast_images, ssim_fast: box-
+downsample to at most 512 px, luminance, then windowed SSIM), ms_ssim
+over five scales, pixel_ssim and compute_ssim_nrgba.  Windowed scores go
 through K1's wrapper, which launches the kernel on CUDA tensors and takes
 batched_ssim_plain on CPU tensors.
 """
@@ -33,6 +34,7 @@ from .filters import gaussian_window_1d
 from .resize import (
     box_downsample_device,
     box_weights_device,
+    lanczos_resize,
     lanczos_resize_device,
     lanczos_weights_device,
 )
@@ -44,6 +46,7 @@ SSIM_C1 = (SSIM_K1 * SSIM_L) ** 2
 SSIM_C2 = (SSIM_K2 * SSIM_L) ** 2
 WINDOW_SIZE = 8
 GAUSS_SIGMA = 1.5
+MSSSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
 
 
 def gaussian_taps(device: torch.device) -> torch.Tensor:
@@ -215,3 +218,79 @@ def compute_ssim_nrgba(a, b, device: _device.DeviceLike = None) -> float:
         wh, wv = lanczos_weights_device(tb.shape[1], tb.shape[0], w, h, dev)
         tb = lanczos_resize_device(tb, wh, wv)
     return float(ssim_fast_images(ta[None], tb[None])[0])
+
+
+def ssim(img1, img2, device: _device.DeviceLike = None) -> float:
+    """Structural similarity at full resolution (reference ssim.go:24-43;
+    JAX :246-260): img2 is Lanczos-resized to img1's size first when they
+    differ; under 8 px the global-moment SSIM, at exactly 8 px 1.0, else
+    the mean windowed SSIM of the luminance, one K1 call on a CUDA
+    device."""
+    from .ssim_cuda import ssim_window
+
+    dev = _device.resolve(device)
+    a = to_nrgba_ref(np.asarray(img1))
+    b = to_nrgba_ref(np.asarray(img2))
+    h, w = a.shape[:2]
+    if b.shape[:2] != (h, w):
+        b = lanczos_resize(b, w, h, dev)
+    if w < WINDOW_SIZE or h < WINDOW_SIZE:
+        return pixel_ssim(a, b, dev)
+    if w == WINDOW_SIZE or h == WINDOW_SIZE:
+        return 1.0  # no window position (ssim.go:162-164)
+    la = luminance(_image_tensor(a, dev))[None].contiguous()
+    lb = luminance(_image_tensor(b, dev))[None].contiguous()
+    return float(ssim_window(la, lb)[0])
+
+
+def msssim_plan(w: int, h: int):
+    """(weights, per-level dims) of MS-SSIM at w×h (JAX _msssim_plan,
+    :284-305): the levels stop at the first side under 8 px and the
+    weights that remain are renormalised (ssim.go:327-342)."""
+    weights = list(MSSSIM_WEIGHTS)
+    ww, hh = w, h
+    for i in range(len(weights) - 1):
+        if min(ww, hh) < WINDOW_SIZE:
+            weights = weights[: i + 1]
+            total = sum(weights)
+            weights = [x / total for x in weights]
+            break
+        ww //= 2
+        hh //= 2
+    dims = [(w, h)]
+    for _ in range(len(weights) - 1):
+        nw, nh = dims[-1][0] // 2, dims[-1][1] // 2
+        if nw < WINDOW_SIZE or nh < WINDOW_SIZE:
+            break
+        dims.append((nw, nh))
+    return weights, dims
+
+
+def ms_ssim(img1, img2, device: _device.DeviceLike = None) -> float:
+    """Multi-scale SSIM over five scales (reference ssim.go:313-365; JAX
+    :308-395): at each level SSIMFast of the pair, then a box
+    downsample to half size rounded to uint8 values, as the reference's
+    level images are; the float32 sum of weight · log(max(s, 1e-10)),
+    exponentiated.  img2 is Lanczos-resized to img1's size first when
+    they differ.  Each level's windowed score is one K1 call on a CUDA
+    device."""
+    dev = _device.resolve(device)
+    a = to_nrgba_ref(np.asarray(img1))
+    b = to_nrgba_ref(np.asarray(img2))
+    h, w = a.shape[:2]
+    if w <= 0 or h <= 0:
+        return 1.0
+    if b.shape[:2] != (h, w):
+        b = lanczos_resize(b, w, h, dev)
+    weights, dims = msssim_plan(w, h)
+    cur_a, cur_b = _image_tensor(a, dev)[None], _image_tensor(b, dev)[None]
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    for i, (lw, lh) in enumerate(dims):
+        s = ssim_fast_images(cur_a, cur_b)[0]
+        total = total + torch.log(torch.clamp(s, min=1e-10)) * float(
+            np.float32(weights[i]))
+        if i + 1 < len(dims):
+            wh, wv = box_weights_device(lw, lh, *dims[i + 1], dev)
+            cur_a = box_downsample_device(cur_a, wh, wv)
+            cur_b = box_downsample_device(cur_b, wh, wv)
+    return float(torch.exp(total))

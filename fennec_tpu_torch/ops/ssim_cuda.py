@@ -95,6 +95,33 @@ def find_nvcc() -> str:
                             "/usr/local/cuda/bin)")
 
 
+def compile_library(source: str, library: str, flags) -> str:
+    """nvcc `source` into the shared library `library` (written under a
+    temporary name, then moved into place, so a concurrent loader never
+    sees half a file); returns nvcc's report.  Raises when nvcc fails."""
+    os.makedirs(os.path.dirname(library), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(library))
+    os.close(fd)
+    try:
+        cmd = [find_nvcc(), *flags, "-o", tmp, source]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"fennec: nvcc failed ({proc.returncode}):\n"
+                               f"{log}")
+        os.replace(tmp, library)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return log
+
+
+def is_current(library: str, source: str) -> bool:
+    """The library exists and is not older than its source."""
+    return (os.path.exists(library)
+            and os.path.getmtime(library) >= os.path.getmtime(source))
+
+
 class WindowedSsimKernel:
     """Builds, loads and launches K1.  `launches` counts kernel launches
     (one per call on CUDA tensors; see count_launch); `build_log` holds
@@ -118,25 +145,10 @@ class WindowedSsimKernel:
     def build(self, force: bool = False) -> str:
         """Compile the source into the build directory; returns the path.
         Skips the compile when the library is newer than the source."""
-        so = self.library
-        if (not force and os.path.exists(so)
-                and os.path.getmtime(so) >= os.path.getmtime(self.source)):
-            return so
-        os.makedirs(os.path.dirname(so), exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(so))
-        os.close(fd)
-        try:
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"fennec: nvcc failed ({proc.returncode})"
-                                   f":\n{self.build_log}")
-            os.replace(tmp, so)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-        return so
+        if force or not is_current(self.library, self.source):
+            self.build_log = compile_library(self.source, self.library,
+                                             NVCC_FLAGS)
+        return self.library
 
     def load(self) -> ctypes.CDLL:
         with self._lock:

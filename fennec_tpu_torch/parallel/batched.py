@@ -1,13 +1,22 @@
-"""Batch device work: the coefficient path's chunk, and batched SSIMFast.
+"""Batch device work: the coefficient path's chunk, device Huffman
+emission, and batched SSIM.
 
 Counterpart of the part of fennec_tpu/parallel/batched.py the batch
 engines run.  batched_decode_resize_search_quantize (:515) reconstructs a
 chunk of same-geometry JPEGs from their quantized blocks, optionally
 Lanczos-resizes them and runs the lockstep quality search; pixels never
-leave the device.  batched_ssim_fast (:1306) scores a batch of image
-pairs with one K1 call on a CUDA device.  `_dense_to_imgs` (:663) is
-engine/compress.py's decode_jpeg_image here, which already takes the
-whole batch.
+leave the device.  batched_ssim (:1248) and batched_ssim_fast (:1306)
+score a batch of image pairs with one K1 call on a CUDA device.
+`_dense_to_imgs` (:663) is engine/compress.py's decode_jpeg_image here,
+which already takes the whole batch.
+
+Device Huffman emission (packed_hist_bits :238, batched_emit_std :458,
+batched_emit_custom :1101, pull_emit_words :1074) over (B, NT, 64) int16
+quantized blocks resident on the device, through kernel K3
+(ops/jpeg_emit_cuda.py) on a CUDA device and its plain version on the
+CPU.  emit_scans runs the whole flow with two pulls: one small one (the
+histograms for optimal tables, or the bit count per image for the
+standard ones) and one of exactly ceil(bits / 32) words per image.
 
 The JAX package's sparse upload layouts (COO, CSR, dense int8 with an
 exception list, :542-807) exist to cut uploads over a ~42 MB/s link to a
@@ -17,7 +26,8 @@ blocks.  Its mesh sharding is not ported (one device).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import dataclasses
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -26,24 +36,36 @@ from ..engine.compress import (
     batched_quality_search_quantize,
     decode_jpeg_image,
 )
+from ..ops.color import luminance
+from ..ops.jpeg_emit import (
+    finalize_scan_host,
+    layout_on,
+    std_tables_on,
+)
+from ..ops.jpeg_emit_cuda import block_stats, deposit
+from ..ops.jpeg_size import bits_std_from_hist
 from ..ops.resize import lanczos_resize_device
-from ..ops.ssim import ssim_fast_images
+from ..ops.ssim import WINDOW_SIZE, ssim_fast_images
+from ..ops.ssim_cuda import ssim_window
 
 
 def batched_decode_resize_search_quantize(
         blocks: torch.Tensor, qtabs: torch.Tensor, h: int, w: int,
         in_subsample: bool, out_subsample: bool, targets: Sequence[float],
         resize_wh: Optional[torch.Tensor] = None,
-        resize_wv: Optional[torch.Tensor] = None):
+        resize_wv: Optional[torch.Tensor] = None, emit: bool = False,
+        optimize: bool = True):
     """blocks: (B, NT, 64) int16 decoded quantized blocks of B h×w JPEGs
     (y, cb, cr on MCU-padded grids) and (B, 2, 64) [luma, chroma] tables,
     on the device.  Decode, resize with the (W', W) and (H', H) Lanczos
     weights when given, search and re-quantize; returns what
-    batched_quality_search_quantize returns, on the host."""
+    batched_quality_search_quantize returns (emit and optimize as
+    there), on the host."""
     imgs = decode_jpeg_image(blocks, qtabs, h, w, in_subsample)
     if resize_wh is not None:
         imgs = lanczos_resize_device(imgs, resize_wh, resize_wv)
-    return batched_quality_search_quantize(imgs, targets, out_subsample)
+    return batched_quality_search_quantize(imgs, targets, out_subsample,
+                                           emit, optimize)
 
 
 def batched_ssim_fast(imgs_a: torch.Tensor,
@@ -53,3 +75,195 @@ def batched_ssim_fast(imgs_a: torch.Tensor,
     routing of small images) → (B,) host floats.  On a CUDA device the
     windowed score is one K1 call for the batch."""
     return ssim_fast_images(imgs_a, imgs_b).cpu().numpy()
+
+
+def batched_ssim(imgs_a: torch.Tensor, imgs_b: torch.Tensor) -> torch.Tensor:
+    """Windowed SSIM per pair of two (B, H, W, C>=3) batches of one shape
+    at full resolution (JAX :1248) → (B,) float32 on their device: one K1
+    call on a CUDA device.  A side of 8 px or less has no window
+    position: 1.0 (ssim.go:162-164)."""
+    bsz, h, w = imgs_a.shape[:3]
+    if h <= WINDOW_SIZE or w <= WINDOW_SIZE:
+        return torch.ones((bsz,), dtype=torch.float32, device=imgs_a.device)
+    return ssim_window(luminance(imgs_a.to(torch.float32)).contiguous(),
+                       luminance(imgs_b.to(torch.float32)).contiguous())
+
+
+# ── Device Huffman emission ─────────────────────────────────────────────────
+
+
+def _padded(h: int, w: int, subsample: bool):
+    mult = 16 if subsample else 8
+    return h + (-h) % mult, w + (-w) % mult
+
+
+def packed_hist_bits(packed: torch.Tensor, h: int, w: int,
+                     subsample: bool) -> torch.Tensor:
+    """Symbol histograms and the exact standard-table bit count of
+    quantized blocks (B, NT, 64) int16 of h×w images: one K3a launch.
+    Returns (B, 545) int64 on their device, JAX :238's columns: 0 the
+    standard-table bits, 1:33 the DC histograms (2, 16), 33:545 the AC
+    histograms (2, 256)."""
+    dev = packed.device
+    lay = layout_on(*_padded(h, w, subsample), subsample, dev)
+    _, hist = block_stats(packed, lay, std_tables_on(dev), want_bits=False,
+                          want_hist=True)
+    hist = hist.to(torch.int64)
+    bsz = packed.shape[0]
+    bits = bits_std_from_hist(hist[:, :32].reshape(bsz, 2, 16),
+                              hist[:, 32:].reshape(bsz, 2, 256))
+    return torch.cat([bits[:, None], hist], dim=1)
+
+
+class DeviceScans(NamedTuple):
+    """Emitted words on the device: image b owns words[base[b]:base[b+1]]
+    and `bits[b]` of them; the last word is K3b's out-of-range flag."""
+
+    words: torch.Tensor
+    bits: np.ndarray
+    base: np.ndarray
+
+
+def _deposit(packed: torch.Tensor, lay, tables: torch.Tensor,
+             block_bits: torch.Tensor, totals: np.ndarray) -> DeviceScans:
+    """The exclusive scan of the block bits and one K3b launch into a
+    buffer of exactly ceil(bits / 32) words per image."""
+    totals = np.asarray(totals, dtype=np.int64)
+    base = np.zeros(totals.size + 1, dtype=np.int64)
+    np.cumsum((totals + 31) // 32, out=base[1:])
+    off = torch.cumsum(block_bits, dim=1, dtype=torch.int64) - block_bits
+    word_base = torch.from_numpy(base).to(packed.device)
+    words = deposit(packed, lay, tables, off, word_base, int(base[-1]))
+    return DeviceScans(words, totals, base)
+
+
+def emit_std(packed: torch.Tensor, h: int, w: int,
+             subsample: bool) -> DeviceScans:
+    """Emit with the Annex-K tables (JAX batched_emit_std, :458): K3a for
+    the block bits, a pull of one bit count per image, K3b."""
+    dev = packed.device
+    lay = layout_on(*_padded(h, w, subsample), subsample, dev)
+    tables = std_tables_on(dev)
+    bits, _ = block_stats(packed, lay, tables, want_bits=True,
+                          want_hist=False)
+    totals = bits.sum(dim=1, dtype=torch.int64).cpu().numpy()
+    return _deposit(packed, lay, tables, bits, totals)
+
+
+def emit_custom(packed: torch.Tensor, tables: torch.Tensor,
+                totals: np.ndarray, h: int, w: int,
+                subsample: bool) -> DeviceScans:
+    """Emit with per-image tables (JAX batched_emit_custom, :1101):
+    tables (B, 2, 272) int32 packed (code << 5 | length) on the blocks'
+    device, totals (B,) the scans' bits under them, known on the host
+    from the histograms (hist_bits).  K3a for the block bits, then K3b;
+    no pull."""
+    lay = layout_on(*_padded(h, w, subsample), subsample, packed.device)
+    bits, _ = block_stats(packed, lay, tables, want_bits=True,
+                          want_hist=False)
+    return _deposit(packed, lay, tables, bits, totals)
+
+
+def pull_emit_words(scans: DeviceScans) -> np.ndarray:
+    """The words of every image in one device→host copy (JAX :1074), as
+    uint32; raises if K3b flagged a word outside its image's range."""
+    host = scans.words.cpu().numpy().view(np.uint32)
+    if host[-1]:
+        raise RuntimeError("fennec: Huffman emission wrote outside its "
+                           "words (block bits and scan bits disagree)")
+    return host[:-1]
+
+
+def hist_bits(dc_freq: np.ndarray, ac_freq: np.ndarray,
+              tables: np.ndarray) -> np.ndarray:
+    """Scan bits under packed tables (B, 2, 272) from the histograms
+    (B, 2, 16) and (B, 2, 256): the dot product of the counts with each
+    symbol's code length plus its magnitude bits → (B,) int64."""
+    lens = (tables & 31).astype(np.int64)
+    extra = np.arange(256, dtype=np.int64)
+    return ((dc_freq * (lens[:, :, :16] + extra[:16])).sum(axis=(1, 2))
+            + (ac_freq * (lens[:, :, 16:] + (extra & 15))).sum(axis=(1, 2)))
+
+
+@dataclasses.dataclass
+class HostScans:
+    """A batch's emitted scans on the host: `specs` holds each image's
+    optimal (dc_specs, ac_specs), None for the standard tables; `errors`
+    the images whose optimal tables could not be built (K.2's 32-bit
+    limit), which fail alone."""
+
+    words: np.ndarray
+    bits: np.ndarray
+    base: np.ndarray
+    specs: Optional[List] = None
+    errors: Dict[int, BaseException] = dataclasses.field(
+        default_factory=dict)
+
+    def scan(self, j: int) -> bytes:
+        """Image j's entropy-coded segment: padded and byte-stuffed."""
+        return finalize_scan_host(
+            self.words[self.base[j]:self.base[j + 1]], int(self.bits[j]))
+
+    def jpeg(self, j: int, w: int, h: int, quality: int,
+             subsample: bool) -> bytes:
+        """Image j's file, its blocks quantized at `quality`."""
+        from ..codecs.jpeg import _dht_segment_custom, assemble_jpeg
+        from ..ops.dct import all_quality_tables
+
+        if j in self.errors:
+            raise self.errors[j]
+        dht = (None if self.specs is None
+               else _dht_segment_custom(*self.specs[j]))
+        return assemble_jpeg(w, h, all_quality_tables()[quality],
+                             self.scan(j), subsample, dht=dht)
+
+
+def _optimal_tables(dc_freq: np.ndarray, ac_freq: np.ndarray):
+    """(specs, (B, 2, 272) packed tables, errors): the K.2 tables in one
+    C call; when some image's code would exceed 32 bits, image by image,
+    so that only those images fail."""
+    from ..codecs.huffopt import specs_and_tables_batch
+
+    try:
+        specs, dcp, acp = specs_and_tables_batch(dc_freq, ac_freq)
+        return specs, np.concatenate([dcp, acp], axis=2), {}
+    except ValueError:
+        pass
+    bsz = dc_freq.shape[0]
+    specs: List = [None] * bsz
+    tables = np.zeros((bsz, 2, 272), dtype=np.int32)
+    errors: Dict[int, BaseException] = {}
+    for j in range(bsz):
+        try:
+            got, dcp, acp = specs_and_tables_batch(dc_freq[j:j + 1],
+                                                   ac_freq[j:j + 1])
+        except ValueError as exc:
+            errors[j] = exc
+            continue
+        specs[j] = got[0]
+        tables[j] = np.concatenate([dcp[0], acp[0]], axis=1)
+    return specs, tables, errors
+
+
+def emit_scans(packed: torch.Tensor, h: int, w: int, subsample: bool,
+               optimize: bool) -> HostScans:
+    """Huffman-code B quantized h×w images (B, NT, 64) int16 on their
+    device, with per-image optimal tables or the standard ones: the
+    two-stage flow of the JAX engines (engine/batched.py:2054-2160).
+    Optimal: K3a's histograms come down (B × 545 values), the K.2 tables
+    are built on the host in one C call, then K3a and K3b emit with
+    them, the buffer sized from the histograms' exact bit count.
+    Standard: K3a, one bit count per image down, K3b.  Then one pull of
+    the words."""
+    if optimize:
+        hb = packed_hist_bits(packed, h, w, subsample).cpu().numpy()
+        dcf = hb[:, 1:33].reshape(-1, 2, 16)
+        acf = hb[:, 33:].reshape(-1, 2, 256)
+        specs, tables, errors = _optimal_tables(dcf, acf)
+        dev_scans = emit_custom(packed, torch.from_numpy(tables).to(
+            packed.device), hist_bits(dcf, acf, tables), h, w, subsample)
+    else:
+        specs, errors = None, {}
+        dev_scans = emit_std(packed, h, w, subsample)
+    return HostScans(pull_emit_words(dev_scans), dev_scans.bits,
+                     dev_scans.base, specs, errors)

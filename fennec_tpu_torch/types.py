@@ -21,13 +21,6 @@ import numpy as np
 VERSION = "1.0.0"
 
 
-# A part of the JAX package's surface the port does not have yet; the API,
-# the batch engines and the CLI refuse it with this message.
-DEVICE_ENTROPY_NOT_PORTED = (
-    "fennec: device Huffman emission is not ported to PyTorch yet; use "
-    "device_entropy=None or False for the host C++ encoder")
-
-
 # ── Errors ───────────────────────────────────────────────────────────────────
 # Sentinel error analogues (reference types.go:17-30). Python callers use
 # ``isinstance`` / ``except`` where Go callers used errors.Is().

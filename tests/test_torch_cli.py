@@ -5,8 +5,9 @@ files, the port's with --device cpu: single-file, --batch and --analyze
 must give the same exit code, the same chosen quality (read back from
 each output's quantization table) and the same analysis lines.  One run
 of `python -m fennec_tpu_torch` in a subprocess shows the module entry
-point works.  --device-entropy on (not ported yet), an unparsable
---target-size and an out-of-range --ssim exit non-zero.
+point works.  An unparsable --target-size and an out-of-range --ssim
+exit non-zero; --device-entropy on writes the bytes --device-entropy off
+writes.
 """
 
 import os
@@ -174,16 +175,31 @@ def test_analyze_fields_match_jax(make):
 
 @pytest.mark.parametrize("flags,msg", [
     (["--target-size", "4XB"], "invalid size '4XB'"),
-    (["--device-entropy", "on"], "device Huffman emission is not ported"),
+    (["--device-entropy", "on"], None),
     (["--ssim", "1.5"], "--ssim must be in"),
 ], ids=["target-size", "device-entropy", "bad-ssim"])
 def test_refused_flags(capsys, tmp_path, inputs, flags, msg):
+    """Flags the CLI refuses (exit 1, the message on stderr), in single
+    and batch mode; msg None marks a flag it once refused and now takes:
+    --device-entropy on writes the bytes --device-entropy off writes."""
     for extra in ([], ["--batch"]):
         src = str(inputs) if extra else str(inputs / "a.jpg")
-        rc = tcli.main(extra + flags + ["--device", "cpu", src,
-                                        str(tmp_path / "o")])
+        out = tmp_path / ("batch" if extra else "one.jpg")
+        rc = tcli.main(extra + flags + ["--device", "cpu", src, str(out)])
         err = capsys.readouterr().err
-        assert rc == 1 and msg in err
+        if msg is not None:
+            assert rc == 1 and msg in err
+            continue
+        ref = tmp_path / ("ref_batch" if extra else "ref.jpg")
+        assert tcli.main(extra + ["--device-entropy", "off", "--device",
+                                  "cpu", src, str(ref)]) == rc
+        if extra:
+            names = sorted(p.name for p in ref.iterdir())
+            assert names and names == sorted(p.name for p in out.iterdir())
+            for name in names:
+                assert (out / name).read_bytes() == (ref / name).read_bytes()
+        else:
+            assert rc == 0 and out.read_bytes() == ref.read_bytes()
 
 
 def test_missing_input_and_directory_errors(capsys, tmp_path):

@@ -233,3 +233,131 @@ def test_size_oracle_and_palette_map_on_card(cuda_device):
     pal = median_cut(img, 64)
     np.testing.assert_array_equal(apply_palette(img, pal, cuda_device),
                                   apply_palette(img, pal, "cpu"))
+
+
+# ── Kernel K3: Huffman emission ─────────────────────────────────────────────
+
+
+def k3_blocks(h, w, subsample, bsz, seed):
+    """(B, NT, 64) int16 sparse random blocks of h×w images, with runs of
+    zeros, extreme magnitudes and all-zero blocks."""
+    mult = 16 if subsample else 8
+    ph, pw = h + (-h) % mult, w + (-w) % mult
+    ny = (ph // 8) * (pw // 8)
+    nc = (ph // 16) * (pw // 16) if subsample else ny
+    rng = np.random.default_rng(seed)
+    nt = ny + 2 * nc
+    blocks = (rng.integers(-300, 300, (bsz, nt, 64))
+              * (rng.random((bsz, nt, 64)) < 0.12))
+    blocks[:, :, 0] = rng.integers(-2047, 2048, (bsz, nt))
+    blocks[:, ::7, 1:] = 0
+    blocks[:, 1::11, 63] = -1023
+    return torch.from_numpy(blocks.astype(np.int16)), ny, nc
+
+
+@pytest.mark.parametrize("h,w,sub,bsz", [(1, 1, True, 1), (9, 17, True, 3),
+                                         (9, 17, False, 2),
+                                         (400, 600, True, 2),
+                                         (1080, 1920, False, 1),
+                                         (3024, 4032, True, 1)])
+def test_k3_matches_plain(cuda_device, h, w, sub, bsz):
+    from fennec_tpu_torch.codecs.jpeg import encode_quantized
+    from fennec_tpu_torch.ops import jpeg_emit, jpeg_emit_cuda as k3
+    from fennec_tpu_torch.parallel.batched import emit_scans
+
+    host, ny, nc = k3_blocks(h, w, sub, bsz, h + w)
+    packed = host.to(cuda_device)
+    mult = 16 if sub else 8
+    lay = jpeg_emit.layout_on(h + (-h) % mult, w + (-w) % mult, sub,
+                              cuda_device)
+    tables = jpeg_emit.std_tables_on(cuda_device)
+    before = (k3.block_stats.launches, k3.deposit.launches)
+    bits, hist = k3.block_stats(packed, lay, tables)
+    want_bits, want_hist = jpeg_emit.block_stats_plain(packed, lay, tables)
+    off = torch.cumsum(bits, 1, dtype=torch.int64) - bits
+    totals = bits.sum(1, dtype=torch.int64).cpu()
+    base = torch.cat([torch.zeros(1, dtype=torch.int64),
+                      torch.cumsum((totals + 31) // 32, 0)]).to(cuda_device)
+    words = k3.deposit(packed, lay, tables, off, base, int(base[-1]))
+    want_words = jpeg_emit.deposit_plain(packed, lay, tables, off, base)
+    torch.cuda.synchronize()
+    assert (k3.block_stats.launches, k3.deposit.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(bits, want_bits) and torch.equal(hist, want_hist)
+    assert torch.equal(words, want_words) and int(words[-1]) == 0
+    for optimize in (False, True):
+        scans = emit_scans(packed, h, w, sub, optimize)
+        for j in range(bsz):
+            blk = host[j].numpy().astype(np.int32)
+            assert scans.jpeg(j, w, h, 50, sub) == encode_quantized(
+                blk[:ny], blk[ny:ny + nc], blk[ny + nc:], w, h, 50, sub,
+                optimize)
+
+
+def test_k3_never_takes_the_plain_version(cuda_device, monkeypatch):
+    """CUDA tensors launch K3 or raise: the plain versions are never
+    called, and device_entropy=None on the card takes K3."""
+    from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
+
+    def refuse(*args, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(k3, "block_stats_plain", refuse)
+    monkeypatch.setattr(k3, "deposit_plain", refuse)
+    before = (k3.block_stats.launches, k3.deposit.launches)
+    img = photo(120, 90, 2)
+    on_card = T.compress_image(None, img, T.Options(format=T.JPEG),
+                               device=cuda_device)
+    assert k3.block_stats.launches >= before[0] + 2
+    assert k3.deposit.launches == before[1] + 1
+    host = T.compress_image(None, img, T.Options(format=T.JPEG,
+                                                 device_entropy=False),
+                            device=cuda_device)
+    assert on_card.compressed_data == host.compressed_data
+
+
+def test_k3_on_streams_and_threads(cuda_device):
+    """Two threads emit at once, each on its own stream: each result
+    equals a sequential call's (every call owns its buffers)."""
+    import threading
+
+    from fennec_tpu_torch.parallel.batched import emit_scans
+
+    batches = [k3_blocks(500, 500, True, 8, 40 + i)[0].to(cuda_device)
+               for i in range(2)]
+    want = [emit_scans(p, 500, 500, True, True).words for p in batches]
+    got = [[] for _ in batches]
+    start = threading.Barrier(len(batches))
+
+    def work(i):
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            start.wait()
+            for _ in range(10):
+                got[i].append(emit_scans(batches[i], 500, 500, True,
+                                         True).words)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    for i in range(2):
+        assert len(got[i]) == 10
+        assert all(np.array_equal(g, want[i]) for g in got[i])
+
+
+def test_surface_on_card_matches_cpu(cuda_device):
+    from fennec_tpu_torch.ops import effects
+
+    a = photo(640, 480, 5)
+    b = photo(640, 480, 6)
+    assert abs(T.ssim(a, b, device=cuda_device)
+               - T.ssim(a, b, device="cpu")) <= ATOL
+    assert abs(T.ms_ssim(a, b, device=cuda_device)
+               - T.ms_ssim(a, b, device="cpu")) <= ATOL
+    for name, arg in (("sharpen", 0.6), ("adaptive_sharpen", 0.5),
+                      ("gaussian_blur", 1.5)):
+        fn = getattr(effects, name)
+        np.testing.assert_array_equal(fn(a, arg, device=cuda_device),
+                                      fn(a, arg, device="cpu"))

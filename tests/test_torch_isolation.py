@@ -31,7 +31,10 @@ def test_import_leaves_jax_out():
             " fennec_tpu_torch.engine.targetsize,"
             " fennec_tpu_torch.engine.targetsize_batched,"
             " fennec_tpu_torch.engine.size_search,"
-            " fennec_tpu_torch.ops.jpeg_size, fennec_tpu_torch.ops.quantize; "
+            " fennec_tpu_torch.ops.jpeg_size, fennec_tpu_torch.ops.quantize,"
+            " fennec_tpu_torch.ops.jpeg_emit,"
+            " fennec_tpu_torch.ops.jpeg_emit_cuda,"
+            " fennec_tpu_torch.ops.effects, fennec_tpu_torch.io; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'fennec_tpu' "
             "or m.startswith('fennec_tpu.')]; "

@@ -25,10 +25,12 @@ from fennec_tpu_torch.ops.ssim_cuda import (
 )
 
 # The main path's shapes (12 MP and 1080p probes, the batch chunk, the
-# target-size calls, 4K) and ragged ones (edges, a strip or band that is
-# cut short, one window position).
+# target-size calls, 4K, ssim() at full resolution on a 12 MP photo) and
+# ragged ones (edges, a strip or band that is cut short, one window
+# position).
 SHAPES = [(1, 384, 512), (1, 288, 512), (4, 288, 512), (64, 500, 500),
-          (1, 500, 500), (5, 499, 499), (1, 2160, 3840), (1, 9, 9),
+          (1, 500, 500), (5, 499, 499), (1, 2160, 3840), (1, 3024, 4032),
+          (1, 9, 9),
           (2, 9, 300), (1, 1000, 9), (3, 137, 261), (1, 2161, 3839)]
 OCCUPANCY = [2, 4, 6, 8]  # CTAs of K1 per SM a card might hold
 WINDOW = 8
@@ -89,8 +91,8 @@ def test_small_probe_shapes_fill_every_sm(shape, per_sm):
 
 
 @pytest.mark.parametrize("per_sm", OCCUPANCY)
-@pytest.mark.parametrize("shape", [(1, 2160, 3840), (64, 500, 500)],
-                         ids=str)
+@pytest.mark.parametrize("shape", [(1, 2160, 3840), (64, 500, 500),
+                                   (1, 3024, 4032)], ids=str)
 def test_halo_rows_stay_under_15_percent(shape, per_sm):
     bsz, h, w = shape
     plan = launch_plan(bsz, h, w, H100_SMS, per_sm)

@@ -273,10 +273,20 @@ def test_target_size_not_ported():
 
 
 def test_device_entropy_not_ported():
-    with pytest.raises(NotImplementedError, match="Huffman"):
-        T.compress_image(None, photo_image(64, 48),
-                         T.Options(format=T.JPEG, device_entropy=True),
-                         device="cpu")
+    """device_entropy=True, once refused, codes on the device: the plain
+    version of kernel K3 on the CPU, the same bytes as the host encoder
+    and as the JAX package's device emission."""
+    img = photo_image(64, 48)
+    on = T.compress_image(None, img, T.Options(format=T.JPEG,
+                                               device_entropy=True),
+                          device="cpu")
+    off = T.compress_image(None, img, T.Options(format=T.JPEG,
+                                                device_entropy=False),
+                           device="cpu")
+    jax_on = J.compress_image(None, img, J.Options(format=J.JPEG,
+                                                   device_entropy=True))
+    assert on.compressed_data == off.compressed_data
+    assert on.compressed_data == jax_on.compressed_data
 
 
 def test_default_device_is_cuda(monkeypatch):
