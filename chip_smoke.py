@@ -1,12 +1,19 @@
 """Drive the PyTorch port's main paths once on one CUDA card, and check
 them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--k3 | --digests]
+
+With no argument, every phase below; it needs one card.  --k3 runs
+phases 1, 2 and 11 and the size oracle's check of phase 10 alone (K3
+against its plain version and, in turns, against the first K3);
+--digests prints digests of a few main-path outputs, to compare two
+checkouts on one card.  Neither prints the result lines.
 
 Phases, each raising on failure:
   1. environment: a CUDA card, its name and power limit, TF32 off;
-  2. build: kernels K1 and K3 (nvcc, sm_90a) and the host C++ entropy
-     coder, from the sources in this checkout, all three at once;
+  2. build: kernels K1 and K3 (nvcc, sm_90a), the first K3 (kept under
+     bench_sources/ to be timed against) and the host C++ entropy coder,
+     from the sources in this checkout, all four at once;
   3. K1 against its plain PyTorch version on the card, at the shapes the
      main paths give it and beyond, the batch engines' (64, 500, 500)
      included, and at ragged shapes for its strips and bands: max |diff|
@@ -24,9 +31,11 @@ Phases, each raising on failure:
      with SSIM scored on its own decode, and K1 must have run at least 7
      times per image.  With the default Options every image is
      Huffman-coded on the card: K3 counted from 0 before each call must
-     have launched for it (phases 6-8 and T2/T3 of 10 the same, per
-     device chunk or encode round; T1 keeps the host encoder, as the JAX
-     package's per-image target-size engine does).  Each accept/reject decision at the boundary (the
+     have launched for it, K3a once and K3b once per emission (phases
+     6-8 and T2/T3 of 10 the same, per device chunk or encode round; T1
+     keeps the host encoder, as the JAX package's per-image target-size
+     engine does, and launches only the size oracle's K3a, which is
+     counted apart).  Each accept/reject decision at the boundary (the
      chosen quality q, and q-1) is re-scored with the plain scorer, and
      the whole bisection is replayed with it;
   5. a small noisy image through the same entry point on the card and on
@@ -66,16 +75,30 @@ Phases, each raising on failure:
      the scaled image's SSIM before encoding, as the reference does,
      reproduced within 1e-4).  Every timed compress_* call of T1-T3
      must launch K1, counted from 0 just before it and read just after,
-     before any check runs.  The size oracle's bisection step and the
-     palette map per level are timed at 12 MP.
+     before any check runs, and the size oracle's K3a (K4) at least 7
+     times per bisection.  The size oracle on the card (scan_bytes_at,
+     through K3a) equals its plain version scan_bits on the same CUDA
+     tensors at 12 MP, 1080p, 64 x 500x500 at per-image qualities and
+     1080p 4:4:4; its step is timed beside the plain step and its bound,
+     and the palette map per level at 12 MP.  T1-T3 print a digest of
+     their outputs.
  11. K3 against its plain version on the card, at the main path's
      shapes (12 MP and 1080p 4:2:0 at the qualities phase 4 chose, a
-     64-image 500x500 chunk, 1080p 4:4:4, ragged 17x9 and 1x1), with the
-     standard and with optimal tables: block bits, histograms and words
-     bit-identical, and every file byte-identical to the C++ encoder's.
-     K3a's and K3b's device time (torch.profiler), host time per call,
-     bound and share, the plain version's CUDA-event time, and the whole
-     device emission against the download and the C++ encoder;
+     64-image 500x500 chunk, 1080p 4:4:4, ragged 17x9 and 1x1) and at
+     synthetic blocks that cross the design's seams (one block per
+     component, one slot more than a segment, a short last segment,
+     all-zero blocks, zero runs of 16 to 62, a batch of 64 with
+     per-image tables, dense blocks that overflow K3b's shared buffer,
+     images whose bits end on a word), with the standard and with
+     optimal tables: totals, block bits, histograms and words
+     bit-identical, the words equal to the first K3's, and every file
+     byte-identical to the C++ encoder's.  K3a's (with histograms, and
+     totals alone as the oracle calls it) and K3b's device time
+     (torch.profiler), host time per call, bound and share, in turns
+     with the first K3's; the plain version's CUDA-event time; and the
+     whole device emission (host ms, device ms and device operations)
+     against the first K3's flow and against the download and the C++
+     encoder;
  12. the A/B of device_entropy=None (K3) against False (the host C++
      encoder), in turns: warm 12 MP compress_file, the 512-file batch
      and T2; the outputs byte-identical;
@@ -83,8 +106,9 @@ Phases, each raising on failure:
      ms_ssim on the card against the CPU within 1e-5, and the effects
      (sharpen, adaptive_sharpen, gaussian_blur) uint8-identical.
 
-The last lines: the kernel table as JSON (K1's and K3's launches summed
-over the main-path runs of phases 4, 6-8 and 10, each counted from 0),
+The last lines: the kernel table as JSON (K1's, K3a's, K3b's and the
+oracle's K3a launches summed over the main-path runs of phases 4, 6-8
+and 10, each counted from 0),
 the card's name and power limit as nvidia-smi reports them, and {"ok":
 true, "device": {...}}.  Images are made from numpy seeds; nothing is
 fetched.  Without a CUDA card the script fails before printing any
@@ -93,6 +117,7 @@ result.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import struct
@@ -122,16 +147,25 @@ K1_ATOL = 1e-5  # the bound tests/test_ssim_pallas.py holds Pallas to
 K1_FLOPS_PER_POSITION = 174
 FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
-# K3's bound: 128 bytes per block per pass, or its instructions reckoned
-# from csrc/jpeg_emit.cu (per block: staging, the DC symbol and 63
-# iterations of a shared-memory load, a compare and a branch; per nonzero
-# AC coefficient: the size, the symbol, the table load and the sums, plus
-# K3a's histogram atomics or K3b's accumulator) at an H100 SXM's issue
-# rate, 132 SMs x 4 schedulers x 32 lanes at 1.98 GHz.
-K3_INSTR_PER_BLOCK = 300
-K3A_INSTR_PER_NONZERO = 16
-K3B_INSTR_PER_NONZERO = 22
+# K3's bound: the bytes (each block's 128 read once, the layout's three
+# ints per slot, the tables, and what the launch writes), or its thread
+# instructions reckoned from csrc/jpeg_emit.cu at an H100 SXM's issue
+# rate, 132 SMs x 4 schedulers x 32 lanes at 1.98 GHz.  Per block: the
+# staging (eight 16-byte loads' worth of address arithmetic and 64 2-byte
+# stores, ~190), eight vector loads and tests, the DC symbol and the sums
+# (~60); K3b walks twice and scans (~130 more).  Per nonzero AC
+# coefficient: the size, the symbol, the table load and the sum (14),
+# with histograms the match and the add (22), in K3b the count and then
+# the field into the accumulator (44).
+K3A_INSTR_PER_BLOCK = 250
+K3B_INSTR_PER_BLOCK = 380
+K3A_INSTR_PER_NONZERO = 14
+K3A_HIST_INSTR_PER_NONZERO = 22
+K3B_INSTR_PER_NONZERO = 44
 INT_ISSUE_PER_S = 33.4e12
+# The first K3 (one thread per block, three launches and a cumsum per
+# optimal-table emission), kept only to be timed against the current one.
+FIRST_K3_SOURCE = os.path.join("bench_sources", "jpeg_emit_first.cu")
 DECODE_SSIM_ATOL = 1e-3  # probe model vs real decode: IDCT order, ties
 # The coefficient path's contract against per-image compression
 # (tests/test_coef_fastpath.py:60-97, tests/test_torch_batch.py).
@@ -149,6 +183,17 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def digest(blobs) -> str:
+    """The first 16 hex digits of SHA-256 over the byte strings in order,
+    each behind its length: equal outputs of two runs print equal
+    digests."""
+    sha = hashlib.sha256()
+    for blob in blobs:
+        sha.update(struct.pack("<Q", len(blob)))
+        sha.update(blob)
+    return sha.hexdigest()[:16]
 
 
 def nvidia_smi_line() -> str:
@@ -241,6 +286,26 @@ def profiled_device_ms(fn, iters: int, name: str,
                          f"in {iters} calls")
 
 
+def profiled_all_device(fn, iters: int):
+    """(device ms, device operations) per fn() call over everything it
+    runs on the card: torch.profiler's CUDA rows (kernels, memsets and
+    copies) of `iters` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0)) for e in rows)
+    return total / iters / 1e3, sum(e.count for e in rows) / iters
+
+
 def host_us(fn, iters: int) -> float:
     """Host µs per fn() call: the time to enqueue it, the device not
     awaited."""
@@ -255,8 +320,9 @@ def host_us(fn, iters: int) -> float:
 
 
 # K3's launches on the main path (phases 4, 6-8 and 10), each call counted
-# from 0 just before it and read just after.
-K3_MAIN = {"block_stats": 0, "deposit": 0}
+# from 0 just before it and read just after: emission's K3a and K3b, and
+# the size oracle's K3a (K4), which the wrapper counts apart.
+K3_MAIN = {"block_stats": 0, "deposit": 0, "oracle": 0}
 
 
 def k3_zero() -> None:
@@ -264,22 +330,30 @@ def k3_zero() -> None:
 
     k3.block_stats.launches = 0
     k3.deposit.launches = 0
+    k3.oracle_stats.launches = 0
 
 
-def k3_take(tag: str, dev, emissions: int):
+def k3_take(tag: str, dev, emissions: int, oracle_steps: int = 0):
     """K3's launches since k3_zero, added to the main path's totals.  On a
     CUDA device every JPEG of the call must have been coded by K3: at
-    least `emissions` K3b launches (one per image or device chunk coded)
-    and no fewer K3a launches."""
+    least `emissions` emissions (one per image or device chunk coded),
+    each one K3a and one K3b launch, and at least `oracle_steps` launches
+    of the size oracle's K3a.  emissions=0: the call keeps the host
+    encoder and must launch neither."""
     from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
 
     a, b = k3.block_stats.launches, k3.deposit.launches
+    o = k3.oracle_stats.launches
     K3_MAIN["block_stats"] += a
     K3_MAIN["deposit"] += b
-    if dev.type == "cuda" and (b < max(1, emissions) or a < b):
-        raise AssertionError(f"{tag}: K3 launches K3a={a} K3b={b}, want "
-                             f">= {emissions} emissions")
-    return a, b
+    K3_MAIN["oracle"] += o
+    if dev.type == "cuda" and (a != b or b < emissions or o < oracle_steps
+                               or (emissions == 0 and b != 0)):
+        raise AssertionError(f"{tag}: K3 launches K3a={a} K3b={b} oracle="
+                             f"{o}, want {emissions} or more emissions of "
+                             f"one K3a and one K3b, and >= {oracle_steps} "
+                             f"oracle steps")
+    return a, b, o
 
 
 def phase_kernel(dev, ssim_window, batched_ssim_plain):
@@ -347,32 +421,192 @@ def quantized_stack(images, quality: int, subsample: bool, dev):
     return torch.cat(parts, dim=1).to(torch.int16).contiguous()
 
 
-def k3_bound(packed: torch.Tensor, n_words: int, deposit: bool):
-    """(least ms, "bytes" or "operations") for one K3a or K3b launch over
-    these blocks: each block read once (128 B) and its bit count written
-    (4 B), or for K3b its offset read (8 B) and the words written; the
+def k3_bound(packed: torch.Tensor, n_words: int, kind: str):
+    """(least ms, "bytes" or "operations") for one launch over these
+    blocks; kind is "total" (K3a, bits per image only: the oracle's
+    call), "hist" (K3a with histograms) or "deposit" (K3b).  Bytes: every
+    block (128 B), the layout (12 B per slot) and the tables read once,
+    the totals, histograms or words written once.  Operations: the thread
     instructions reckoned from csrc/jpeg_emit.cu, counting this run's
     nonzero AC coefficients, at one instruction per lane and clock."""
-    blocks = packed.shape[0] * packed.shape[1]
+    bsz, nt = packed.shape[:2]
+    blocks = bsz * nt
     nnz = int((packed[..., 1:] != 0).sum())
-    if deposit:
-        nbytes = blocks * (128 + 8) + 4 * n_words
-        instr = blocks * K3_INSTR_PER_BLOCK + nnz * K3B_INSTR_PER_NONZERO
+    nbytes = blocks * 128 + nt * 12 + 2 * 272 * 4
+    if kind == "deposit":
+        nbytes += 4 * n_words + 8 * bsz
+        instr = blocks * K3B_INSTR_PER_BLOCK + nnz * K3B_INSTR_PER_NONZERO
+    elif kind == "hist":
+        nbytes += bsz * (8 + 544 * 4)
+        instr = (blocks * K3A_INSTR_PER_BLOCK
+                 + nnz * K3A_HIST_INSTR_PER_NONZERO)
     else:
-        nbytes = blocks * (128 + 4)
-        instr = blocks * K3_INSTR_PER_BLOCK + nnz * K3A_INSTR_PER_NONZERO
+        nbytes += bsz * 8
+        instr = blocks * K3A_INSTR_PER_BLOCK + nnz * K3A_INSTR_PER_NONZERO
     t_ops, t_bytes = instr / INT_ISSUE_PER_S, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_k3(T, dev, cases, timed: bool = True):
-    """K3 against its plain version at the main path's shapes, with the
-    standard and with optimal tables: block bits, histograms and words
-    bit-identical, the flag word 0, and every image's bytes through
-    emit_scans equal to the host C++ encoder's.  Returns (the largest
-    absolute difference seen, {(tag, optimize): times}, empty unless
-    timed)."""
+class FirstK3:
+    """The first K3 (FIRST_K3_SOURCE: one thread per block; K3a writes
+    block bits, torch.cumsum makes the offsets, K3b reads them), built
+    here and called as its wrapper called it, to be timed in turns
+    against the current kernel.  The port does not import it."""
+
+    def __init__(self) -> None:
+        import ctypes
+
+        from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
+        from fennec_tpu_torch.ops.ssim_cuda import compile_library
+
+        so = os.path.join(k3.BUILD_DIR, "libjpeg_emit_first.so")
+        self.build_log = compile_library(os.path.join(HERE, FIRST_K3_SOURCE),
+                                         so, k3.NVCC_FLAGS)
+        lib = ctypes.CDLL(so)
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.fennec_jpeg_block_stats.restype = i
+        lib.fennec_jpeg_block_stats.argtypes = [p, i, i, p, p, i, p, i, p,
+                                                p, p]
+        lib.fennec_jpeg_deposit.restype = i
+        lib.fennec_jpeg_deposit.argtypes = [p, i, i, p, p, i, p, i, p, p, p,
+                                            ll, p]
+        self.lib = lib
+        self.check_inputs = k3.check_inputs
+
+    @staticmethod
+    def _stream(dev) -> int:
+        return torch._C._cuda_getCurrentRawStream(dev.index)
+
+    def block_stats(self, packed, lay, tables, want_bits=True,
+                    want_hist=True):
+        self.check_inputs(packed, lay, tables)
+        dev = packed.device
+        bsz, nt = packed.shape[:2]
+        bits = (torch.empty((bsz, nt), dtype=torch.int32, device=dev)
+                if want_bits else None)
+        hist = (torch.empty((bsz, 544), dtype=torch.int32, device=dev)
+                if want_hist else None)
+        err = self.lib.fennec_jpeg_block_stats(
+            packed.data_ptr(), bsz, nt, lay.slot_row.data_ptr(),
+            lay.prev_row.data_ptr(), lay.ny, tables.data_ptr(),
+            0 if tables.shape[0] == 1 else 544,
+            None if bits is None else bits.data_ptr(),
+            None if hist is None else hist.data_ptr(), self._stream(dev))
+        if err:
+            raise RuntimeError(f"first K3a: CUDA error {err}")
+        return bits, hist
+
+    def deposit(self, packed, lay, tables, block_off, word_base, n_words):
+        self.check_inputs(packed, lay, tables)
+        dev = packed.device
+        bsz, nt = packed.shape[:2]
+        words = torch.empty(n_words + 1, dtype=torch.int32, device=dev)
+        err = self.lib.fennec_jpeg_deposit(
+            packed.data_ptr(), bsz, nt, lay.slot_row.data_ptr(),
+            lay.prev_row.data_ptr(), lay.ny, tables.data_ptr(),
+            0 if tables.shape[0] == 1 else 544, block_off.data_ptr(),
+            word_base.data_ptr(), words.data_ptr(), n_words,
+            self._stream(dev))
+        if err:
+            raise RuntimeError(f"first K3b: CUDA error {err}")
+        return words
+
+    def emit_words(self, packed, lay, optimize: bool) -> np.ndarray:
+        """The first flow of parallel/batched.emit_scans, down to the
+        pulled words: optimal tables took K3a (histograms), the host K.2
+        build, K3a (block bits), a cumsum and K3b; standard ones K3a, a
+        sum and its pull, the cumsum and K3b."""
+        from fennec_tpu_torch.ops.jpeg_emit import std_tables_on
+        from fennec_tpu_torch.parallel.batched import (
+            _optimal_tables,
+            hist_bits,
+        )
+
+        dev = packed.device
+        tables = std_tables_on(dev)
+        if optimize:
+            hist = self.block_stats(packed, lay, tables, False,
+                                    True)[1].cpu().numpy().astype(np.int64)
+            dcf = hist[:, :32].reshape(-1, 2, 16)
+            acf = hist[:, 32:].reshape(-1, 2, 256)
+            _specs, tabs, _errors = _optimal_tables(dcf, acf)
+            totals = hist_bits(dcf, acf, tabs)
+            tables = torch.from_numpy(tabs).to(dev)
+            bits = self.block_stats(packed, lay, tables, True, False)[0]
+        else:
+            bits = self.block_stats(packed, lay, tables, True, False)[0]
+            totals = bits.sum(dim=1, dtype=torch.int64).cpu().numpy()
+        base = np.zeros(totals.size + 1, dtype=np.int64)
+        np.cumsum((totals + 31) // 32, out=base[1:])
+        off = torch.cumsum(bits, dim=1, dtype=torch.int64) - bits
+        words = self.deposit(packed, lay, tables, off,
+                             torch.from_numpy(base).to(dev), int(base[-1]))
+        return words.cpu().numpy()
+
+
+def synthetic_blocks(h: int, w: int, subsample: bool, bsz: int, seed: int,
+                     kind: str) -> np.ndarray:
+    """(B, NT, 64) int16 blocks of h x w images that cross K3's seams.
+    kind "sparse": random sparse blocks with extreme magnitudes, all-zero
+    AC blocks and a nonzero last coefficient; "zero": nothing but the
+    first DC (EOB only); "runs": one or two coefficients per block, far
+    apart (zero runs of 16 to 62: one to three ZRLs); "dense": every
+    coefficient nonzero (a segment too long for K3b's word buffer in
+    shared memory, which then writes straight to device memory)."""
+    from fennec_tpu_torch.ops.dct import ZIGZAG
+
+    mult = 16 if subsample else 8
+    ph, pw = h + (-h) % mult, w + (-w) % mult
+    ny = (ph // 8) * (pw // 8)
+    nc = (ph // 16) * (pw // 16) if subsample else ny
+    nt = ny + 2 * nc
+    rng = np.random.default_rng(seed)
+    if kind == "zero":
+        blocks = np.zeros((bsz, nt, 64), np.int64)
+        blocks[:, 0, 0] = 37
+    elif kind == "runs":
+        blocks = np.zeros((bsz, nt, 64), np.int64)
+        for k, pos in enumerate((17, 20, 33, 49, 50, 63)):
+            blocks[:, k::6, ZIGZAG[pos]] = rng.integers(1, 900, (bsz, 1))
+        blocks[:, 3::6, ZIGZAG[63]] = -1
+        blocks[:, 1::4, ZIGZAG[1]] = 5
+        blocks[:, :, 0] = rng.integers(-1000, 1000, (bsz, nt))
+    elif kind == "dense":
+        blocks = rng.integers(200, 1000, (bsz, nt, 64)) * rng.choice(
+            [-1, 1], (bsz, nt, 64))
+    else:
+        blocks = (rng.integers(-300, 300, (bsz, nt, 64))
+                  * (rng.random((bsz, nt, 64)) < 0.12))
+        blocks[:, :, 0] = rng.integers(-1024, 1024, (bsz, nt))
+        blocks[:, ::7, 1:] = 0
+        blocks[:, 1::11, 63] = -1023
+    return blocks.astype(np.int16)
+
+
+def k3_seam_cases():
+    """(tag, w, h, B, subsample, kind, seed) of synthetic_blocks: one
+    block per component, fewer blocks than a segment of 128 slots, one
+    more than a segment, a last segment cut short, all-zero blocks, long
+    zero runs, a batch whose segments interleave images, and segments of
+    dense blocks."""
+    return [("one_block_each_444", 8, 8, 1, False, "sparse", 1),
+            ("one_mcu_420", 16, 16, 1, True, "sparse", 2),
+            ("segment_plus_one_444", 8 * 43, 8, 1, False, "sparse", 3),
+            ("short_run_420", 16 * 23, 16, 5, True, "sparse", 4),
+            ("zero_blocks_420", 208, 176, 3, True, "zero", 5),
+            ("zrl_runs_420", 208, 176, 2, True, "runs", 6),
+            ("zrl_runs_444", 120, 88, 2, False, "runs", 7),
+            ("batch64_sparse_420", 96, 80, 64, True, "sparse", 8),
+            ("dense_420", 128, 128, 2, True, "dense", 9)]
+
+
+def check_k3_case(dev, first, tag, packed, w, h, sub, quality, timed):
+    """One set of blocks through K3 and its plain version, with the
+    standard and with optimal tables: totals, block bits, histograms and
+    words bit-identical, the flag word 0, and every image's bytes through
+    emit_scans equal to the host C++ encoder's.  Returns (largest
+    absolute difference, {optimize: times}, empty unless timed)."""
     from fennec_tpu_torch.codecs.jpeg import encode_quantized
     from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
     from fennec_tpu_torch.ops.jpeg_emit import (
@@ -389,112 +623,229 @@ def phase_k3(T, dev, cases, timed: bool = True):
 
     times = {}
     worst = 0
+    n = packed.shape[0]
+    mult = 16 if sub else 8
+    lay = layout_on(h + (-h) % mult, w + (-w) % mult, sub, dev)
+    host = packed.cpu().numpy().astype(np.int32)
+    ny = lay.ny
+    nc = (packed.shape[1] - ny) // 2
+    for optimize in (False, True):
+        if optimize:
+            hist = block_stats_plain(packed, lay, std_tables_on(dev),
+                                     False, True).hist.cpu().numpy()
+            dcf = hist[:, :32].reshape(-1, 2, 16).astype(np.int64)
+            acf = hist[:, 32:].reshape(-1, 2, 256).astype(np.int64)
+            _specs, tabs_np, errors = _optimal_tables(dcf, acf)
+            assert not errors, errors
+            tables = torch.from_numpy(tabs_np).to(dev)
+        else:
+            tables = std_tables_on(dev)
+        got = k3.block_stats(packed, lay, tables, True, True)
+        want = block_stats_plain(packed, lay, tables, True, True)
+        lean = k3.block_stats(packed, lay, tables)
+        totals = want.totals.cpu().numpy()
+        if optimize and not np.array_equal(
+                totals, hist_bits(dcf, acf, tabs_np)):
+            raise AssertionError(f"K3 {tag}: histogram bits disagree")
+        base = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum((totals + 31) // 32, out=base[1:])
+        nw = int(base[-1])
+        wb = torch.from_numpy(base).to(dev)
+        words_k = k3.deposit(packed, lay, tables, wb, nw)
+        words_p = deposit_plain(packed, lay, tables, wb)
+        pairs = [(got.bits, want.bits), (got.hist, want.hist),
+                 (got.totals, want.totals), (lean.totals, want.totals),
+                 (words_k, words_p)]
+        if n == 1:  # one image may leave its word bases out
+            pairs.append((k3.deposit(packed, lay, tables, None, nw),
+                          words_p))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in pairs]
+        for a, b in pairs:
+            worst = max(worst, int((a.to(torch.int64)
+                                    - b.to(torch.int64)).abs().max()))
+        if lean.bits is not None or lean.hist is not None:
+            raise AssertionError(f"K3 {tag}: unasked outputs")
+        flag = int(words_k[-1])
+        scans = emit_scans(packed, h, w, sub, optimize)
+        mismatched = []
+        for j in range(n):
+            blk = host[j]
+            if scans.jpeg(j, w, h, quality, sub) != encode_quantized(
+                    blk[:ny], blk[ny:ny + nc], blk[ny + nc:], w, h, quality,
+                    sub, optimize):
+                mismatched.append(j)
+        if first is not None and not np.array_equal(
+                first.emit_words(packed, lay, optimize),
+                words_k.cpu().numpy()):
+            raise AssertionError(f"K3 {tag} optimize={optimize}: the first "
+                                 f"K3's words differ")
+        if not all(same) or flag or mismatched:
+            raise AssertionError(
+                f"K3 {tag} optimize={optimize}: bits/hist/totals/totals "
+                f"alone/words equal {same}, flag {flag}, bytes differ for "
+                f"images {mismatched[:8]}")
+        on_word = int((totals % 32 == 0).sum())
+        log(f"k3 {tag} optimize={optimize} blocks={packed.shape[1]}x{n}"
+            f" scan_bits={int(totals.sum())} words={nw} images ending on "
+            f"a word={on_word}: K3a totals, bits and histograms and K3b "
+            f"words bit-identical to the plain version; {n} file(s) "
+            f"byte-identical to the C++ encoder")
+        if not timed:
+            continue
+        times[optimize] = time_k3_case(dev, first, packed, lay, tables, wb,
+                                       nw, h, w, sub, quality, optimize)
+        log(f"k3 time {tag} optimize={optimize}: " + " ".join(
+            f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in times[optimize].items()))
+    return worst, times
+
+
+def time_k3_case(dev, first, packed, lay, tables, wb, nw, h, w, sub,
+                 quality, optimize):
+    """Device ms (torch.profiler rows), host us per call, bound and share
+    of K3a as this route calls it (with histograms under the standard
+    tables for optimal tables, the totals alone otherwise), of K3a's
+    totals alone (the size oracle's call) and of K3b; the plain version's
+    CUDA-event ms; the same for the first K3, in turns (first, current,
+    current, first); and the whole emission against the host route."""
+    from fennec_tpu_torch.codecs.jpeg import encode_quantized
+    from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
+    from fennec_tpu_torch.ops.jpeg_emit import (
+        block_stats_plain,
+        deposit_plain,
+        std_tables_on,
+    )
+    from fennec_tpu_torch.parallel.batched import emit_scans
+
+    iters = 50
+    n = packed.shape[0]
+    std = std_tables_on(dev)
+    word_base = wb if n > 1 else None
+    calls = {
+        "k3a": ((lambda: k3.block_stats(packed, lay, std, False, True))
+                if optimize else (lambda: k3.block_stats(packed, lay, std))),
+        "k4": lambda: k3.block_stats(packed, lay, std),
+        "k3b": lambda: k3.deposit(packed, lay, tables, word_base, nw),
+    }
+    names = {"k3a": "block_stats_kernel", "k4": "block_stats_kernel",
+             "k3b": "deposit_kernel"}
+    t = {}
+    if first is not None:
+        bits = first.block_stats(packed, lay, tables, True, False)[0]
+        off = torch.cumsum(bits, 1, dtype=torch.int64) - bits
+        first_calls = {
+            "k3a": ((lambda: first.block_stats(packed, lay, std, False,
+                                               True)) if optimize else
+                    (lambda: first.block_stats(packed, lay, std, True,
+                                               False))),
+            "k3b": lambda: first.deposit(packed, lay, tables, off, wb, nw),
+        }
+        order = ("first", "cur", "cur", "first")
+    else:
+        order = ("cur",)
+    for part in ("k3a", "k3b"):
+        turns = []  # (who, device ms, host us), in the order run
+        for who in order:
+            fn = calls[part] if who == "cur" else first_calls[part]
+            turns.append((who, profiled_device_ms(fn, iters, names[part]),
+                          host_us(fn, iters)))
+        t[f"{part}_ms"] = min(ms for who, ms, _ in turns if who == "cur")
+        t[f"{part}_host_us"] = min(us for who, _, us in turns
+                                   if who == "cur")
+        if first is not None:
+            t[f"{part}_turns_us"] = [round(ms * 1e3, 2)
+                                     for _, ms, _ in turns]
+            t[f"{part}_first_ms"] = min(ms for who, ms, _ in turns
+                                        if who == "first")
+            t[f"{part}_first_host_us"] = min(us for who, _, us in turns
+                                             if who == "first")
+    t["k4_ms"] = profiled_device_ms(calls["k4"], iters, names["k4"])
+    t["k4_host_us"] = host_us(calls["k4"], iters)
+    t["k3a_plain_ms"] = cuda_ms(lambda: block_stats_plain(
+        packed, lay, std, False, optimize), 5)
+    t["k3b_plain_ms"] = cuda_ms(lambda: deposit_plain(
+        packed, lay, tables, wb), 5)
+    for part, kind in (("k3a", "hist" if optimize else "total"),
+                       ("k4", "total"), ("k3b", "deposit")):
+        t[f"{part}_bound_ms"], t[f"{part}_bound_by"] = k3_bound(
+            packed, nw, kind)
+        t[f"{part}_share"] = t[f"{part}_bound_ms"] / t[f"{part}_ms"]
+    # The whole device emission (launches, both pulls, the host K.2
+    # build) now and through the first K3's flow, in turns, and the host
+    # route: one download of the blocks and the C++ encoder.
+    ny = lay.ny
+    nc = (packed.shape[1] - ny) // 2
+    emit = {"first": [], "cur": []}
+    for who in order:
+        fn = ((lambda: emit_scans(packed, h, w, sub, optimize))
+              if who == "cur" else
+              (lambda: first.emit_words(packed, lay, optimize)))
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        emit[who].append((time.perf_counter() - t0) / 3 * 1e3)
+    t["emit_scans_ms"] = min(emit["cur"])
+    t["emit_device_ms"], t["emit_device_ops"] = profiled_all_device(
+        lambda: emit_scans(packed, h, w, sub, optimize), 10)
+    if first is not None:
+        t["emit_first_ms"] = min(emit["first"])
+        t["emit_first_device_ms"], t["emit_first_device_ops"] = (
+            profiled_all_device(
+                lambda: first.emit_words(packed, lay, optimize), 10))
+    t0 = time.perf_counter()
+    for _ in range(3):
+        blocks = packed.cpu().numpy().astype(np.int32)
+        for j in range(n):
+            encode_quantized(blocks[j, :ny], blocks[j, ny:ny + nc],
+                             blocks[j, ny + nc:], w, h, quality, sub,
+                             optimize)
+    t["host_encode_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+    return t
+
+
+def phase_k3(T, dev, cases, timed: bool = True, first=None, seams=None):
+    """K3 against its plain version at the main path's shapes (photos
+    quantized on the card) and at synthetic blocks that cross the
+    design's seams (k3_seam_cases unless given).  `first` is a FirstK3 to
+    be held to the same words and timed in turns.  Returns (the largest
+    absolute difference seen, {(tag, optimize): times}, empty unless
+    timed)."""
+    times = {}
+    worst = 0
     for tag, w, h, n, sub, quality, seed in cases:
         images = [photo(w, h, seed + k) for k in range(n)]
         packed = quantized_stack(images, quality, sub, dev)
-        mult = 16 if sub else 8
-        ph, pw = h + (-h) % mult, w + (-w) % mult
-        lay = layout_on(ph, pw, sub, dev)
-        host = packed.cpu().numpy().astype(np.int32)
-        ny = lay.ny
-        nc = (packed.shape[1] - ny) // 2
-        for optimize in (False, True):
-            if optimize:
-                hist = block_stats_plain(packed, lay, std_tables_on(dev),
-                                         False, True)[1].cpu().numpy()
-                dcf = hist[:, :32].reshape(-1, 2, 16).astype(np.int64)
-                acf = hist[:, 32:].reshape(-1, 2, 256).astype(np.int64)
-                _specs, tabs_np, errors = _optimal_tables(dcf, acf)
-                assert not errors, errors
-                tables = torch.from_numpy(tabs_np).to(dev)
-            else:
-                tables = std_tables_on(dev)
-            bits_k, hist_k = k3.block_stats(packed, lay, tables)
-            bits_p, hist_p = block_stats_plain(packed, lay, tables)
-            totals = bits_p.sum(dim=1, dtype=torch.int64).cpu().numpy()
-            if optimize and not np.array_equal(
-                    totals, hist_bits(dcf, acf, tabs_np)):
-                raise AssertionError(f"K3 {tag}: histogram bits disagree")
-            base = np.zeros(n + 1, dtype=np.int64)
-            np.cumsum((totals + 31) // 32, out=base[1:])
-            off = torch.cumsum(bits_p, 1, dtype=torch.int64) - bits_p
-            wb = torch.from_numpy(base).to(dev)
-            words_k = k3.deposit(packed, lay, tables, off, wb, int(base[-1]))
-            words_p = deposit_plain(packed, lay, tables, off, wb)
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-            same = (torch.equal(bits_k, bits_p), torch.equal(hist_k, hist_p),
-                    torch.equal(words_k, words_p))
-            for got, want in ((bits_k, bits_p), (hist_k, hist_p),
-                              (words_k, words_p)):
-                worst = max(worst, int((got.to(torch.int64)
-                                        - want.to(torch.int64)).abs().max()))
-            flag = int(words_k[-1])
-            scans = emit_scans(packed, h, w, sub, optimize)
-            mismatched = []
-            for j in range(n):
-                got = scans.jpeg(j, w, h, quality, sub)
-                blk = host[j]
-                want = encode_quantized(blk[:ny], blk[ny:ny + nc],
-                                        blk[ny + nc:], w, h, quality, sub,
-                                        optimize)
-                if got != want:
-                    mismatched.append(j)
-            if not all(same) or flag or mismatched:
-                raise AssertionError(
-                    f"K3 {tag} optimize={optimize}: bits/hist/words equal "
-                    f"{same}, flag {flag}, bytes differ for images "
-                    f"{mismatched[:8]}")
-            log(f"k3 {tag} optimize={optimize} blocks={packed.shape[1]}x{n}"
-                f" scan_bits={int(totals.sum())} words={int(base[-1])}: "
-                f"K3a bits+hist and K3b words bit-identical to the plain "
-                f"version; {n} file(s) byte-identical to the C++ encoder")
-            if not timed:
-                continue
-            nw = int(base[-1])
-            iters = 50
-            t = {
-                "k3a_ms": profiled_device_ms(
-                    lambda: k3.block_stats(packed, lay, tables, True,
-                                           False), iters,
-                    "block_stats_kernel"),
-                "k3b_ms": profiled_device_ms(
-                    lambda: k3.deposit(packed, lay, tables, off, wb, nw),
-                    iters, "deposit_kernel"),
-                "k3a_host_us": host_us(
-                    lambda: k3.block_stats(packed, lay, tables, True, False),
-                    iters),
-                "k3b_host_us": host_us(
-                    lambda: k3.deposit(packed, lay, tables, off, wb, nw),
-                    iters),
-                "k3a_plain_ms": cuda_ms(lambda: block_stats_plain(
-                    packed, lay, tables, True, False), 5),
-                "k3b_plain_ms": cuda_ms(lambda: deposit_plain(
-                    packed, lay, tables, off, wb), 5),
-            }
-            t["k3a_bound_ms"], t["k3a_bound_by"] = k3_bound(packed, nw,
-                                                            False)
-            t["k3b_bound_ms"], t["k3b_bound_by"] = k3_bound(packed, nw, True)
-            # The whole device emission (both pulls included) against the
-            # host route: one download of the blocks and the C++ encoder.
-            t0 = time.perf_counter()
-            for _ in range(3):
-                emit_scans(packed, h, w, sub, optimize)
-            t["emit_scans_ms"] = (time.perf_counter() - t0) / 3 * 1e3
-            t0 = time.perf_counter()
-            for _ in range(3):
-                blocks = packed.cpu().numpy().astype(np.int32)
-                for j in range(n):
-                    encode_quantized(blocks[j, :ny], blocks[j, ny:ny + nc],
-                                     blocks[j, ny + nc:], w, h, quality,
-                                     sub, optimize)
-            t["host_encode_ms"] = (time.perf_counter() - t0) / 3 * 1e3
-            times[(tag, optimize)] = t
-            log(f"k3 time {tag} optimize={optimize}: "
-                + " ".join(f"{k}={v:.4f}" if isinstance(v, float)
-                           else f"{k}={v}" for k, v in t.items())
-                + f" share_a={t['k3a_bound_ms'] / t['k3a_ms']:.3f}"
-                f" share_b={t['k3b_bound_ms'] / t['k3b_ms']:.3f}")
+        err, got = check_k3_case(dev, first, tag, packed, w, h, sub, quality,
+                                 timed and n * packed.shape[1] > 1000)
+        worst = max(worst, err)
+        times.update({(tag, opt): t for opt, t in got.items()})
+    for tag, w, h, n, sub, kind, seed in (k3_seam_cases() if seams is None
+                                          else seams):
+        packed = torch.from_numpy(synthetic_blocks(h, w, sub, n, seed,
+                                                   kind)).to(dev)
+        err, _ = check_k3_case(dev, first, tag, packed, w, h, sub, 50, False)
+        worst = max(worst, err)
+    # An image whose bits end exactly on a word: among many small images
+    # some do; they are coded alone and together.
+    from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
+    from fennec_tpu_torch.ops.jpeg_emit import layout_on, std_tables_on
+
+    many = torch.from_numpy(synthetic_blocks(16, 32, True, 256, 11,
+                                             "sparse")).to(dev)
+    totals = k3.block_stats(many, layout_on(16, 32, True, dev),
+                            std_tables_on(dev)).totals.cpu().numpy()
+    on_word = np.nonzero(totals % 32 == 0)[0]
+    if on_word.size == 0:
+        raise AssertionError("K3: no image of 256 ends on a word")
+    picked = many[torch.from_numpy(on_word).to(dev)].contiguous()
+    for tag, blocks in (("on_word_alone", picked[:1]),
+                        ("on_word_batch", picked)):
+        err, _ = check_k3_case(dev, first, tag, blocks.contiguous(), 32, 16,
+                               True, 50, False)
+        worst = max(worst, err)
     return worst, times
 
 
@@ -611,7 +962,7 @@ def run_batch(T, ssim_window, counters, items, dev, tag: str):
     wall_ms = (time.perf_counter() - t) * 1e3
     launches = ssim_window.launches
     snap = counters.snapshot()
-    k3a, k3b = k3_take(tag, dev, len(snap["chunk_items"]))
+    k3a, k3b, _ = k3_take(tag, dev, len(snap["chunk_items"]))
     log(f"{tag}: K3 launches K3a={k3a} K3b={k3b} for "
         f"{len(snap['chunk_items'])} chunks")
     bad = [(r.item.src, r.err) for r in res if r.err is not None]
@@ -992,8 +1343,6 @@ def phase_ts_single(T, dev, ssim_window, counters, big_path, big_img, tmp,
              format=T.JPEG, target_size=128 * 1024), device=dev)),
     ]
     total = 0
-    from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
-
     for tag, target, original, run in runs:
         ssim_window.launches = 0
         t = time.perf_counter()
@@ -1008,8 +1357,9 @@ def phase_ts_single(T, dev, ssim_window, counters, big_path, big_img, tmp,
         warm_ms = (time.perf_counter() - t) * 1e3
         warm_launches = ssim_window.launches
         # The per-image target-size engine encodes on the host C++
-        # encoder, as the JAX package's does (engine/targetsize.py:197).
-        k3_warm = (k3.block_stats.launches, k3.deposit.launches)
+        # encoder, as the JAX package's does (engine/targetsize.py:197):
+        # no emission, but its size oracle's bisection runs on K3a.
+        k3_warm = k3_take(f"T1 {tag}", dev, 0, 7)
         total += cold_launches + warm_launches
         if dev.type == "cuda" and not (cold_launches and warm_launches):
             raise AssertionError(f"T1 {tag}: K1 launches cold="
@@ -1022,8 +1372,9 @@ def phase_ts_single(T, dev, ssim_window, counters, big_path, big_img, tmp,
             f"ssim={res.ssim:.6f} decoded_ssim={decoded:.6f} "
             f"cold_ms={cold_ms:.1f} warm_ms={warm_ms:.1f} K1 launches "
             f"cold={cold_launches} warm={warm_launches} K3 launches warm "
-            f"{k3_warm} (host encoder) "
-            f"warm {ts_seconds(counters)}")
+            f"(K3a, K3b, oracle K3a)={k3_warm} (host encoder) "
+            f"warm {ts_seconds(counters)} "
+            f"digest={digest([res.compressed_data])}")
     log(f"T1: K1 launches={total} (the compress_* calls only)")
     return total
 
@@ -1053,7 +1404,7 @@ def phase_ts_batch(T, dev, ssim_window, counters, n=64, w=500, h=500,
         res = T.compress_images(None, images, opts, device=dev)
         wall_ms = (time.perf_counter() - t) * 1e3
         launches = ssim_window.launches
-        k3a, k3b = k3_take(f"T2 {tag}", dev, 1)
+        k3a, k3b, k4 = k3_take(f"T2 {tag}", dev, 1, 7)
         total += launches
         if dev.type == "cuda" and launches == 0:
             raise AssertionError(f"T2 {tag}: the batched pass never ran K1")
@@ -1072,7 +1423,8 @@ def phase_ts_batch(T, dev, ssim_window, counters, n=64, w=500, h=500,
             f" memo_hits={ev.get('ts_memo_hits', 0)} rounds="
             f"{ev.get('ts_s3_rounds', 0)} over_target={over} strategies="
             f"{strategies} K1 launches={launches} K3 launches K3a={k3a} "
-            f"K3b={k3b} {ts_seconds(counters)}")
+            f"K3b={k3b} oracle K3a={k4} {ts_seconds(counters)} "
+            f"digest={digest(r.compressed_data for r in res)}")
         if over:
             raise AssertionError(f"T2: {over} result(s) over the target")
     log_peak(f"T2 {n}x{w}x{h} warm", dev, max(snap["chunk_items"]), w * h)
@@ -1093,7 +1445,7 @@ def phase_ts_batch(T, dev, ssim_window, counters, n=64, w=500, h=500,
                             device=dev)
     wall_ms = (time.perf_counter() - t) * 1e3
     launches = ssim_window.launches
-    k3_take("T2 auto bucket", dev, 1)
+    k3_take("T2 auto bucket", dev, 1, 7)
     total += launches
     if dev.type == "cuda" and launches == 0:
         raise AssertionError("T2 auto bucket: the batched pass never ran K1")
@@ -1133,7 +1485,7 @@ def phase_ts_full_size(T, dev, ssim_window, counters, big_img, n=16,
     wall_ms = (time.perf_counter() - t) * 1e3
     launches = ssim_window.launches
     snap = counters.snapshot()
-    k3_take("T2 12 MP", dev, 1)
+    k3_take("T2 12 MP", dev, 1, 7)
     if dev.type == "cuda" and launches == 0:
         raise AssertionError("T2 12 MP: the batched pass never ran K1")
     if snap["routes"] != {"target-size": n}:
@@ -1144,7 +1496,8 @@ def phase_ts_full_size(T, dev, ssim_window, counters, big_img, n=16,
     log(f"T2 {n}x{w}x{h} at {target} B: wall_ms={wall_ms:.1f} img_per_s="
         f"{n / (wall_ms / 1e3):.3f} chunks={snap['chunk_items']} "
         f"geometries={sorted({r.final_dimensions for r in res})} "
-        f"K1 launches={launches} {ts_seconds(counters)}")
+        f"K1 launches={launches} {ts_seconds(counters)} "
+        f"digest={digest(r.compressed_data for r in res)}")
     log_peak(f"T2 {n}x{w}x{h}", dev, max(snap["chunk_items"]), w * h)
     for i in (0, n - 1):
         want = T.compress_image(None, images[i], opts, device=dev)
@@ -1178,23 +1531,26 @@ def phase_ts_files(T, dev, ssim_window, counters, tmp, big_path, n=64,
         device=dev)
     wall_ms = (time.perf_counter() - t) * 1e3
     launches = ssim_window.launches
-    k3_take("T3", dev, 1)
+    k3_take("T3", dev, 1, 7)
     bad = [(r.item.src, r.err) for r in res if r.err is not None]
     if bad:
         raise AssertionError(f"T3: {len(bad)} item(s) failed: {bad[:3]}")
     routes = counters.snapshot()["routes"]
     if routes != {"target-size": n}:
         raise AssertionError(f"T3 routes {routes}")
+    written = []
     for r in res:
         with open(r.item.dst, "rb") as f:
-            size = len(f.read())
+            written.append(f.read())
+        size = len(written[-1])
         if size == 0 or size > 2 * target:
             raise AssertionError(f"T3 {r.item.dst}: {size} bytes")
     if dev.type == "cuda" and launches == 0:
         raise AssertionError("T3: K1 never ran")
     log(f"T3 compress_batch {n}x{w}x{h}: wall_ms={wall_ms:.1f} img_per_s="
         f"{n / (wall_ms / 1e3):.2f} every item written, <= 2x target, "
-        f"K1 launches={launches} {ts_seconds(counters)}")
+        f"K1 launches={launches} {ts_seconds(counters)} "
+        f"digest={digest(written)}")
 
     out = os.path.join(tmp, "ts_cli.jpg")
     env = dict(os.environ, PYTHONPATH=HERE)
@@ -1248,26 +1604,97 @@ def phase_ts_card_vs_cpu(T, dev, big_img):
         f"identical on both")
 
 
-def time_ts_device_work(dev, big_img) -> None:
-    """CUDA-event times at 12 MP: one size-oracle bisection step (quantize
-    + exact scan bits) and the palette map of one level."""
+def oracle_cases(T, dev, big_img):
+    """(tag, coefs, quality tensor, padded h, padded w, subsample) at the
+    size oracle's main-path shapes: the 12 MP photo, a 1080p photo, T2's
+    64 x 500x500 bucket at per-image qualities, and 1080p in 4:4:4."""
     from fennec_tpu_torch.codecs.jpeg import forward_dct
-    from fennec_tpu_torch.engine.size_search import scan_bytes_at
+
+    def coefs_of(images, sub):
+        x = torch.from_numpy(np.stack(images)).to(dev).to(torch.float32)
+        return forward_dct(x, sub)
+
+    rng = np.random.default_rng(SEED + 77)
+    mid = photo(1920, 1080, SEED + 800)
+    batch = [photo(500, 500, SEED + 900 + k) for k in range(64)]
+    one = torch.tensor([50], device=dev)
+    return [
+        ("12mp_420", coefs_of([big_img], True), one, 3024, 4032, True),
+        ("1080p_420", coefs_of([mid], True), one, 1088, 1920, True),
+        ("t2_64x500_420", coefs_of(batch, True),
+         torch.from_numpy(rng.integers(1, 101, 64)).to(dev), 512, 512, True),
+        ("1080p_444", coefs_of([mid], False), one, 1080, 1920, False),
+    ]
+
+
+def phase_k4(T, dev, big_img):
+    """The size oracle on the card: scan_bytes_at, which launches K3a,
+    against its plain version ops/jpeg_size.scan_bits on the same CUDA
+    tensors (equal integers), a single image's (N, 64) form against its
+    batch of one, and the bisection step's time before (quantize + plain
+    scan_bits) and after (packed quantize + K3a), beside the step's bound:
+    256 B of float32 coefficients per block read once.  Returns {tag:
+    times}."""
+    from fennec_tpu_torch.engine import size_search
+    from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
+    from fennec_tpu_torch.ops.jpeg_size import scan_bits
+
+    out = {}
+    for tag, coefs, q, ph, pw, sub in oracle_cases(T, dev, big_img):
+        before = k3.oracle_stats.launches
+
+        def plain():
+            bits = scan_bits(*size_search.quantize_at(coefs, q), ph, pw, sub)
+            return torch.div(bits + 7, 8, rounding_mode="floor")
+
+        def step():
+            return size_search.scan_bytes_at(coefs, q, ph, pw, sub)
+
+        got, want = step(), plain()
+        if k3.oracle_stats.launches != before + 1:
+            raise AssertionError(f"K4 {tag}: scan_bytes_at did not launch "
+                                 f"K3a once")
+        if not torch.equal(got, want):
+            raise AssertionError(f"K4 {tag}: K3a's totals {got.tolist()[:4]}"
+                                 f" != scan_bits {want.tolist()[:4]}")
+        if q.numel() == 1:
+            alone = size_search.scan_bytes_at([c[0] for c in coefs], q[0],
+                                              ph, pw, sub)
+            if alone.dim() != 0 or int(alone) != int(got[0]):
+                raise AssertionError(f"K4 {tag}: one image {alone} != batch "
+                                     f"of one {got}")
+        blocks = sum(c.shape[0] * c.shape[1] for c in coefs)
+        parts = size_search.quantize_at(coefs, q)
+        t = {"blocks": blocks,
+             "step_ms": cuda_ms(step, 20), "plain_step_ms": cuda_ms(plain, 5),
+             "plain_ms": cuda_ms(lambda: scan_bits(*parts, ph, pw, sub), 5),
+             "quantize_ms": cuda_ms(lambda: size_search.quantize_packed(
+                 coefs, size_search.quality_tables_on(dev)[q]), 20),
+             "host_us": host_us(step, 20),
+             "bound_ms": blocks * 256 / HBM_BYTES_PER_S * 1e3,
+             "bound_by": "bytes"}
+        out[tag] = t
+        log(f"k4 {tag}: scan_bytes_at through K3a == plain scan_bits "
+            f"(bytes {got.tolist()[:3]}..) " + " ".join(
+                f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in t.items())
+            + f" share={t['bound_ms'] / t['step_ms']:.3f}")
+    return out
+
+
+def time_ts_device_work(dev, big_img) -> None:
+    """CUDA-event time at 12 MP of the palette map of one level (the
+    size oracle's step is phase_k4's)."""
     from fennec_tpu_torch.ops.quantize import median_cut, palette_indices
 
     h, w = big_img.shape[:2]
     img = torch.from_numpy(big_img).to(dev).to(torch.float32)
-    coefs = forward_dct(img, True)
-    q = torch.tensor(50, device=dev)
-    step_ms = cuda_ms(lambda: scan_bytes_at(coefs, q, h + (-h) % 16,
-                                            w + (-w) % 16, True), 10)
     rgb = img[..., :3].reshape(-1, 3).to(torch.int32)
     pal = torch.from_numpy(np.ascontiguousarray(
         median_cut(big_img, 256)[:, :3])).to(dev).to(torch.int32)
     map_ms = cuda_ms(lambda: palette_indices(rgb, pal), 5)
-    log(f"ts device work at {w}x{h}: oracle_step_ms={step_ms:.3f} "
-        f"(quantize + scan bits, one of 7 per bisection) "
-        f"palette_map_ms={map_ms:.3f} (256 colours, one level)")
+    log(f"ts device work at {w}x{h}: palette_map_ms={map_ms:.3f} "
+        f"(256 colours, one level)")
 
 
 def k3_cases(q12: int, q1080: int, q500: int):
@@ -1299,6 +1726,8 @@ def ab_run(tag: str, runs, check) -> dict:
         runs[route]()
         warm[route].append((time.perf_counter() - t) * 1e3)
     check(outs[None], outs[False])
+    log(f"A/B {tag}: digest="
+        f"{digest(r.compressed_data for r in outs[None])}")
     log(f"A/B {tag}: device_entropy=None (K3) warm_ms="
         f"{[round(x, 1) for x in warm[None]]} device_entropy=False (host "
         f"encoder) warm_ms={[round(x, 1) for x in warm[False]]}; outputs "
@@ -1383,7 +1812,103 @@ def phase_surface(T, dev, big_img):
             f"and the CPU, card_ms={card_ms:.1f}")
 
 
-def main() -> int:
+def build_all(ssim_window, k3):
+    """Phase 2: every kernel of the port and the host entropy coder
+    built from this checkout's sources, all at once; returns the first
+    K3's harness."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fennec_tpu_torch import native
+
+    def timed(build):
+        t = time.perf_counter()
+        got = build()
+        return time.perf_counter() - t, got
+
+    with ThreadPoolExecutor(4) as pool:
+        done = list(pool.map(timed, (
+            lambda: ssim_window.build(force=True),
+            lambda: k3.library.build(force=True),
+            lambda: native.build(force=True), FirstK3)))
+    ssim_window.load()
+    k3.library.load()
+    native.load()
+    log(f"build k1_nvcc_s={done[0][0]:.3f} k3_nvcc_s={done[1][0]:.3f} "
+        f"native_gxx_s={done[2][0]:.3f} first_k3_nvcc_s={done[3][0]:.3f} "
+        f"(in parallel)")
+    log(ssim_window.build_log.strip())
+    log(k3.library.build_log.strip())
+    lib = k3.library.load()
+    log(f"K3 segment_blocks={k3.library.segment_blocks} resident CTAs "
+        f"K3a={lib.fennec_jpeg_resident_ctas(0)} "
+        f"K3b={lib.fennec_jpeg_resident_ctas(1)}")
+    return done[3][1]
+
+
+def k3_only(T, dev, first_k3) -> int:
+    """`--k3`: phases 1, 2 and 11 alone, at BALANCED's usual qualities,
+    and the size oracle's check (phase_k4); no main path, so no result
+    line."""
+    _err, _times = phase_k3(T, dev, k3_cases(30, 30, 60), first=first_k3)
+    big = T.codecs.decode_image(T.encode_to_bytes(
+        photo(4032, 3024, SEED), T.JPEG, 92, device=dev), device=dev)
+    phase_k4(T, dev, big)
+    log("k3 only: every case passed")
+    return 0
+
+
+def digests_only(T, dev) -> int:
+    """`--digests`: the outputs of a few main-path calls as digests, and
+    each call's warm time, to compare two checkouts on one card: standard
+    mode at 12 MP and 1080p, T1 at 1080p and 500x500, T2 over 64 photos,
+    T3 over 16 files."""
+    big = T.encode_to_bytes(photo(4032, 3024, SEED), T.JPEG, 92, device=dev)
+    mid = T.encode_to_bytes(photo(1920, 1080, SEED + 800), T.JPEG, 92,
+                            device=dev)
+    small = [photo(500, 500, SEED + 900 + k) for k in range(64)]
+
+    def say(name, run):
+        run()  # cold
+        t = time.perf_counter()
+        results = run()  # warm; host bytes, so it ends synchronised
+        log(f"timing {name} warm_ms={(time.perf_counter() - t) * 1e3:.1f}")
+        log(f"digest {name}="
+            f"{digest(r.compressed_data for r in results)}")
+
+    std = T.Options()
+    say("std_12mp", lambda: [T.compress_bytes(None, big, std, device=dev)])
+    say("std_1080p", lambda: [T.compress_bytes(None, mid, std, device=dev)])
+    ts = T.Options(format=T.JPEG, target_size=200 * 1024)
+    say("t1_1080p_200KB",
+        lambda: [T.compress_bytes(None, mid, ts, device=dev)])
+    ts = T.Options(format=T.JPEG, target_size=20 * 1024)
+    say("t1_500_20KB",
+        lambda: [T.compress_image(None, small[0], ts, device=dev)])
+    say("t2_64x500_20KB",
+        lambda: T.compress_images(None, small, ts, device=dev))
+    say("images_32x500", lambda: T.compress_images(
+        None, small[:32], T.Options(format=T.JPEG), device=dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        items = []
+        for i in range(16):
+            src = os.path.join(tmp, f"in{i}.jpg")
+            with open(src, "wb") as f:
+                f.write(T.encode_to_bytes(small[i], T.JPEG, 92, device=dev))
+            items.append(T.BatchItem(src=src,
+                                     dst=os.path.join(tmp, f"out{i}.jpg")))
+        res = T.compress_batch(None, items, T.BatchOptions(default_opts=ts),
+                               device=dev)
+        blobs = []
+        for r in res:
+            if r.err is not None:
+                raise AssertionError(f"digests: {r.item.src}: {r.err}")
+            with open(r.item.dst, "rb") as f:
+                blobs.append(f.read())
+    log(f"digest t3_16x500_20KB={digest(blobs)}")
+    return 0
+
+
+def main(only: str = "") -> int:
     # 1. Environment.  The port is imported before anything is printed,
     # so a copy of this script without the repository prints nothing.
     if not torch.cuda.is_available():
@@ -1400,29 +1925,17 @@ def main() -> int:
             or torch.backends.cudnn.allow_tf32):
         raise AssertionError("TF32 is on")
 
-    # 2. Build: the two nvcc builds and the g++ build at once.
-    from concurrent.futures import ThreadPoolExecutor
-
-    from fennec_tpu_torch import native
+    # 2. Build: the nvcc builds (K1, K3 and the first K3, kept for phase
+    # 11's timing in turns) and the g++ build at once.
     from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
     from fennec_tpu_torch.ops.ssim import batched_ssim_plain
     from fennec_tpu_torch.ops.ssim_cuda import SOURCE, ssim_window
 
-    def timed_build(build):
-        t = time.perf_counter()
-        build(force=True)
-        return time.perf_counter() - t
-
-    with ThreadPoolExecutor(3) as pool:
-        secs = list(pool.map(timed_build, (ssim_window.build,
-                                           k3.library.build, native.build)))
-    ssim_window.load()
-    k3.library.load()
-    native.load()
-    log(f"build k1_nvcc_s={secs[0]:.3f} k3_nvcc_s={secs[1]:.3f} "
-        f"native_gxx_s={secs[2]:.3f} (in parallel)")
-    log(ssim_window.build_log.strip())
-    log(k3.library.build_log.strip())
+    if only == "digests":  # kernels build at first use
+        return digests_only(T, dev)
+    first_k3 = build_all(ssim_window, k3)
+    if only == "k3":
+        return k3_only(T, dev, first_k3)
 
     # 3. K1 against its plain version.
     max_err, times = phase_kernel(dev, ssim_window, batched_ssim_plain)
@@ -1516,6 +2029,7 @@ def main() -> int:
             f.write(big_jpeg)
         big_img = T.codecs.decode_image(big_jpeg, device=dev)
         time_ts_device_work(dev, big_img)
+        k4_times = phase_k4(T, dev, big_img)
         total_launches += phase_ts_single(T, dev, ssim_window, counters,
                                           big_path, big_img, tmp)
         total_launches += phase_ts_batch(T, dev, ssim_window, counters)
@@ -1531,7 +2045,8 @@ def main() -> int:
     q500 = T.compress_image(None, photo(500, 500, SEED + 100),
                             T.Options(format=T.JPEG), device=dev).jpeg_quality
     k3_err, k3_times = phase_k3(T, dev, k3_cases(
-        quality["12mp_balanced"], quality["1080p_balanced"], q500))
+        quality["12mp_balanced"], quality["1080p_balanced"], q500),
+        first=first_k3)
 
     # 12. The two encode routes, in this call; 13. the rest of the surface.
     with tempfile.TemporaryDirectory() as tmp:
@@ -1544,30 +2059,35 @@ def main() -> int:
         {k: {"k3": v[None], "host": v[False]} for k, v in ab.items()}))
 
     k3t = k3_times[("12mp_420", True)]
+    k4t = k4_times["12mp_420"]
     k3_rows = []
-    for part, name, fn_line, key in (
+    for part, name, replaces, key in (
             ("k3a", "jpeg_block_stats", "fennec_tpu/ops/jpeg_emit.py:306",
              "block_stats"),
             ("k3b", "jpeg_deposit", "fennec_tpu/ops/jpeg_emit.py:587",
-             "deposit")):
+             "deposit"),
+            # K3a's totals alone, as the size oracle launches it.
+            ("k4", "jpeg_block_stats_as_size_oracle",
+             "fennec_tpu/ops/jpeg_size.py:138", "oracle")):
         k3_rows.append({
             "name": name,
             "route": "cuda",
-            "source": os.path.relpath(k3.SOURCE, os.path.dirname(
-                os.path.abspath(__file__))),
-            # An XLA program of the JAX package, not a Pallas kernel.
-            "replaces": fn_line,
+            "source": os.path.relpath(k3.SOURCE, HERE),
+            # XLA programs of the JAX package, not Pallas kernels.
+            "replaces": replaces,
             "launches": K3_MAIN[key],
             "max_abs_err": k3_err,
             "shape": [1, 285768, 64],
             "ms": k3t[f"{part}_ms"],
-            "plain_ms": k3t[f"{part}_plain_ms"],
+            "plain_ms": (k4t["plain_ms"] if part == "k4"
+                         else k3t[f"{part}_plain_ms"]),
             "bound_ms": k3t[f"{part}_bound_ms"],
             "bound_by": k3t[f"{part}_bound_by"],
-            "share": k3t[f"{part}_bound_ms"] / k3t[f"{part}_ms"],
-            # No PyTorch call computes Huffman emission.
+            "share": k3t[f"{part}_share"],
+            # No PyTorch call codes Huffman or counts its bits.
             "library_ms": None,
             "host_us": k3t[f"{part}_host_us"],
+            "first_ms": k3t.get(f"{part}_first_ms"),
         })
     t = times[(1, 384, 512)]
     print(json.dumps({"kernels": [{
@@ -1597,4 +2117,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    flags = {"--k3": "k3", "--digests": "digests"}
+    if len(sys.argv) > 2 or (len(sys.argv) == 2
+                             and sys.argv[1] not in flags):
+        raise SystemExit(f"usage: python3 chip_smoke.py [{' | '.join(flags)}]")
+    sys.exit(main(flags[sys.argv[1]] if len(sys.argv) == 2 else ""))

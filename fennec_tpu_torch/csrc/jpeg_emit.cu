@@ -1,174 +1,338 @@
 // Kernel K3: Huffman emission of baseline JPEG scans, CUDA C++ for sm_90a.
 //
 // Replaces the XLA programs of fennec_tpu/ops/jpeg_emit.py that code a
-// scan on the accelerator: scan_symbol_hist_device (:306) and
-// emit_scan_device (:587).  The plain PyTorch version, which the CPU runs
-// and this kernel is held to bit for bit, is fennec_tpu_torch/ops/
+// scan on the accelerator, scan_symbol_hist_device (:306) and
+// emit_scan_device (:587), and serves the size oracle's bit count, the XLA
+// programs component_scan_bits (:102) and scan_bits_device (:138) of
+// fennec_tpu/ops/jpeg_size.py.  The plain PyTorch version, which the CPU
+// runs and this kernel is held to bit for bit, is fennec_tpu_torch/ops/
 // jpeg_emit.py; the wrapper is ops/jpeg_emit_cuda.py.
 //
-// Two launches over (B, NT, 64) int16 quantized blocks of one geometry:
+// Input: (B, NT, 64) int16 quantized blocks of one geometry, and the
+// geometry's scan layout: for scan slot g (MCU order) the block's row, the
+// row of the previous block of its component, and that block's slot.
 //
-//   K3a fennec_jpeg_block_stats: one thread per block (scan slot g of
-//       image blockIdx.y).  It computes the block's symbols as the C++
-//       encoder does (entropy.cpp encode_block): the DC difference against
-//       the previous block of the same component in MCU order, read
-//       directly from that block (no serial chain); r zeros before a
-//       nonzero AC coefficient cost r / 16 ZRLs and the symbol
-//       (r % 16) << 4 | size; EOB exactly when zigzag position 63 is zero.
-//       It writes the block's bit count under the tables it is given and
-//       adds its symbols into the image's (2, 16) DC and (2, 256) AC
-//       histograms: shared-memory integer atomics, then one global integer
-//       atomic per nonzero bin, so the counts do not depend on order.
-//   (between the launches, torch.cumsum takes the exclusive scan of the
-//       block bits per image in slot order, in int64.)
-//   K3b fennec_jpeg_deposit: one thread per block again.  It walks the
-//       same symbols and packs their fields into a 64-bit accumulator,
-//       starting at its block's global bit offset.  A word that only this
-//       block covers is stored; the first and the last word, which it may
-//       share with its neighbours, take atomicOr.  Bit ranges are
-//       disjoint, so OR is exact and the words do not depend on order.
-//       A word outside its image's range sets the flag word after the
-//       buffer (the wrapper raises on it) instead of being written.
+//   K3a fennec_jpeg_block_stats: the scan's bits per image under the given
+//       tables (one 64-bit integer atomic per CTA and image), and when
+//       asked for the per-image (2, 16) DC and (2, 256) AC symbol
+//       histograms and the bits of every block.
+//   K3b fennec_jpeg_deposit: the scan's big-endian 32-bit words.  It finds
+//       its own bit offsets: no pass before it, nothing between the two.
 //
-// Each CTA of 256 threads serves 256 consecutive slots of one image: it
-// stages their blocks in shared memory (row stride 33 words, so the
-// threads of a warp reading one zigzag position hit 32 banks), and the
-// image's code tables (2 x 272 entries, code << 5 | length).
+// What bounds it on an H100.  Every block is 128 bytes read once: 11 us
+// for a 12 MP 4:2:0 image at 3.35 TB/s.  The arithmetic is far below that
+// when it follows the data: quantized photos are sparse (at the usual
+// qualities a block holds a DC, a few low coefficients and an EOB), so
+// the work that counts is finding the nonzeros.  A design that spreads a
+// block's 64 positions over the lanes of a warp (ballots for the nonzero
+// mask, a count of leading zeros for each run) was built and measured: it
+// pays some 50 warp instructions a block whatever the block holds and ran
+// slower than one thread per block (25 against 22 us for K3a at 12 MP, 77
+// against 29 us for K3b).  So a thread keeps a block, and the design
+// removes what made that slow instead:
 //
-// Bound: each pass reads every block once, 128 bytes, and K3b writes the
-// scan; that is ~37 MB and ~11 us per pass at 3.35 TB/s for a 12 MP 4:2:0
-// image (285 768 blocks).  The instructions: ~64 shared-memory loads and
-// compares per block plus ~12 per nonzero coefficient (~2 x 10^8 a pass
-// at 12 MP and quality 75, ~7 us at the card's integer issue rate), so
-// bytes bound it.  The design keeps the simple one-thread-per-block form;
-// the histogram atomics on a few hot bins (EOB, the small symbols) are
-// its known cost.
+//   Zeros are skipped eight at a time.  A CTA stages its segment of slots
+//   in shared memory in zigzag order (coalesced 16-byte loads, the
+//   permutation in the 2-byte stores); a thread reads its block as eight
+//   16-byte vectors (row stride 144 bytes: conflict-free) and tests each
+//   with one OR, so an all-zero block costs eight loads and eight tests,
+//   not a walk of 63 dependent steps, and a warp diverges only inside a
+//   group of eight positions that holds a nonzero.
+//
+//   The grid is sized to the card: CTAs loop over segments of 128 slots
+//   (K3b: handed out by an atomic ticket), so 1080p spreads over all 132
+//   SMs and 12 MP has no short last wave.
+//
+//   The previous block's DC comes from the staged rows when the CTA holds
+//   it (all but 3 or 4 blocks of a segment), from device memory otherwise.
+//
+//   Histograms: a warp counts its DC symbols and each AC symbol of one
+//   step with a match and a population count, and its EOBs with a ballot,
+//   before one shared-memory add; a CTA adds its nonzero bins to the
+//   image's with global integer atomics.  Counts do not depend on order.
+//
+//   K3b is one launch.  A thread counts its block's bits, the CTA scans
+//   them, publishes the segment's total and looks back over the segments
+//   before it (a 64-bit status word per segment: an aggregate, then an
+//   inclusive prefix; a CTA that waits only waits for CTAs that took their
+//   ticket before it and so already run).  Then each thread packs its
+//   fields into a 64-bit accumulator and puts whole words into the CTA's
+//   word buffer in shared memory, which the CTA shifts to its place and
+//   stores coalesced; only the first and the last word of a segment, which
+//   a neighbour may share, take a global atomicOr.  A segment too long for
+//   the buffer (dense blocks at the highest qualities) writes its words
+//   straight to device memory, each block's edge words with atomicOr.  Bit
+//   ranges are disjoint, so OR is exact and the words do not depend on the
+//   order CTAs run.  A word outside its image's range sets the flag word
+//   after the buffer (the wrapper raises on it) instead of being written.
+//
+// Code tables are (1 or B, 2, 272) int32, code << 5 | length with lengths
+// of at most 16 bits, as JPEG has them.  Everything is integer.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowWords = 33;  // 32 words of a block + 1 of padding
+constexpr int kThreads = 128;           // and slots per segment
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowBytes = 144;          // a staged block: 128 bytes + 16
+constexpr int kBufWords = 1024;         // K3b's word buffer: 256 bits a block
 constexpr int kTable = 16 + 256;
 constexpr int kHist = 2 * 16 + 2 * 256;
 constexpr int kZrl = 0xF0;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr unsigned long long kAggregate = 1ull << 62;
+constexpr unsigned long long kPrefix = 2ull << 62;
+constexpr unsigned long long kValue = kAggregate - 1;
 
-__constant__ int c_zigzag[64] = {
-    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
-    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
-    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+// Zigzag position of each natural index.
+__constant__ int c_position[64] = {
+    0,  1,  5,  6,  14, 15, 27, 28, 2,  4,  7,  13, 16, 26, 29, 42,
+    3,  8,  12, 17, 25, 30, 41, 43, 9,  11, 18, 24, 31, 40, 44, 53,
+    10, 19, 23, 32, 39, 45, 52, 54, 20, 22, 33, 38, 46, 51, 55, 60,
+    21, 34, 37, 47, 50, 56, 59, 61, 35, 36, 48, 49, 57, 58, 62, 63};
 
 __device__ __forceinline__ int bit_length(int v) {
   return v == 0 ? 0 : 32 - __clz(v < 0 ? -v : v);
 }
 
-__device__ __forceinline__ uint32_t magnitude(int v, int size) {
-  return (uint32_t)(v >= 0 ? v : v + (1 << size) - 1);
+__device__ __forceinline__ unsigned magnitude(int v, int size) {
+  return (unsigned)(v >= 0 ? v : v + (1 << size) - 1);
 }
 
-// Stage the CTA's blocks (slots g0 .. g0+255 of one image) and the
-// image's tables in shared memory.  Eight lanes load one 128-byte block
-// as 16-byte vectors.
+__device__ __forceinline__ unsigned long long warp_sum(unsigned long long v) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
+  return v;
+}
+
+__device__ __forceinline__ void load_tables(const int* __restrict__ tables,
+                                            int* tab) {
+  for (int i = threadIdx.x; i < 2 * kTable; i += kThreads) tab[i] = tables[i];
+}
+
+// Where a thread's part of a block goes when it is staged: eight lanes
+// load one block as 16-byte vectors, lane `part` its natural row, and
+// store each coefficient at its zigzag position.
+struct StageMap {
+  int part;
+  int at[8];  // byte offsets of the row's coefficients in a staged block
+
+  __device__ StageMap() : part(threadIdx.x & 7) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) at[e] = 2 * c_position[8 * part + e];
+  }
+};
+
+// Stages slots s0 .. s0 + kThreads - 1 of one image in zigzag order.
 __device__ __forceinline__ void stage(const int16_t* __restrict__ img,
                                       const int* __restrict__ slot_row,
-                                      int nt, int g0,
-                                      const int* __restrict__ tables,
-                                      uint32_t* rows, int* tab) {
-  for (int i = threadIdx.x; i < 2 * kTable; i += kThreads) tab[i] = tables[i];
+                                      int nt, int s0, unsigned char* rows,
+                                      const StageMap& map) {
+  const int part = map.part;
+  const int* at = map.at;
+#pragma unroll 4
   for (int i = threadIdx.x; i < kThreads * 8; i += kThreads) {
-    const int blk = i >> 3, part = i & 7;
-    const int g = g0 + blk;
+    const int blk = i >> 3;
+    const int g = s0 + blk;
     if (g >= nt) continue;
     const uint4 v = reinterpret_cast<const uint4*>(
         img + (size_t)slot_row[g] * 64)[part];
-    uint32_t* dst = rows + blk * kRowWords + part * 4;
-    dst[0] = v.x;
-    dst[1] = v.y;
-    dst[2] = v.z;
-    dst[3] = v.w;
+    unsigned char* dst = rows + blk * kRowBytes;
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      *reinterpret_cast<unsigned short*>(dst + at[2 * e]) =
+          (unsigned short)w[e];
+      *reinterpret_cast<unsigned short*>(dst + at[2 * e + 1]) =
+          (unsigned short)(w[e] >> 16);
+    }
   }
 }
 
+// A thread's block: its tables and the DC difference.
+struct Block {
+  const uint4* row;   // the staged block, zigzag order
+  const int* dc_tab;
+  const int* ac_tab;
+  int cls;            // 0 luma, 1 chroma
+  int diff;           // DC minus the previous block's of the component
+
+  // g = s0 + threadIdx.x < nt.  The predecessor's DC is read from the
+  // staged rows when its slot is in the segment.
+  __device__ __forceinline__ Block(const int16_t* __restrict__ img, int g,
+                                   int s0, int ny,
+                                   const int* __restrict__ slot_row,
+                                   const int* __restrict__ prev_row,
+                                   const int* __restrict__ prev_slot,
+                                   const unsigned char* rows,
+                                   const int* tab) {
+    const unsigned char* mine = rows + threadIdx.x * kRowBytes;
+    row = reinterpret_cast<const uint4*>(mine);
+    cls = slot_row[g] >= ny ? 1 : 0;
+    dc_tab = tab + cls * kTable;
+    ac_tab = dc_tab + 16;
+    const int ps = prev_slot[g];
+    int pdc = 0;
+    if (ps >= s0) {
+      pdc = *reinterpret_cast<const short*>(rows + (ps - s0) * kRowBytes);
+    } else if (ps >= 0) {
+      pdc = img[(size_t)prev_row[g] * 64];
+    }
+    diff = *reinterpret_cast<const short*>(mine) - pdc;
+  }
+
+  // Calls ac(run, size, value) for every nonzero AC coefficient in zigzag
+  // order and returns true when the block ends in zeros (EOB).
+  template <typename F>
+  __device__ __forceinline__ bool walk(F ac) const {
+    int last = 0;
+#pragma unroll
+    for (int grp = 0; grp < 8; ++grp) {
+      const uint4 v = row[grp];
+      if ((v.x | v.y | v.z | v.w) == 0) continue;
+      const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int k = 8 * grp + e;
+        if (k == 0) continue;  // the DC
+        const int c = (e & 1) ? (int)w[e >> 1] >> 16
+                              : (int)(short)(w[e >> 1] & 0xFFFFu);
+        if (c == 0) continue;
+        ac(k - last - 1, bit_length(c), c);
+        last = k;
+      }
+    }
+    return last != 63;
+  }
+};
+
+template <bool kWantHist, bool kWantBits>
 __global__ void __launch_bounds__(kThreads)
-    block_stats_kernel(const int16_t* __restrict__ blocks, int nt,
+    block_stats_kernel(const int16_t* __restrict__ blocks, int nimg, int nt,
                        const int* __restrict__ slot_row,
-                       const int* __restrict__ prev_row, int ny,
+                       const int* __restrict__ prev_row,
+                       const int* __restrict__ prev_slot, int ny,
                        const int* __restrict__ tables, int tables_stride,
-                       int* __restrict__ block_bits, int* __restrict__ hist) {
-  __shared__ uint32_t rows[kThreads * kRowWords];
+                       unsigned long long* __restrict__ totals,
+                       int* __restrict__ hist, int* __restrict__ block_bits) {
+  __shared__ __align__(16) unsigned char rows[kThreads * kRowBytes];
   __shared__ int tab[2 * kTable];
   __shared__ int shist[kHist];
-  const int b = blockIdx.y;
-  const int g0 = blockIdx.x * kThreads;
-  const int16_t* img = blocks + (size_t)b * nt * 64;
-  if (hist != nullptr)
+  __shared__ unsigned long long s_total;
+  const int lane = threadIdx.x & 31;
+  const StageMap map;
+  const int nseg = (nt + kThreads - 1) / kThreads;
+  const int total = nimg * nseg;
+  if (threadIdx.x == 0) s_total = 0;
+  if (kWantHist)
     for (int i = threadIdx.x; i < kHist; i += kThreads) shist[i] = 0;
-  stage(img, slot_row, nt, g0, tables + (size_t)b * tables_stride, rows, tab);
-  __syncthreads();
 
-  const int g = g0 + threadIdx.x;
-  if (g < nt) {
-    const int row = slot_row[g];
-    const int cls = row >= ny ? 1 : 0;
-    const int* dc_tab = tab + cls * kTable;
-    const int* ac_tab = dc_tab + 16;
-    int* dc_hist = shist + cls * 16;
-    int* ac_hist = shist + 32 + cls * 256;
-    const int16_t* blk =
-        reinterpret_cast<const int16_t*>(rows + threadIdx.x * kRowWords);
-    const int pr = prev_row[g];
-    const int pdc = pr >= 0 ? img[(size_t)pr * 64] : 0;
-    const int s_dc = bit_length(blk[0] - pdc);
-    const int dc_sym = s_dc < 15 ? s_dc : 15;
-    int bits = (dc_tab[dc_sym] & 31) + s_dc;
-    if (hist != nullptr) atomicAdd(dc_hist + dc_sym, 1);
-    const int zrl_len = ac_tab[kZrl] & 31;
-    int last = 0;
-    for (int k = 1; k < 64; ++k) {
-      const int v = blk[c_zigzag[k]];
-      if (v == 0) continue;
-      const int run = k - last - 1;
-      const int s = bit_length(v);
-      const int sym = (((run & 15) << 4) | s) & 255;
-      bits += (run >> 4) * zrl_len + (ac_tab[sym] & 31) + s;
-      if (hist != nullptr) {
-        atomicAdd(ac_hist + sym, 1);
-        if (run >= 16) atomicAdd(ac_hist + kZrl, run >> 4);
-      }
-      last = k;
-    }
-    if (blk[63] == 0) {  // zigzag position 63 is natural index 63
-      bits += ac_tab[0] & 31;
-      if (hist != nullptr) atomicAdd(ac_hist, 1);
-    }
-    if (block_bits != nullptr) block_bits[(size_t)b * nt + g] = bits;
-  }
-  if (hist != nullptr) {
+  int cur = -1;                 // the image whose sums the CTA holds
+  unsigned long long lsum = 0;  // this thread's bits of image cur
+
+  // Adds what the CTA holds of image b to the image's sums.
+  auto flush = [&](int b) {
+    const unsigned long long wsum = warp_sum(lsum);
+    lsum = 0;
+    if (lane == 0 && wsum != 0) atomicAdd(&s_total, wsum);
     __syncthreads();
-    for (int i = threadIdx.x; i < kHist; i += kThreads)
-      if (shist[i] != 0) atomicAdd(hist + (size_t)b * kHist + i, shist[i]);
+    if (threadIdx.x == 0) {
+      atomicAdd(totals + b, s_total);
+      s_total = 0;
+    }
+    if (kWantHist)
+      for (int i = threadIdx.x; i < kHist; i += kThreads) {
+        const int c = shist[i];
+        if (c != 0) atomicAdd(hist + (size_t)b * kHist + i, c);
+        shist[i] = 0;
+      }
+  };
+
+  // A CTA takes consecutive segments, so that it changes image seldom.
+  const int per = (total + gridDim.x - 1) / gridDim.x;
+  const int seg_end = min(total, (int)(blockIdx.x + 1) * per);
+  for (int seg = blockIdx.x * per; seg < seg_end; ++seg) {
+    const int b = seg / nseg;
+    const int s0 = (seg - b * nseg) * kThreads;
+    const int16_t* img = blocks + (size_t)b * nt * 64;
+    __syncthreads();  // the rows and the tables are free
+    if (b != cur) {   // the same for every thread of the CTA
+      if (cur >= 0) flush(cur);
+      if (cur < 0 || tables_stride != 0)
+        load_tables(tables + (size_t)b * tables_stride, tab);
+      cur = b;
+    }
+    stage(img, slot_row, nt, s0, rows, map);
+    __syncthreads();
+    const int g = s0 + threadIdx.x;
+    const bool valid = g < nt;
+    int bits = 0;
+    int dc_bin = -1 - lane;  // no lane's symbol
+    bool eob = false;
+    int cls = 0;
+    if (valid) {
+      const Block blk(img, g, s0, ny, slot_row, prev_row, prev_slot, rows,
+                      tab);
+      cls = blk.cls;
+      const int s_dc = bit_length(blk.diff);
+      const int dc_sym = s_dc < 15 ? s_dc : 15;
+      bits = (blk.dc_tab[dc_sym] & 31) + s_dc;
+      dc_bin = cls * 16 + dc_sym;
+      const int zrl_len = blk.ac_tab[kZrl] & 31;
+      int* ac_hist = shist + 32 + cls * 256;
+      eob = blk.walk([&](int run, int size, int) {
+        const int sym = (((run & 15) << 4) | size) & 255;
+        bits += (run >> 4) * zrl_len + (blk.ac_tab[sym] & 31) + size;
+        if (kWantHist) {
+          // The lanes here with one symbol add it once.
+          const unsigned same = __match_any_sync(__activemask(),
+                                                 cls * 256 + sym);
+          if (lane == __ffs(same) - 1) atomicAdd(ac_hist + sym, __popc(same));
+          if (run >= 16) atomicAdd(ac_hist + kZrl, run >> 4);
+        }
+      });
+      if (eob) bits += blk.ac_tab[0] & 31;
+      if (kWantBits) block_bits[(size_t)b * nt + g] = bits;
+    }
+    lsum += (unsigned long long)bits;
+    if (kWantHist) {
+      const unsigned same = __match_any_sync(kFull, dc_bin);
+      if (valid && lane == __ffs(same) - 1)
+        atomicAdd(shist + dc_bin, __popc(same));
+      const unsigned luma = __ballot_sync(kFull, eob && cls == 0);
+      const unsigned chroma = __ballot_sync(kFull, eob && cls == 1);
+      if (lane == 0) {
+        if (luma) atomicAdd(shist + 32, __popc(luma));
+        if (chroma) atomicAdd(shist + 32 + 256, __popc(chroma));
+      }
+    }
   }
+  __syncthreads();
+  if (cur >= 0) flush(cur);
 }
 
-// Writes a block's fields from global bit `off` on.  The words of image
-// b are [lo, hi).
+// Packs a block's fields from bit `start` of a word array on.  Words of
+// index [lo, hi) may be written; one outside sets the flag instead.  A
+// word that only this block covers is stored; its first and last word,
+// which a neighbour may share, take atomicOr.
 struct BitSink {
-  uint32_t* words;
-  uint32_t* flag;
+  unsigned* words;
+  unsigned* flag;
   long long cur, lo, hi;
   unsigned long long acc;
   int n;
   bool first;
 
-  __device__ BitSink(uint32_t* w, uint32_t* f, long long off, long long l,
+  __device__ BitSink(unsigned* w, unsigned* f, long long start, long long l,
                      long long h)
-      : words(w), flag(f), cur(off >> 5), lo(l), hi(h), acc(0),
-        n((int)(off & 31)), first(true) {}
+      : words(w), flag(f), cur(l + (start >> 5)), lo(l), hi(h), acc(0),
+        n((int)(start & 31)), first(true) {}
 
-  __device__ __forceinline__ void store(uint32_t w, bool shared) {
+  __device__ __forceinline__ void store(unsigned w, bool shared) {
     if (cur < lo || cur >= hi) {
       atomicOr(flag, 1u);
     } else if (shared) {
@@ -179,70 +343,257 @@ struct BitSink {
   }
 
   // len <= 32; n < 32 on entry, so one word at most becomes full.
-  __device__ __forceinline__ void put(uint32_t v, int len) {
+  __device__ __forceinline__ void put(unsigned v, int len) {
     acc = (acc << len) | v;
     n += len;
     if (n >= 32) {
       n -= 32;
-      store((uint32_t)(acc >> n), first);
+      store((unsigned)(acc >> n), first);
       first = false;
       ++cur;
     }
   }
 
   __device__ __forceinline__ void finish() {
-    if (n > 0) store((uint32_t)(acc << (32 - n)), true);
+    if (n > 0) store((unsigned)(acc << (32 - n)), true);
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
-    deposit_kernel(const int16_t* __restrict__ blocks, int nt,
-                   const int* __restrict__ slot_row,
-                   const int* __restrict__ prev_row, int ny,
-                   const int* __restrict__ tables, int tables_stride,
-                   const long long* __restrict__ block_off,
-                   const long long* __restrict__ word_base,
-                   uint32_t* words, uint32_t* flag) {
-  __shared__ uint32_t rows[kThreads * kRowWords];
-  __shared__ int tab[2 * kTable];
-  const int b = blockIdx.y;
-  const int g0 = blockIdx.x * kThreads;
-  const int16_t* img = blocks + (size_t)b * nt * 64;
-  stage(img, slot_row, nt, g0, tables + (size_t)b * tables_stride, rows, tab);
-  __syncthreads();
+// Decoupled look-back over the segments of one image: a 64-bit status
+// word per segment, an aggregate (the segment's own bits) as soon as they
+// are known, then an inclusive prefix.
 
-  const int g = g0 + threadIdx.x;
-  if (g >= nt) return;
-  const int row = slot_row[g];
-  const int* dc_tab = tab + (row >= ny ? kTable : 0);
-  const int* ac_tab = dc_tab + 16;
-  const int16_t* blk =
-      reinterpret_cast<const int16_t*>(rows + threadIdx.x * kRowWords);
-  const int pr = prev_row[g];
-  const int pdc = pr >= 0 ? img[(size_t)pr * 64] : 0;
-  const long long lo = word_base[b];
-  BitSink sink(words, flag, lo * 32 + block_off[(size_t)b * nt + g], lo,
-               word_base[b + 1]);
+__device__ __forceinline__ void publish(unsigned long long* status, int s,
+                                        unsigned long long own) {
+  atomicExch(status + s, (s == 0 ? kPrefix : kAggregate) | own);
+}
 
-  const int diff = blk[0] - pdc;
-  const int s_dc = bit_length(diff);
-  const int dc = dc_tab[s_dc < 15 ? s_dc : 15];
-  sink.put(((uint32_t)(dc >> 5) << s_dc) | magnitude(diff, s_dc),
-           (dc & 31) + s_dc);
-  const int zrl = ac_tab[kZrl];
-  int last = 0;
-  for (int k = 1; k < 64; ++k) {
-    const int v = blk[c_zigzag[k]];
-    if (v == 0) continue;
-    int run = k - last - 1;
-    for (; run >= 16; run -= 16) sink.put((uint32_t)(zrl >> 5), zrl & 31);
-    const int s = bit_length(v);
-    const int e = ac_tab[((run << 4) | s) & 255];
-    sink.put(((uint32_t)(e >> 5) << s) | magnitude(v, s), (e & 31) + s);
-    last = k;
+// The bits of the segments before segment s, which has published `own`;
+// one whole warp calls it.  Lanes read four status words each, the
+// nearest first, all four loads in flight together.
+__device__ unsigned long long look_back(unsigned long long* status, int s,
+                                        unsigned long long own, int lane) {
+  unsigned long long before = 0;
+  for (int idx = s - 1; idx >= 0; idx -= 128) {
+    unsigned long long st[4];
+    bool waiting;
+    do {
+      waiting = false;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int at = idx - 4 * lane - k;
+        // Before the image's first segment: an empty prefix.
+        st[k] = at >= 0 ? *(const volatile unsigned long long*)(status + at)
+                        : kPrefix;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) waiting |= (st[k] >> 62) == 0;
+    } while (waiting);
+    unsigned long long part = 0;
+    bool found = false;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (!found) {
+        part += st[k] & kValue;
+        found = (st[k] >> 62) == 2;
+      }
+    const unsigned with_prefix = __ballot_sync(kFull, found);
+    const int last = with_prefix ? __ffs(with_prefix) - 1 : 31;
+    before += warp_sum(lane <= last ? part : 0ull);
+    if (with_prefix) break;
   }
-  if (blk[63] == 0) sink.put((uint32_t)(ac_tab[0] >> 5), ac_tab[0] & 31);
-  sink.finish();
+  if (lane == 0 && s > 0) atomicExch(status + s, kPrefix | (before + own));
+  return before;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    deposit_kernel(const int16_t* __restrict__ blocks, int nimg, int nt,
+                   const int* __restrict__ slot_row,
+                   const int* __restrict__ prev_row,
+                   const int* __restrict__ prev_slot, int ny,
+                   const int* __restrict__ tables, int tables_stride,
+                   const long long* __restrict__ word_base,
+                   long long n_words, unsigned* words, unsigned* flag,
+                   unsigned* ticket, unsigned long long* status) {
+  __shared__ __align__(16) unsigned char rows[kThreads * kRowBytes];
+  __shared__ int tab[2 * kTable];
+  __shared__ unsigned buf[kBufWords];
+  __shared__ int s_wbits[kWarps];
+  __shared__ int s_seg;
+  __shared__ unsigned long long s_before;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const StageMap map;
+  const int nseg = (nt + kThreads - 1) / kThreads;
+  const int total = nimg * nseg;
+  for (int k = threadIdx.x; k < kBufWords; k += kThreads) buf[k] = 0;
+  int cur = -1;
+
+  for (;;) {
+    // Segments in the order CTAs ask for them: a CTA that waits in
+    // look_back waits only for CTAs that already run.  (Asking for the
+    // next segment ahead of time was measured: it doubles the segments
+    // in flight, deepens every look-back and cost 14 us at 12 MP.)
+    if (threadIdx.x == 0) s_seg = (int)atomicAdd(ticket, 1u);
+    __syncthreads();  // also: the rows, the tables and buf are free
+    const int seg = s_seg;
+    if (seg >= total) break;
+    const int b = seg / nseg;
+    const int s = seg - b * nseg;
+    const int s0 = s * kThreads;
+    const int16_t* img = blocks + (size_t)b * nt * 64;
+    if (b != cur && (cur < 0 || tables_stride != 0))
+      load_tables(tables + (size_t)b * tables_stride, tab);
+    cur = b;
+    stage(img, slot_row, nt, s0, rows, map);
+    __syncthreads();
+
+    // The bits of this thread's block, then their exclusive scan over the
+    // segment.
+    const int g = s0 + threadIdx.x;
+    const bool valid = g < nt;
+    int bits = 0;
+    if (valid) {
+      const Block blk(img, g, s0, ny, slot_row, prev_row, prev_slot, rows,
+                      tab);
+      const int s_dc = bit_length(blk.diff);
+      bits = (blk.dc_tab[s_dc < 15 ? s_dc : 15] & 31) + s_dc;
+      const int zrl_len = blk.ac_tab[kZrl] & 31;
+      const bool eob = blk.walk([&](int run, int size, int) {
+        bits += (run >> 4) * zrl_len
+                + (blk.ac_tab[(((run & 15) << 4) | size) & 255] & 31) + size;
+      });
+      if (eob) bits += blk.ac_tab[0] & 31;
+    }
+    int incl = bits;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int up = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += up;
+    }
+    if (lane == 31) s_wbits[warp] = incl;
+    __syncthreads();
+    int offset = incl - bits, seg_bits = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      if (w < warp) offset += s_wbits[w];
+      seg_bits += s_wbits[w];
+    }
+    // The segment's words go through buf when they fit: bit 0 of buf is
+    // the segment's first, so the fields can be packed before the
+    // segment's place is known, while the look-back's loads are in flight
+    // behind the segments that come after.
+    const bool buffered = seg_bits <= 32 * (kBufWords - 1);
+    unsigned long long* image_status = status + (size_t)b * nseg;
+    if (threadIdx.x == 0) publish(image_status, s, seg_bits);
+    const long long lo = word_base != nullptr ? word_base[b] : 0;
+    const long long hi = word_base != nullptr ? word_base[b + 1] : n_words;
+    if (!buffered) {  // the same for every thread of the CTA
+      if (warp == 0) {
+        const unsigned long long before = look_back(image_status, s,
+                                                    seg_bits, lane);
+        if (lane == 0) s_before = before;
+      }
+      __syncthreads();
+    }
+
+    if (valid) {
+      const Block blk(img, g, s0, ny, slot_row, prev_row, prev_slot, rows,
+                      tab);
+      BitSink sink = buffered
+          ? BitSink(buf, flag, offset, 0, kBufWords)
+          : BitSink(words, flag, (long long)s_before + offset, lo, hi);
+      const int s_dc = bit_length(blk.diff);
+      const int dc = blk.dc_tab[s_dc < 15 ? s_dc : 15];
+      sink.put(((unsigned)(dc >> 5) << s_dc) | magnitude(blk.diff, s_dc),
+               (dc & 31) + s_dc);
+      const int zrl = blk.ac_tab[kZrl];
+      const bool eob = blk.walk([&](int run, int size, int c) {
+        for (; run >= 16; run -= 16) sink.put((unsigned)(zrl >> 5), zrl & 31);
+        const int e = blk.ac_tab[((run << 4) | size) & 255];
+        sink.put(((unsigned)(e >> 5) << size) | magnitude(c, size),
+                 (e & 31) + size);
+      });
+      if (eob)
+        sink.put((unsigned)(blk.ac_tab[0] >> 5), blk.ac_tab[0] & 31);
+      sink.finish();
+    }
+    if (!buffered) continue;
+    if (warp == 0) {
+      const unsigned long long before = look_back(image_status, s, seg_bits,
+                                                  lane);
+      if (lane == 0) s_before = before;
+    }
+    __syncthreads();
+    // buf's bits to their place, as whole words, coalesced; the segment's
+    // first and last word may be a neighbour's too.
+    const unsigned long long at = s_before;  // the segment's first bit
+    const int shift = (int)(at & 31);
+    const int nloc = (seg_bits + 31) >> 5;
+    const int nout = seg_bits > 0 ? (shift + seg_bits + 31) >> 5 : 0;
+    const long long w0 = lo + (long long)(at >> 5);
+    for (int k = threadIdx.x; k < nout; k += kThreads) {
+      const unsigned here = k < nloc ? buf[k] : 0u;
+      const unsigned left = k > 0 ? buf[k - 1] : 0u;
+      const unsigned w = __funnelshift_r(here, left, shift);
+      const long long dst = w0 + k;
+      if (dst >= hi) {
+        atomicOr(flag, 1u);
+      } else if (k == 0 || k == nout - 1) {
+        if (w != 0) atomicOr(words + dst, w);
+      } else {
+        words[dst] = w;
+      }
+    }
+    __syncthreads();
+    for (int k = threadIdx.x; k < nloc; k += kThreads) buf[k] = 0;
+  }
+}
+
+// The most CTAs of `kernel` the current device holds at once.
+template <typename Kernel>
+cudaError_t resident_ctas(Kernel kernel, std::atomic<int>* cache,
+                          int* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  int got = cache[dev].load(std::memory_order_relaxed);
+  if (got == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, 0);
+    if (err != cudaSuccess) return err;
+    got = sms * (per_sm > 0 ? per_sm : 1);
+    cache[dev].store(got, std::memory_order_relaxed);
+  }
+  *out = got;
+  return cudaSuccess;
+}
+
+template <bool kWantHist, bool kWantBits>
+cudaError_t launch_stats(const void* blocks, int nimg, int nt,
+                         const void* slot_row, const void* prev_row,
+                         const void* prev_slot, int ny, const void* tables,
+                         int tables_stride, void* totals, void* hist,
+                         void* block_bits, cudaStream_t s) {
+  static std::atomic<int> cache[64];
+  int limit = 0;
+  cudaError_t err = resident_ctas(
+      block_stats_kernel<kWantHist, kWantBits>, cache, &limit);
+  if (err != cudaSuccess) return err;
+  const long long segs = (long long)nimg * ((nt + kThreads - 1) / kThreads);
+  // The fewest CTAs that take the same number of segments each.
+  const long long per = (segs + limit - 1) / limit;
+  const int grid = (int)((segs + per - 1) / per);
+  block_stats_kernel<kWantHist, kWantBits><<<grid, kThreads, 0, s>>>(
+      (const int16_t*)blocks, nimg, nt, (const int*)slot_row,
+      (const int*)prev_row, (const int*)prev_slot, ny, (const int*)tables,
+      tables_stride, (unsigned long long*)totals, (int*)hist,
+      (int*)block_bits);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -253,46 +604,91 @@ const char* fennec_jpeg_emit_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// K3a.  blocks (nimg, nt, 64) int16; slot_row, prev_row (nt,) int32;
-// tables (nimg or 1, 2, 272) int32 with tables_stride 544 or 0;
-// block_bits (nimg, nt) int32 and hist (nimg, 544) int32, either NULL.
+// The slots of one look-back segment: K3b's buffer holds a status word
+// for each segment of each image.
+int fennec_jpeg_segment_blocks(void) { return kThreads; }
+
+// The most CTAs K3a (totals only) and K3b run at once on the current
+// device, for reports; negative on error.
+int fennec_jpeg_resident_ctas(int deposit) {
+  static std::atomic<int> cache_a[64], cache_b[64];
+  int out = 0;
+  const cudaError_t err =
+      deposit ? resident_ctas(deposit_kernel, cache_b, &out)
+              : resident_ctas(block_stats_kernel<false, false>, cache_a,
+                              &out);
+  return err == cudaSuccess ? out : -(int)err;
+}
+
+// K3a.  blocks (nimg, nt, 64) int16; slot_row, prev_row, prev_slot (nt,)
+// int32; tables (nimg or 1, 2, 272) int32 with tables_stride 544 or 0.
+// sums: nimg 64-bit bit totals, then, with want_hist, (nimg, 544) int32
+// histograms; zeroed here.  block_bits (nimg, nt) int32 or NULL.
 // Returns a cudaError_t.
 int fennec_jpeg_block_stats(const void* blocks, int nimg, int nt,
                             const void* slot_row, const void* prev_row,
-                            int ny, const void* tables, int tables_stride,
-                            void* block_bits, void* hist, void* stream) {
+                            const void* prev_slot, int ny,
+                            const void* tables, int tables_stride,
+                            void* sums, int want_hist, void* block_bits,
+                            void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (hist != nullptr) {
-    cudaError_t err =
-        cudaMemsetAsync(hist, 0, (size_t)nimg * kHist * sizeof(int), s);
-    if (err != cudaSuccess) return (int)err;
-  }
-  dim3 grid((nt + kThreads - 1) / kThreads, nimg);
-  block_stats_kernel<<<grid, kThreads, 0, s>>>(
-      (const int16_t*)blocks, nt, (const int*)slot_row,
-      (const int*)prev_row, ny, (const int*)tables, tables_stride,
-      (int*)block_bits, (int*)hist);
-  return (int)cudaGetLastError();
+  const size_t total_bytes = (size_t)nimg * sizeof(unsigned long long);
+  const size_t hist_bytes =
+      want_hist ? (size_t)nimg * kHist * sizeof(int) : 0;
+  cudaError_t err = cudaMemsetAsync(sums, 0, total_bytes + hist_bytes, s);
+  if (err != cudaSuccess) return (int)err;
+  void* hist = want_hist ? (char*)sums + total_bytes : nullptr;
+  if (want_hist && block_bits != nullptr)
+    err = launch_stats<true, true>(blocks, nimg, nt, slot_row, prev_row,
+                                   prev_slot, ny, tables, tables_stride,
+                                   sums, hist, block_bits, s);
+  else if (want_hist)
+    err = launch_stats<true, false>(blocks, nimg, nt, slot_row, prev_row,
+                                    prev_slot, ny, tables, tables_stride,
+                                    sums, hist, block_bits, s);
+  else if (block_bits != nullptr)
+    err = launch_stats<false, true>(blocks, nimg, nt, slot_row, prev_row,
+                                    prev_slot, ny, tables, tables_stride,
+                                    sums, hist, block_bits, s);
+  else
+    err = launch_stats<false, false>(blocks, nimg, nt, slot_row, prev_row,
+                                     prev_slot, ny, tables, tables_stride,
+                                     sums, hist, block_bits, s);
+  return (int)err;
 }
 
-// K3b.  block_off (nimg, nt) int64 exclusive bit offsets in slot order;
-// word_base (nimg + 1,) int64; words (n_words + 1,) 32-bit, zeroed here,
-// the last one the out-of-range flag.  Returns a cudaError_t.
+// K3b.  word_base (nimg + 1,) int64 on the device, or NULL for one image
+// that owns all n_words.  buf: n_words 32-bit words, the out-of-range
+// flag word, padding to 8 bytes, the ticket (8 bytes) and a 64-bit status
+// word per segment; buf_ints is its size in 32-bit units and must be what
+// this layout needs.  All of it is zeroed here.  Returns a cudaError_t.
 int fennec_jpeg_deposit(const void* blocks, int nimg, int nt,
-                        const void* slot_row, const void* prev_row, int ny,
-                        const void* tables, int tables_stride,
-                        const void* block_off, const void* word_base,
-                        void* words, long long n_words, void* stream) {
+                        const void* slot_row, const void* prev_row,
+                        const void* prev_slot, int ny, const void* tables,
+                        int tables_stride, const void* word_base, void* buf,
+                        long long n_words, long long buf_ints,
+                        void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const long long segs = (long long)nimg * ((nt + kThreads - 1) / kThreads);
+  const long long work_at = (n_words + 2) & ~1ll;
+  if (buf_ints != work_at + 2 + 2 * segs || segs > 0x7FFFFFFF ||
+      (word_base == nullptr && nimg != 1))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err =
-      cudaMemsetAsync(words, 0, (size_t)(n_words + 1) * sizeof(uint32_t), s);
+      cudaMemsetAsync(buf, 0, (size_t)buf_ints * sizeof(uint32_t), s);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((nt + kThreads - 1) / kThreads, nimg);
+  static std::atomic<int> cache[64];
+  int limit = 0;
+  err = resident_ctas(deposit_kernel, cache, &limit);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (int)(segs < limit ? segs : limit);
+  uint32_t* words = (uint32_t*)buf;
   deposit_kernel<<<grid, kThreads, 0, s>>>(
-      (const int16_t*)blocks, nt, (const int*)slot_row,
-      (const int*)prev_row, ny, (const int*)tables, tables_stride,
-      (const long long*)block_off, (const long long*)word_base,
-      (uint32_t*)words, (uint32_t*)words + n_words);
+      (const int16_t*)blocks, nimg, nt, (const int*)slot_row,
+      (const int*)prev_row, (const int*)prev_slot, ny, (const int*)tables,
+      tables_stride, (const long long*)word_base, n_words, words,
+      words + n_words, words + work_at,
+      (unsigned long long*)(words + work_at + 2));
   return (int)cudaGetLastError();
 }
 

@@ -43,7 +43,7 @@ from ..ops.ssim import (
 )
 from ..ops.ssim_cuda import ssim_window
 from ..types import Options
-from .size_search import quality_tables_on
+from .size_search import quality_tables_on, quantize_packed
 
 MAX_BISECT_STEPS = 7  # ceil(log2(100)) — covers any [lo, hi] ⊆ [1, 100]
 
@@ -286,16 +286,6 @@ def compress_jpeg_optimal(src: np.ndarray, target_ssim: float, opts: Options,
     return quality, ssim_val, data
 
 
-def _quantize_packed(coefs, qtabs: torch.Tensor) -> torch.Tensor:
-    """(B, NT, 64) int16 blocks, y|cb|cr, of (B, N, 64) coefficient
-    blocks quantized at (B, 2, 64) [luma, chroma] tables."""
-    return torch.cat([
-        dct_ops.quantize_blocks(coefs[0], qtabs[:, None, 0]),
-        dct_ops.quantize_blocks(coefs[1], qtabs[:, None, 1]),
-        dct_ops.quantize_blocks(coefs[2], qtabs[:, None, 1])],
-        dim=1).to(torch.int16)
-
-
 def _encode_from_coefs_device(coefs, w: int, h: int, quality: int,
                               subsample: bool, optimize: bool) -> bytes:
     """One image's file with device Huffman emission (JAX :676-734):
@@ -306,7 +296,7 @@ def _encode_from_coefs_device(coefs, w: int, h: int, quality: int,
     from ..parallel.batched import emit_scans
 
     qtab = quality_tables_on(coefs[0].device)[quality][None]
-    packed = _quantize_packed(coefs, qtab).contiguous()
+    packed = quantize_packed(coefs, qtab).contiguous()
     return emit_scans(packed, h, w, subsample, optimize).jpeg(
         0, w, h, quality, subsample)
 
@@ -374,7 +364,7 @@ def batched_quality_search_quantize(imgs: torch.Tensor, targets,
     t, lo0 = _search_targets(targets, dev)
     inp, coefs = prepare_search(imgs, subsample)
     best_q, best_ssim, found = _bisect_device_batch(inp, t, lo0)
-    blocks = _quantize_packed(coefs, inp.tables[torch.where(found, best_q,
+    blocks = quantize_packed(coefs, inp.tables[torch.where(found, best_q,
                                                             100)])
     head = torch.cat([best_q.to(torch.int16)[:, None],
                       found.to(torch.int16)[:, None],

@@ -68,7 +68,7 @@ from ..ops.ssim_cuda import ssim_window
 from ..parallel.batched import batched_ssim_fast
 from ..types import Context, Format, Options
 from .compress import device_entropy_on, probe_luminance, search_inputs
-from .size_search import quantize_at, size_bisect
+from .size_search import quality_tables_on, quantize_packed, size_bisect
 from .targetsize import (
     FIXED_SCALES,
     MIN_JPEG_QUALITY,
@@ -134,9 +134,9 @@ def _encode_lanes(pool, coefs, qvec: np.ndarray, sel: Sequence[int],
                                 w, h, quals[k], True, optimize=True)
 
     with stage_clock("encode"):
-        qy, qcb, qcr = quantize_at(sub, torch.as_tensor(quals, device=dev))
-        ny, nc = qy.shape[1], qcb.shape[1]
-        packed = torch.cat([qy, qcb, qcr], dim=1).to(torch.int16)
+        ny, nc = sub[0].shape[1], sub[1].shape[1]
+        packed = quantize_packed(sub, quality_tables_on(dev)[
+            torch.as_tensor(quals, device=dev).clamp(0, 100)])
         if emit:
             scans = emit_scans(packed, h, w, True, True)
             return list(zip(sel, pool.map(

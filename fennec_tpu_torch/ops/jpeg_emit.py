@@ -8,14 +8,16 @@ MCU-padded grids, one geometry per call) it computes, per scan slot in
 MCU order:
 
   block_stats  each block's bit count under the code tables it is given,
-               and the per-image symbol histograms (2, 16) DC and
-               (2, 256) AC [luma, chroma] that optimal tables are built
-               from (T.81 K.2);
+               their sum per image (the scan's bits: under the standard
+               tables the size oracle's count), and the per-image symbol
+               histograms (2, 16) DC and (2, 256) AC [luma, chroma] that
+               optimal tables are built from (T.81 K.2);
   deposit      the entropy-coded words, big-endian uint32 bit patterns in
                int32 storage, of a whole batch in one buffer: image b
                owns words [word_base[b], word_base[b+1]), exactly
                ceil(bits_b / 32) of them, and each block writes its
-               fields at word_base[b]·32 + its exclusive bit offset.
+               fields at word_base[b]·32 + its exclusive bit offset, the
+               bits of the image's blocks before it in slot order.
 
 The symbols are the C++ encoder's (entropy.cpp encode_block): the DC
 difference against the previous block of the same component in MCU
@@ -103,11 +105,13 @@ class ScanLayout(NamedTuple):
     Y blocks then Cb then Cr in 4:2:0, Y Cb Cr in 4:4:4), slot_row[g] is
     its row of the (NT, 64) y|cb|cr block stack and prev_row[g] the row
     of the previous block of the same component in MCU order (-1 for a
-    component's first).  Rows below ny are luma."""
+    component's first), prev_slot[g] that block's slot (-1 likewise;
+    always below g).  Rows below ny are luma."""
 
     slot_row: np.ndarray
     prev_row: np.ndarray
     ny: int
+    prev_slot: np.ndarray
 
 
 @functools.lru_cache(maxsize=64)
@@ -135,8 +139,11 @@ def scan_layout(padded_h: int, padded_w: int, subsample: bool) -> ScanLayout:
     for k, base in ((per_mcu, ny), (per_mcu + 1, ny + nc)):
         slot_row[k::width] = base + c_order
         prev_row[k::width] = np.where(c_prev >= 0, base + c_prev, -1)
+    slot_of = np.empty_like(slot_row)
+    slot_of[slot_row] = np.arange(slot_row.size)
+    prev_slot = np.where(prev_row >= 0, slot_of[np.maximum(prev_row, 0)], -1)
     return ScanLayout(slot_row.astype(np.int32), prev_row.astype(np.int32),
-                      ny)
+                      ny, prev_slot.astype(np.int32))
 
 
 _layouts: Dict[tuple, ScanLayout] = {}
@@ -154,7 +161,8 @@ def layout_on(padded_h: int, padded_w: int, subsample: bool,
     if got is None:
         lay = scan_layout(padded_h, padded_w, subsample)
         got = ScanLayout(torch.from_numpy(lay.slot_row).to(device),
-                         torch.from_numpy(lay.prev_row).to(device), lay.ny)
+                         torch.from_numpy(lay.prev_row).to(device), lay.ny,
+                         torch.from_numpy(lay.prev_slot).to(device))
         with _cache_lock:
             if len(_layouts) >= 64:
                 _layouts.clear()
@@ -241,16 +249,24 @@ def _block_bits(s) -> Tuple[torch.Tensor, torch.Tensor]:
     return bits.to(torch.int32), contrib
 
 
+class BlockStats(NamedTuple):
+    """What K3a computes: (B, NT) int32 bits per block in slot order under
+    the tables given and (B, 544) int32 histograms (DC [luma, chroma]
+    × 16, then AC × 256), each None unless asked for, and (B,) int64
+    scan bits per image, the sum of the block bits."""
+
+    bits: Optional[torch.Tensor]
+    hist: Optional[torch.Tensor]
+    totals: torch.Tensor
+
+
 def block_stats_plain(packed: torch.Tensor, lay: ScanLayout,
-                      tables: torch.Tensor, want_bits: bool = True,
-                      want_hist: bool = True
-                      ) -> Tuple[Optional[torch.Tensor],
-                                 Optional[torch.Tensor]]:
-    """K3a's function: ((B, NT) int32 bits per block in slot order under
-    `tables`, (B, 544) int32 histograms: DC [luma, chroma] × 16, then AC
-    × 256), each None unless asked for."""
+                      tables: torch.Tensor, want_bits: bool = False,
+                      want_hist: bool = False) -> BlockStats:
+    """K3a's function (see BlockStats)."""
     s = _symbols(packed, lay, tables)
-    bits = _block_bits(s)[0] if want_bits else None
+    bits = _block_bits(s)[0]
+    totals = bits.sum(dim=1, dtype=torch.int64)
     hist = None
     if want_hist:
         bsz, nt = s["s_dc"].shape
@@ -269,19 +285,23 @@ def block_stats_plain(packed: torch.Tensor, lay: ScanLayout,
         acc.index_add_(0, (ac_base + EOB).reshape(-1),
                        s["eob"].to(torch.int64).reshape(-1))
         hist = acc.reshape(bsz, HIST).to(torch.int32)
-    return bits, hist
+    return BlockStats(bits if want_bits else None, hist, totals)
 
 
 def deposit_plain(packed: torch.Tensor, lay: ScanLayout,
-                  tables: torch.Tensor, block_off: torch.Tensor,
-                  word_base: torch.Tensor) -> torch.Tensor:
-    """K3b's function: the scan words of every image.  block_off (B, NT)
-    int64 exclusive bit offsets within each image in slot order;
-    word_base (B+1,) int64.  Returns (word_base[-1] + 1,) int32: the
-    words, then a flag that is 1 when some field fell outside its
-    image's words (the bit counts and the offsets disagree)."""
+                  tables: torch.Tensor, word_base: torch.Tensor,
+                  block_off: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3b's function: the scan words of every image.  word_base (B+1,)
+    int64; a block starts at the exclusive sum of the bits of its
+    image's blocks before it in slot order, as K3b finds it, unless
+    block_off (B, NT) int64 gives the offsets.  Returns
+    (word_base[-1] + 1,) int32: the words, then a flag that is 1 when
+    some field fell outside its image's words (the bit counts and the
+    word counts disagree)."""
     s = _symbols(packed, lay, tables)
     bits, contrib = _block_bits(s)
+    if block_off is None:
+        block_off = torch.cumsum(bits, dim=1, dtype=torch.int64) - bits
     dev = packed.device
     n_words = int(word_base[-1])
     start = word_base[:-1, None] * 32 + block_off  # (B, NT) global bits

@@ -2,23 +2,29 @@
 two wrappers.
 
 Replaces the XLA programs of fennec_tpu/ops/jpeg_emit.py
-(scan_symbol_hist_device :306, emit_scan_device :587).  At first use on
-a CUDA tensor the source is compiled with nvcc for sm_90a into
-fennec_tpu_torch/_build/ and loaded with ctypes, as K1 is
+(scan_symbol_hist_device :306, emit_scan_device :587) and, through
+K3a's per-image totals, the size oracle's bit count
+(fennec_tpu/ops/jpeg_size.py component_scan_bits :102, scan_bits_device
+:138).  At first use on a CUDA tensor the source is compiled with nvcc
+for sm_90a into fennec_tpu_torch/_build/ and loaded with ctypes, as K1 is
 (ops/ssim_cuda.py).  Two entry points, each with its wrapper and its
 launch count:
 
-  block_stats (K3a)  bits per block under given tables, and the
-                     per-image symbol histograms;
-  deposit (K3b)      the scan words at exclusive bit offsets (a torch
-                     cumsum of K3a's bits, taken between the launches).
+  block_stats (K3a)  the scan's bits per image under given tables and,
+                     when asked for, the per-image symbol histograms and
+                     the bits of every block; `oracle_stats` is the same
+                     kernel under a count of its own, for the size
+                     oracle's launches;
+  deposit (K3b)      the scan words; it finds its blocks' bit offsets
+                     itself.
 
 A CPU tensor goes to the plain version in ops/jpeg_emit.py; a CUDA tensor
-launches the kernel or raises.  Each call allocates its outputs with
-torch.empty on the blocks' device and launches on the current stream
+launches the kernel or raises.  Each call allocates what it writes with
+one torch.empty on the blocks' device and launches on the current stream
 without synchronising; the C entry points zero what they accumulate into
 on that stream, so calls from several threads and streams share
-nothing.
+nothing.  Calling a wrapper checks its inputs; its `launch` method does
+not, for a flow that has run check_inputs once for all its launches.
 """
 
 from __future__ import annotations
@@ -26,13 +32,14 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
 from .jpeg_emit import (
     HIST,
     TABLE,
+    BlockStats,
     ScanLayout,
     block_stats_plain,
     deposit_plain,
@@ -45,7 +52,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 _SO = os.path.join(BUILD_DIR, "libjpeg_emit.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-MAX_IMAGES = 65535  # grid.y
+MAX_BLOCKS = 1 << 31
 
 
 class EmitLibrary:
@@ -56,6 +63,7 @@ class EmitLibrary:
         self.source = source
         self.library = library
         self.build_log = ""
+        self.segment_blocks = 0  # slots per look-back segment of K3b
         self._lib = None
         self._lock = threading.Lock()
 
@@ -72,12 +80,17 @@ class EmitLibrary:
                 p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
                 lib.fennec_jpeg_emit_error_string.restype = ctypes.c_char_p
                 lib.fennec_jpeg_emit_error_string.argtypes = [i]
+                lib.fennec_jpeg_segment_blocks.restype = i
+                lib.fennec_jpeg_segment_blocks.argtypes = []
+                lib.fennec_jpeg_resident_ctas.restype = i
+                lib.fennec_jpeg_resident_ctas.argtypes = [i]
                 lib.fennec_jpeg_block_stats.restype = i
                 lib.fennec_jpeg_block_stats.argtypes = [
-                    p, i, i, p, p, i, p, i, p, p, p]
+                    p, i, i, p, p, p, i, p, i, p, i, p, p]
                 lib.fennec_jpeg_deposit.restype = i
                 lib.fennec_jpeg_deposit.argtypes = [
-                    p, i, i, p, p, i, p, i, p, p, p, ll, p]
+                    p, i, i, p, p, p, i, p, i, p, p, ll, ll, p]
+                self.segment_blocks = lib.fennec_jpeg_segment_blocks()
                 self._lib = lib
             return self._lib
 
@@ -111,8 +124,9 @@ def _stream(dev: torch.device) -> int:
 def check_inputs(packed: torch.Tensor, lay: ScanLayout,
                  tables: torch.Tensor) -> None:
     """Raise unless packed is (B, NT, 64) int16 contiguous (16-byte
-    aligned, 1 <= B <= 65535), the layout's arrays are (NT,) int32 and
-    tables (1 or B, 2, 272) int32, all contiguous on packed's device."""
+    aligned, B >= 1, fewer than 2^31 blocks), the layout's arrays are
+    (NT,) int32 and tables (1 or B, 2, 272) int32, all contiguous on
+    packed's device."""
     if not isinstance(packed, torch.Tensor) or packed.dtype != torch.int16:
         raise TypeError(f"fennec: K3 takes int16 blocks, got "
                         f"{getattr(packed, 'dtype', type(packed))}")
@@ -120,26 +134,56 @@ def check_inputs(packed: torch.Tensor, lay: ScanLayout,
         raise ValueError(f"fennec: K3 takes (B, NT, 64) blocks, got "
                          f"{tuple(packed.shape)}")
     bsz, nt = packed.shape[:2]
-    if not 1 <= bsz <= MAX_IMAGES or nt < 1:
-        raise ValueError(f"fennec: K3 batch must be 1..{MAX_IMAGES} images "
-                         f"of >= 1 block, got {tuple(packed.shape)}")
+    if bsz < 1 or nt < 1 or bsz * nt >= MAX_BLOCKS:
+        raise ValueError(f"fennec: K3 takes >= 1 image of >= 1 block and "
+                         f"fewer than 2^31 blocks, got "
+                         f"{tuple(packed.shape)}")
     if not packed.is_contiguous() or packed.data_ptr() % 16:
         raise ValueError("fennec: K3 takes contiguous, 16-byte aligned "
                          "blocks")
-    for name, t, shape in (("slot_row", lay.slot_row, (nt,)),
-                           ("prev_row", lay.prev_row, (nt,))):
-        if (t.dtype != torch.int32 or tuple(t.shape) != shape
-                or not t.is_contiguous() or t.device != packed.device):
-            raise ValueError(f"fennec: K3 layout {name} must be {shape} "
+    for name, t in (("slot_row", lay.slot_row), ("prev_row", lay.prev_row),
+                    ("prev_slot", lay.prev_slot)):
+        if (not isinstance(t, torch.Tensor) or t.dtype != torch.int32
+                or tuple(t.shape) != (nt,) or not t.is_contiguous()
+                or t.device != packed.device):
+            raise ValueError(f"fennec: K3 layout {name} must be ({nt},) "
                              f"int32 on {packed.device}")
-    if (tables.dtype != torch.int32 or tables.dim() != 3
-            or tables.shape[0] not in (1, bsz)
+    check_tables(tables, bsz, packed.device)
+
+
+def check_tables(tables: torch.Tensor, bsz: int,
+                 device: torch.device) -> None:
+    """Raise unless tables is (1 or bsz, 2, 272) int32 contiguous on
+    `device`."""
+    if (not isinstance(tables, torch.Tensor) or tables.dtype != torch.int32
+            or tables.dim() != 3 or tables.shape[0] not in (1, bsz)
             or tuple(tables.shape[1:]) != (2, TABLE)
-            or not tables.is_contiguous()
-            or tables.device != packed.device):
+            or not tables.is_contiguous() or tables.device != device):
         raise ValueError(f"fennec: K3 tables must be (1 or {bsz}, 2, "
-                         f"{TABLE}) int32 on {packed.device}, got "
-                         f"{tuple(tables.shape)} {tables.dtype}")
+                         f"{TABLE}) int32 on {device}, got "
+                         f"{tuple(getattr(tables, 'shape', ()))} "
+                         f"{getattr(tables, 'dtype', type(tables))}")
+
+
+def check_word_base(word_base: Optional[torch.Tensor], n_words: int,
+                    bsz: int, device: torch.device) -> None:
+    """Raise unless n_words is an int >= 0 and word_base is (bsz + 1,)
+    int64 contiguous on `device`, or None for a single image that owns
+    all n_words."""
+    if not isinstance(n_words, int) or n_words < 0:
+        raise ValueError(f"fennec: K3b takes n_words >= 0 as an int, got "
+                         f"{n_words!r}")
+    if word_base is None:
+        if bsz != 1:
+            raise ValueError(f"fennec: K3b needs the word bases of a batch "
+                             f"of {bsz} images")
+        return
+    if (not isinstance(word_base, torch.Tensor)
+            or word_base.dtype != torch.int64
+            or tuple(word_base.shape) != (bsz + 1,)
+            or not word_base.is_contiguous() or word_base.device != device):
+        raise ValueError(f"fennec: K3b takes ({bsz + 1},) int64 word bases "
+                         f"on {device}")
 
 
 def _on_card(dev: torch.device) -> bool:
@@ -151,80 +195,95 @@ def _on_card(dev: torch.device) -> bool:
 
 
 class BlockStatsKernel(_Counted):
-    """K3a: ((B, NT) int32 bits per block under `tables`, (B, 544) int32
-    histograms), each None unless asked for."""
+    """K3a: a BlockStats of (B, NT, 64) int16 blocks under `tables`: the
+    (B,) int64 scan bits per image always, the block bits and the
+    histograms when asked for."""
 
     def __call__(self, packed: torch.Tensor, lay: ScanLayout,
-                 tables: torch.Tensor, want_bits: bool = True,
-                 want_hist: bool = True
-                 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+                 tables: torch.Tensor, want_bits: bool = False,
+                 want_hist: bool = False) -> BlockStats:
         check_inputs(packed, lay, tables)
-        if not _on_card(packed.device):
+        return self.launch(packed, lay, tables, want_bits, want_hist)
+
+    def launch(self, packed: torch.Tensor, lay: ScanLayout,
+               tables: torch.Tensor, want_bits: bool = False,
+               want_hist: bool = False) -> BlockStats:
+        """The call without its checks (check_inputs has passed)."""
+        dev = packed.device
+        if not _on_card(dev):
             return block_stats_plain(packed, lay, tables, want_bits,
                                      want_hist)
-        dev = packed.device
         if dev.index != torch.cuda.current_device():
             with torch.cuda.device(dev):
-                return self(packed, lay, tables, want_bits, want_hist)
+                return self.launch(packed, lay, tables, want_bits,
+                                   want_hist)
         lib = library.load()
         bsz, nt = packed.shape[:2]
-        bits = (torch.empty((bsz, nt), dtype=torch.int32, device=dev)
-                if want_bits else None)
-        hist = (torch.empty((bsz, HIST), dtype=torch.int32, device=dev)
-                if want_hist else None)
+        # One buffer: the totals (int64), the histograms, the block bits.
+        n_hist = bsz * HIST if want_hist else 0
+        out = torch.empty(2 * bsz + n_hist + (bsz * nt if want_bits else 0),
+                          dtype=torch.int32, device=dev)
+        bits = (out[2 * bsz + n_hist:].view(bsz, nt) if want_bits else None)
         err = lib.fennec_jpeg_block_stats(
             packed.data_ptr(), bsz, nt, lay.slot_row.data_ptr(),
-            lay.prev_row.data_ptr(), lay.ny, tables.data_ptr(),
-            0 if tables.shape[0] == 1 else 2 * TABLE,
-            None if bits is None else bits.data_ptr(),
-            None if hist is None else hist.data_ptr(), _stream(dev))
+            lay.prev_row.data_ptr(), lay.prev_slot.data_ptr(), lay.ny,
+            tables.data_ptr(), 0 if tables.shape[0] == 1 else 2 * TABLE,
+            out.data_ptr(), int(want_hist),
+            None if bits is None else bits.data_ptr(), _stream(dev))
         library.check(err, "K3a")
         self.count_launch()
-        return bits, hist
+        hist = (out[2 * bsz:2 * bsz + n_hist].view(bsz, HIST)
+                if want_hist else None)
+        return BlockStats(bits, hist, out[:2 * bsz].view(torch.int64))
 
 
 class DepositKernel(_Counted):
-    """K3b: (word_base[-1] + 1,) int32 — every image's scan words (image
-    b owns [word_base[b], word_base[b+1])), then a flag word, nonzero
-    when some block's bits fell outside its image's words."""
+    """K3b: (n_words + 1,) int32 — every image's scan words (image b owns
+    [word_base[b], word_base[b+1]); a single image may pass None and
+    owns all n_words), then a flag word, nonzero when some block's bits
+    fell outside its image's words."""
 
     def __call__(self, packed: torch.Tensor, lay: ScanLayout,
-                 tables: torch.Tensor, block_off: torch.Tensor,
-                 word_base: torch.Tensor, n_words: int) -> torch.Tensor:
+                 tables: torch.Tensor, word_base: Optional[torch.Tensor],
+                 n_words: int) -> torch.Tensor:
         """n_words = word_base[-1], known to the caller on the host."""
         check_inputs(packed, lay, tables)
-        bsz, nt = packed.shape[:2]
-        if (block_off.dtype != torch.int64
-                or tuple(block_off.shape) != (bsz, nt)
-                or not block_off.is_contiguous()
-                or word_base.dtype != torch.int64
-                or tuple(word_base.shape) != (bsz + 1,)
-                or not word_base.is_contiguous()
-                or block_off.device != packed.device
-                or word_base.device != packed.device):
-            raise ValueError(f"fennec: K3b takes ({bsz}, {nt}) int64 block "
-                             f"offsets and ({bsz + 1},) int64 word bases "
-                             f"on {packed.device}")
-        if not _on_card(packed.device):
-            return deposit_plain(packed, lay, tables, block_off, word_base)
+        check_word_base(word_base, n_words, packed.shape[0], packed.device)
+        return self.launch(packed, lay, tables, word_base, n_words)
+
+    def launch(self, packed: torch.Tensor, lay: ScanLayout,
+               tables: torch.Tensor, word_base: Optional[torch.Tensor],
+               n_words: int) -> torch.Tensor:
+        """The call without its checks (check_inputs and check_word_base
+        have passed)."""
         dev = packed.device
+        if not _on_card(dev):
+            if word_base is None:
+                word_base = torch.tensor([0, n_words], dtype=torch.int64)
+            return deposit_plain(packed, lay, tables, word_base)
         if dev.index != torch.cuda.current_device():
             with torch.cuda.device(dev):
-                return self(packed, lay, tables, block_off, word_base,
-                            n_words)
+                return self.launch(packed, lay, tables, word_base, n_words)
         lib = library.load()
-        words = torch.empty(n_words + 1, dtype=torch.int32, device=dev)
+        bsz, nt = packed.shape[:2]
+        # One buffer: the words, the flag word, then the kernel's ticket
+        # and a 64-bit status word per look-back segment, 8-byte aligned.
+        segments = bsz * (-(-nt // library.segment_blocks))
+        size = ((n_words + 2) & ~1) + 2 + 2 * segments
+        buf = torch.empty(size, dtype=torch.int32, device=dev)
         err = lib.fennec_jpeg_deposit(
             packed.data_ptr(), bsz, nt, lay.slot_row.data_ptr(),
-            lay.prev_row.data_ptr(), lay.ny, tables.data_ptr(),
-            0 if tables.shape[0] == 1 else 2 * TABLE,
-            block_off.data_ptr(), word_base.data_ptr(), words.data_ptr(),
-            n_words, _stream(dev))
+            lay.prev_row.data_ptr(), lay.prev_slot.data_ptr(), lay.ny,
+            tables.data_ptr(), 0 if tables.shape[0] == 1 else 2 * TABLE,
+            None if word_base is None else word_base.data_ptr(),
+            buf.data_ptr(), n_words, size, _stream(dev))
         library.check(err, "K3b")
         self.count_launch()
-        return words
+        return buf[:n_words + 1]
 
 
-# The instances the engines launch and chip_smoke.py counts.
+# The instances the engines launch and chip_smoke.py counts: emission's,
+# and the size oracle's K3a (engine/size_search.py), counted apart.
 block_stats = BlockStatsKernel()
+oracle_stats = BlockStatsKernel()
 deposit = DepositKernel()

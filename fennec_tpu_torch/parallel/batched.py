@@ -14,9 +14,10 @@ Device Huffman emission (packed_hist_bits :238, batched_emit_std :458,
 batched_emit_custom :1101, pull_emit_words :1074) over (B, NT, 64) int16
 quantized blocks resident on the device, through kernel K3
 (ops/jpeg_emit_cuda.py) on a CUDA device and its plain version on the
-CPU.  emit_scans runs the whole flow with two pulls: one small one (the
-histograms for optimal tables, or the bit count per image for the
-standard ones) and one of exactly ceil(bits / 32) words per image.
+CPU.  emit_scans runs the whole flow with two launches and two pulls:
+K3a and one small pull (the histograms for optimal tables, or the bit
+count per image for the standard ones), then K3b, which finds its own
+bit offsets, and one pull of exactly ceil(bits / 32) words per image.
 
 The JAX package's sparse upload layouts (COO, CSR, dense int8 with an
 exception list, :542-807) exist to cut uploads over a ~42 MB/s link to a
@@ -42,7 +43,13 @@ from ..ops.jpeg_emit import (
     layout_on,
     std_tables_on,
 )
-from ..ops.jpeg_emit_cuda import block_stats, deposit
+from ..ops.jpeg_emit_cuda import (
+    block_stats,
+    check_inputs,
+    check_tables,
+    check_word_base,
+    deposit,
+)
 from ..ops.jpeg_size import bits_std_from_hist
 from ..ops.resize import lanczos_resize_device
 from ..ops.ssim import WINDOW_SIZE, ssim_fast_images
@@ -97,6 +104,15 @@ def _padded(h: int, w: int, subsample: bool):
     return h + (-h) % mult, w + (-w) % mult
 
 
+def _checked_layout(packed: torch.Tensor, h: int, w: int, subsample: bool,
+                    tables: torch.Tensor):
+    """The geometry's scan layout on the blocks' device, after the one
+    check_inputs of an emission."""
+    lay = layout_on(*_padded(h, w, subsample), subsample, packed.device)
+    check_inputs(packed, lay, tables)
+    return lay
+
+
 def packed_hist_bits(packed: torch.Tensor, h: int, w: int,
                      subsample: bool) -> torch.Tensor:
     """Symbol histograms and the exact standard-table bit count of
@@ -104,11 +120,10 @@ def packed_hist_bits(packed: torch.Tensor, h: int, w: int,
     Returns (B, 545) int64 on their device, JAX :238's columns: 0 the
     standard-table bits, 1:33 the DC histograms (2, 16), 33:545 the AC
     histograms (2, 256)."""
-    dev = packed.device
-    lay = layout_on(*_padded(h, w, subsample), subsample, dev)
-    _, hist = block_stats(packed, lay, std_tables_on(dev), want_bits=False,
-                          want_hist=True)
-    hist = hist.to(torch.int64)
+    tables = std_tables_on(packed.device)
+    lay = _checked_layout(packed, h, w, subsample, tables)
+    hist = block_stats.launch(packed, lay, tables,
+                              want_hist=True).hist.to(torch.int64)
     bsz = packed.shape[0]
     bits = bits_std_from_hist(hist[:, :32].reshape(bsz, 2, 16),
                               hist[:, 32:].reshape(bsz, 2, 256))
@@ -124,44 +139,55 @@ class DeviceScans(NamedTuple):
     base: np.ndarray
 
 
-def _deposit(packed: torch.Tensor, lay, tables: torch.Tensor,
-             block_bits: torch.Tensor, totals: np.ndarray) -> DeviceScans:
-    """The exclusive scan of the block bits and one K3b launch into a
-    buffer of exactly ceil(bits / 32) words per image."""
-    totals = np.asarray(totals, dtype=np.int64)
+def _word_base(totals: np.ndarray) -> np.ndarray:
+    """(B + 1,) int64 first word of each image's ceil(bits / 32) words."""
     base = np.zeros(totals.size + 1, dtype=np.int64)
     np.cumsum((totals + 31) // 32, out=base[1:])
-    off = torch.cumsum(block_bits, dim=1, dtype=torch.int64) - block_bits
-    word_base = torch.from_numpy(base).to(packed.device)
-    words = deposit(packed, lay, tables, off, word_base, int(base[-1]))
+    return base
+
+
+def emit_std(packed: torch.Tensor, lay) -> DeviceScans:
+    """Emit with the Annex-K tables (JAX batched_emit_std, :458): K3a for
+    the bits per image, a pull of that one count per image, K3b.  `lay`
+    is the geometry's layout, the blocks checked with it."""
+    dev = packed.device
+    tables = std_tables_on(dev)
+    totals = block_stats.launch(packed, lay, tables).totals.cpu().numpy()
+    base = _word_base(totals)
+    # One image owns the whole buffer; a batch's bases go up.
+    word_base = (None if totals.size == 1
+                 else torch.from_numpy(base).to(dev))
+    n_words = int(base[-1])
+    check_word_base(word_base, n_words, totals.size, dev)
+    words = deposit.launch(packed, lay, tables, word_base, n_words)
     return DeviceScans(words, totals, base)
 
 
-def emit_std(packed: torch.Tensor, h: int, w: int,
-             subsample: bool) -> DeviceScans:
-    """Emit with the Annex-K tables (JAX batched_emit_std, :458): K3a for
-    the block bits, a pull of one bit count per image, K3b."""
-    dev = packed.device
-    lay = layout_on(*_padded(h, w, subsample), subsample, dev)
-    tables = std_tables_on(dev)
-    bits, _ = block_stats(packed, lay, tables, want_bits=True,
-                          want_hist=False)
-    totals = bits.sum(dim=1, dtype=torch.int64).cpu().numpy()
-    return _deposit(packed, lay, tables, bits, totals)
-
-
-def emit_custom(packed: torch.Tensor, tables: torch.Tensor,
-                totals: np.ndarray, h: int, w: int,
-                subsample: bool) -> DeviceScans:
+def emit_custom(packed: torch.Tensor, lay, tables: np.ndarray,
+                totals: np.ndarray) -> DeviceScans:
     """Emit with per-image tables (JAX batched_emit_custom, :1101):
-    tables (B, 2, 272) int32 packed (code << 5 | length) on the blocks'
-    device, totals (B,) the scans' bits under them, known on the host
-    from the histograms (hist_bits).  K3a for the block bits, then K3b;
-    no pull."""
-    lay = layout_on(*_padded(h, w, subsample), subsample, packed.device)
-    bits, _ = block_stats(packed, lay, tables, want_bits=True,
-                          want_hist=False)
-    return _deposit(packed, lay, tables, bits, totals)
+    tables (B, 2, 272) int32 packed (code << 5 | length) on the host,
+    totals (B,) the scans' bits under them, known on the host from the
+    histograms (hist_bits).  One upload (the tables, and a batch's word
+    bases behind them) and one K3b launch; no pull.  `lay` is the
+    geometry's layout, the blocks checked with it."""
+    dev = packed.device
+    totals = np.asarray(totals, dtype=np.int64)
+    bsz = totals.size
+    base = _word_base(totals)
+    tables = np.ascontiguousarray(tables, dtype=np.int32)
+    n_tab = tables.size
+    up = np.empty(n_tab + (0 if bsz == 1 else 2 * base.size), dtype=np.int32)
+    up[:n_tab] = tables.reshape(-1)
+    up[n_tab:].view(np.int64)[:] = base[:(up.size - n_tab) // 2]
+    up_dev = torch.from_numpy(up).to(dev)
+    tables_dev = up_dev[:n_tab].view(tables.shape)
+    word_base = None if bsz == 1 else up_dev[n_tab:].view(torch.int64)
+    check_tables(tables_dev, packed.shape[0], dev)
+    n_words = int(base[-1])
+    check_word_base(word_base, n_words, packed.shape[0], dev)
+    words = deposit.launch(packed, lay, tables_dev, word_base, n_words)
+    return DeviceScans(words, totals, base)
 
 
 def pull_emit_words(scans: DeviceScans) -> np.ndarray:
@@ -250,20 +276,23 @@ def emit_scans(packed: torch.Tensor, h: int, w: int, subsample: bool,
     """Huffman-code B quantized h×w images (B, NT, 64) int16 on their
     device, with per-image optimal tables or the standard ones: the
     two-stage flow of the JAX engines (engine/batched.py:2054-2160).
-    Optimal: K3a's histograms come down (B × 545 values), the K.2 tables
-    are built on the host in one C call, then K3a and K3b emit with
-    them, the buffer sized from the histograms' exact bit count.
+    Optimal: K3a's histograms come down (B × 544 values), the K.2 tables
+    are built on the host in one C call, then K3b emits with them, the
+    buffer sized from the histograms' exact bit count: two launches.
     Standard: K3a, one bit count per image down, K3b.  Then one pull of
     the words."""
+    std = std_tables_on(packed.device)
+    lay = _checked_layout(packed, h, w, subsample, std)
     if optimize:
-        hb = packed_hist_bits(packed, h, w, subsample).cpu().numpy()
-        dcf = hb[:, 1:33].reshape(-1, 2, 16)
-        acf = hb[:, 33:].reshape(-1, 2, 256)
+        hist = block_stats.launch(packed, lay, std,
+                                  want_hist=True).hist.cpu().numpy()
+        dcf = hist[:, :32].reshape(-1, 2, 16).astype(np.int64)
+        acf = hist[:, 32:].reshape(-1, 2, 256).astype(np.int64)
         specs, tables, errors = _optimal_tables(dcf, acf)
-        dev_scans = emit_custom(packed, torch.from_numpy(tables).to(
-            packed.device), hist_bits(dcf, acf, tables), h, w, subsample)
+        dev_scans = emit_custom(packed, lay, tables,
+                                hist_bits(dcf, acf, tables))
     else:
         specs, errors = None, {}
-        dev_scans = emit_std(packed, h, w, subsample)
+        dev_scans = emit_std(packed, lay)
     return HostScans(pull_emit_words(dev_scans), dev_scans.bits,
                      dev_scans.base, specs, errors)

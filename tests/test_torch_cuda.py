@@ -255,36 +255,69 @@ def k3_blocks(h, w, subsample, bsz, seed):
     return torch.from_numpy(blocks.astype(np.int16)), ny, nc
 
 
-@pytest.mark.parametrize("h,w,sub,bsz", [(1, 1, True, 1), (9, 17, True, 3),
-                                         (9, 17, False, 2),
-                                         (400, 600, True, 2),
-                                         (1080, 1920, False, 1),
-                                         (3024, 4032, True, 1)])
-def test_k3_matches_plain(cuda_device, h, w, sub, bsz):
+def k3_seam_blocks(kind, bsz, nt, seed):
+    """Blocks that cross K3's seams: "zero" (EOB only), "runs" (zero runs
+    of 16 to 62: one to three ZRLs), "dense" (every coefficient nonzero:
+    a segment too long for K3b's shared word buffer)."""
+    rng = np.random.default_rng(seed)
+    blocks = np.zeros((bsz, nt, 64), np.int64)
+    if kind == "zero":
+        blocks[:, 0, 0] = 37
+    elif kind == "runs":
+        for k, nat in enumerate((24, 33, 12, 46, 62, 63)):
+            blocks[:, k::6, nat] = rng.integers(1, 900, (bsz, 1))
+        blocks[:, 3::6, 63] = -1
+        blocks[:, :, 0] = rng.integers(-1000, 1000, (bsz, nt))
+    else:
+        blocks = rng.integers(200, 1000, (bsz, nt, 64)) * rng.choice(
+            [-1, 1], (bsz, nt, 64))
+    return torch.from_numpy(blocks.astype(np.int16))
+
+
+# Geometries: one MCU, odd sides, fewer slots than a segment of 128, one
+# more than a segment (8x344 in 4:4:4 is 129 slots), 1080p and 12 MP.
+@pytest.mark.parametrize("h,w,sub,bsz,kind", [
+    (1, 1, True, 1, "sparse"), (9, 17, True, 3, "sparse"),
+    (9, 17, False, 2, "sparse"), (400, 600, True, 2, "sparse"),
+    (8, 344, False, 1, "sparse"), (16, 368, True, 5, "sparse"),
+    (176, 208, True, 3, "zero"), (176, 208, True, 2, "runs"),
+    (88, 120, False, 2, "runs"), (80, 96, True, 64, "sparse"),
+    (128, 128, True, 2, "dense"), (1080, 1920, False, 1, "sparse"),
+    (3024, 4032, True, 1, "sparse")])
+def test_k3_matches_plain(cuda_device, h, w, sub, bsz, kind):
     from fennec_tpu_torch.codecs.jpeg import encode_quantized
     from fennec_tpu_torch.ops import jpeg_emit, jpeg_emit_cuda as k3
     from fennec_tpu_torch.parallel.batched import emit_scans
 
     host, ny, nc = k3_blocks(h, w, sub, bsz, h + w)
+    if kind != "sparse":
+        host = k3_seam_blocks(kind, bsz, ny + 2 * nc, h + w)
     packed = host.to(cuda_device)
     mult = 16 if sub else 8
     lay = jpeg_emit.layout_on(h + (-h) % mult, w + (-w) % mult, sub,
                               cuda_device)
     tables = jpeg_emit.std_tables_on(cuda_device)
     before = (k3.block_stats.launches, k3.deposit.launches)
-    bits, hist = k3.block_stats(packed, lay, tables)
-    want_bits, want_hist = jpeg_emit.block_stats_plain(packed, lay, tables)
-    off = torch.cumsum(bits, 1, dtype=torch.int64) - bits
-    totals = bits.sum(1, dtype=torch.int64).cpu()
+    got = k3.block_stats(packed, lay, tables, True, True)
+    lean = k3.block_stats(packed, lay, tables)
+    want = jpeg_emit.block_stats_plain(packed, lay, tables, True, True)
+    totals = want.totals.cpu()
     base = torch.cat([torch.zeros(1, dtype=torch.int64),
                       torch.cumsum((totals + 31) // 32, 0)]).to(cuda_device)
-    words = k3.deposit(packed, lay, tables, off, base, int(base[-1]))
-    want_words = jpeg_emit.deposit_plain(packed, lay, tables, off, base)
+    words = k3.deposit(packed, lay, tables, base, int(base[-1]))
+    want_words = jpeg_emit.deposit_plain(packed, lay, tables, base)
     torch.cuda.synchronize()
     assert (k3.block_stats.launches, k3.deposit.launches) == (
-        before[0] + 1, before[1] + 1)
-    assert torch.equal(bits, want_bits) and torch.equal(hist, want_hist)
+        before[0] + 2, before[1] + 1)
+    assert torch.equal(got.bits, want.bits)
+    assert torch.equal(got.hist, want.hist)
+    assert torch.equal(got.totals, want.totals)
+    assert torch.equal(lean.totals, want.totals)
+    assert lean.bits is None and lean.hist is None
     assert torch.equal(words, want_words) and int(words[-1]) == 0
+    if bsz == 1:  # one image may leave its word bases out
+        assert torch.equal(k3.deposit(packed, lay, tables, None,
+                                      int(base[-1])), want_words)
     for optimize in (False, True):
         scans = emit_scans(packed, h, w, sub, optimize)
         for j in range(bsz):
@@ -292,6 +325,94 @@ def test_k3_matches_plain(cuda_device, h, w, sub, bsz):
             assert scans.jpeg(j, w, h, 50, sub) == encode_quantized(
                 blk[:ny], blk[ny:ny + nc], blk[ny + nc:], w, h, 50, sub,
                 optimize)
+
+
+def test_k3_image_ending_on_a_word(cuda_device):
+    """Images whose scans end exactly on a 32-bit word, alone and in a
+    batch: no word past the image's own is touched."""
+    from fennec_tpu_torch.ops import jpeg_emit, jpeg_emit_cuda as k3
+
+    many, _ny, _nc = k3_blocks(16, 32, True, 256, 11)
+    lay = jpeg_emit.layout_on(16, 32, True, cuda_device)
+    tables = jpeg_emit.std_tables_on(cuda_device)
+    totals = k3.block_stats(many.to(cuda_device), lay, tables).totals.cpu()
+    on_word = torch.nonzero(totals % 32 == 0)[:, 0]
+    assert on_word.numel() > 0
+    picked = many[on_word].contiguous().to(cuda_device)
+    for blocks in (picked[:1].contiguous(), picked):
+        n = blocks.shape[0]
+        base = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(
+            totals[on_word[:n]] // 32, 0)]).to(cuda_device)
+        words = k3.deposit(blocks, lay, tables, base, int(base[-1]))
+        assert torch.equal(words, jpeg_emit.deposit_plain(blocks, lay,
+                                                          tables, base))
+        assert int(words[-1]) == 0
+
+
+def test_k3_optimal_emission_is_two_launches(cuda_device, monkeypatch):
+    """emit_scans launches K3a once and K3b once on either route, and
+    takes no torch.cumsum between them."""
+    from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
+    from fennec_tpu_torch.parallel.batched import emit_scans
+
+    packed = k3_blocks(500, 500, True, 8, 5)[0].to(cuda_device)
+
+    def refuse(*args, **kw):
+        raise AssertionError("emit_scans took a cumsum on the device")
+
+    monkeypatch.setattr(torch, "cumsum", refuse)
+    for optimize in (False, True):
+        before = (k3.block_stats.launches, k3.deposit.launches)
+        emit_scans(packed, 500, 500, True, optimize)
+        assert (k3.block_stats.launches, k3.deposit.launches) == (
+            before[0] + 1, before[1] + 1)
+
+
+def test_size_oracle_on_card_runs_through_k3a(cuda_device, monkeypatch):
+    """scan_bytes_at and size_bisect on CUDA tensors equal the CPU's
+    (plain scan_bits) on the oracle's cases, launch K3a under the
+    oracle's own count, and never take the plain version."""
+    from fennec_tpu_torch.codecs.jpeg import forward_dct
+    from fennec_tpu_torch.engine import size_search
+    from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
+
+    cases = []
+    for sub in (True, False):
+        imgs = np.stack([photo(96, 80, s) for s in range(4)])
+        x = torch.from_numpy(imgs).to(torch.float32)
+        mult = 16 if sub else 8
+        cases.append((forward_dct(x, sub), 80 + (-80) % mult,
+                      96 + (-96) % mult, sub))
+    quals = torch.tensor([1, 40, 75, 100])
+    want = [(size_search.scan_bytes_at(c, quals, ph, pw, sub),
+             size_search.scan_bytes_at([p[2] for p in c], quals[2], ph, pw,
+                                       sub),
+             size_search.size_bisect(c, ph, pw, sub, torch.tensor(
+                 [300, 900, 2500, 99999]), 1, 100))
+            for c, ph, pw, sub in cases]
+
+    def refuse(*args, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(size_search, "scan_bits", refuse)
+    monkeypatch.setattr(k3, "block_stats_plain", refuse)
+    for (c, ph, pw, sub), (w_batch, w_one, w_bisect) in zip(cases, want):
+        c = [p.to(cuda_device) for p in c]
+        before = (k3.oracle_stats.launches, k3.block_stats.launches)
+        got = size_search.scan_bytes_at(c, quals.to(cuda_device), ph, pw,
+                                        sub)
+        one = size_search.scan_bytes_at([p[2] for p in c],
+                                        quals[2].to(cuda_device), ph, pw,
+                                        sub)
+        assert got.cpu().tolist() == w_batch.tolist()
+        assert one.dim() == 0 and int(one) == int(w_one)
+        q, found = size_search.size_bisect(
+            c, ph, pw, sub, torch.tensor([300, 900, 2500, 99999],
+                                         device=cuda_device), 1, 100)
+        assert q.cpu().tolist() == w_bisect[0].tolist()
+        assert found.cpu().tolist() == w_bisect[1].tolist()
+        assert k3.oracle_stats.launches == before[0] + 2 + 7
+        assert k3.block_stats.launches == before[1]
 
 
 def test_k3_never_takes_the_plain_version(cuda_device, monkeypatch):
@@ -308,7 +429,7 @@ def test_k3_never_takes_the_plain_version(cuda_device, monkeypatch):
     img = photo(120, 90, 2)
     on_card = T.compress_image(None, img, T.Options(format=T.JPEG),
                                device=cuda_device)
-    assert k3.block_stats.launches >= before[0] + 2
+    assert k3.block_stats.launches == before[0] + 1
     assert k3.deposit.launches == before[1] + 1
     host = T.compress_image(None, img, T.Options(format=T.JPEG,
                                                  device_entropy=False),

@@ -352,9 +352,10 @@ def test_hist_bits_is_the_scan_bits():
     dcf, acf = hb[:, 1:33].reshape(-1, 2, 16), hb[:, 33:].reshape(-1, 2, 256)
     specs, tables, errors = tpar._optimal_tables(dcf, acf)
     lay = temit.layout_on(ph, pw, True, CPU)
-    bits, _ = block_stats(packed, lay, torch.from_numpy(tables), True, False)
-    assert not errors
-    assert tpar.hist_bits(dcf, acf, tables)[0] == int(bits.sum())
+    stats = block_stats(packed, lay, torch.from_numpy(tables), True, False)
+    assert not errors and stats.hist is None
+    assert tpar.hist_bits(dcf, acf, tables)[0] == int(stats.bits.sum())
+    assert int(stats.totals[0]) == int(stats.bits.sum())
 
 
 def test_code_length_overflow_fails_alone(monkeypatch):
@@ -380,17 +381,14 @@ def test_code_length_overflow_fails_alone(monkeypatch):
 
 
 def test_deposit_flags_words_outside_the_image():
-    """Offsets that disagree with the word counts set the flag word, and
-    pulling the words raises instead of returning a broken scan."""
+    """Word counts that disagree with the blocks' bits set the flag word,
+    and pulling the words raises instead of returning a broken scan."""
     (qy, qcb, qcr), ph, pw = quantized(make_noise_image(32, 16, seed=2), 80)
     packed = stack(qy, qcb, qcr)
     lay = temit.layout_on(ph, pw, True, CPU)
     tables = temit.std_tables_on(CPU)
-    bits, _ = block_stats(packed, lay, tables, True, False)
-    off = torch.cumsum(bits, 1, dtype=torch.int64) - bits
-    short = int(bits.sum()) // 32 - 2
-    words = deposit(packed, lay, tables, off, torch.tensor([0, short]),
-                    short)
+    short = int(block_stats(packed, lay, tables).totals[0]) // 32 - 2
+    words = deposit(packed, lay, tables, torch.tensor([0, short]), short)
     assert int(words[-1]) == 1
     with pytest.raises(RuntimeError, match="outside its words"):
         tpar.pull_emit_words(tpar.DeviceScans(words, np.array([0]),
