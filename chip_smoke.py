@@ -1,19 +1,22 @@
 """Drive the PyTorch port's main paths once on one CUDA card, and check
 them.
 
-    python3 chip_smoke.py [--k3 | --digests]
+    python3 chip_smoke.py [--k2 | --k3 | --digests]
 
-With no argument, every phase below; it needs one card.  --k3 runs
-phases 1, 2 and 11 and the size oracle's check of phase 10 alone (K3
+With no argument, every phase below; it needs one card.  --k2 runs
+phases 1 and 2, K2's part of phase 3 and the size oracle's check of
+phase 10 alone (the two search loops' kernels against their plain
+versions); --k3 runs phases 1, 2 and 11 and the size oracle's check (K3
 against its plain version and, in turns, against the first K3);
 --digests prints digests of a few main-path outputs, to compare two
-checkouts on one card.  Neither prints the result lines.
+checkouts on one card.  None of these prints the result lines.
 
 Phases, each raising on failure:
   1. environment: a CUDA card, its name and power limit, TF32 off;
-  2. build: kernels K1 and K3 (nvcc, sm_90a), the first K3 (kept under
-     bench_sources/ to be timed against) and the host C++ entropy coder,
-     from the sources in this checkout, all four at once;
+  2. build: kernels K1, K2 and K3 with K4's entry (nvcc, sm_90a), the
+     first K3 (kept under bench_sources/ to be timed against) and the
+     host C++ entropy coder, from the sources in this checkout, all five
+     at once;
   3. K1 against its plain PyTorch version on the card, at the shapes the
      main paths give it and beyond, the batch engines' (64, 500, 500)
      included, and at ragged shapes for its strips and bands: max |diff|
@@ -22,7 +25,17 @@ Phases, each raising on failure:
      timed shapes: K1's device time (torch.profiler, its kernel's rows
      only), its CUDA-event time per call (host cost included), its host
      time per call, its bound and share of it, and the plain version's
-     CUDA-event time;
+     CUDA-event time.  Then K2, the fused probe reconstruction, against
+     its plain version probe_luminance_plain at 12 MP 4:2:0 (Q30 and
+     Q90), 1080p in 4:2:0 and 4:4:4, the batch chunk of 64 x 500x500 and
+     T2's 64 x 499x499 lanes at per-image qualities, and ragged
+     geometries (17x9, 1x1, 9x1000, 513x700, 3x600): the luminance equal
+     except where a channel moved by one level (differing pixels counted
+     and attributed: the IDCT's summation order, or the plain version's
+     float32 box mean at an exact k + 1/2), SSIM through K1 within 1e-5
+     of the plain route, two calls bit-identical, the last image alone
+     bit-identical to its luminance in the batch; K2's device time, host
+     time per call, bound and share, and the plain version's time;
   4. the single-image path through the public entry points: compress_file
      on a 12 MP (4032x3024) photo-like JPEG, cold then warm; with
      max_width=1920; compress_bytes on four 1920x1080 requests at ULTRA,
@@ -36,8 +49,13 @@ Phases, each raising on failure:
      keeps the host encoder, as the JAX package's per-image target-size
      engine does, and launches only the size oracle's K3a, which is
      counted apart).  Each accept/reject decision at the boundary (the
-     chosen quality q, and q-1) is re-scored with the plain scorer, and
-     the whole bisection is replayed with it;
+     chosen quality q, and q-1) is re-scored with the plain scorer
+     (probe_luminance_plain and K1's plain version), and the whole
+     bisection is replayed with it, every probe also scored through K2
+     and K1: no accept/reject decision may differ.  Each standard-mode
+     call must launch K2 seven times per image or chunk, counted from 0
+     like K1's and K3's.  Then the stages of the warm 12 MP
+     compress_file, synchronised one by one (median of 5);
   5. a small noisy image through the same entry point on the card and on
      the CPU (plain versions): the same quality and SSIM, and the same
      decision checks;
@@ -75,13 +93,16 @@ Phases, each raising on failure:
      the scaled image's SSIM before encoding, as the reference does,
      reproduced within 1e-4).  Every timed compress_* call of T1-T3
      must launch K1, counted from 0 just before it and read just after,
-     before any check runs, and the size oracle's K3a (K4) at least 7
-     times per bisection.  The size oracle on the card (scan_bytes_at,
-     through K3a) equals its plain version scan_bits on the same CUDA
-     tensors at 12 MP, 1080p, 64 x 500x500 at per-image qualities and
-     1080p 4:4:4; its step is timed beside the plain step and its bound,
-     and the palette map per level at 12 MP.  T1-T3 print a digest of
-     their outputs.
+     before any check runs, and the size oracle's kernel K4 at least 7
+     times per bisection (and never the packed quantize).  The size
+     oracle on the card (scan_bytes_at: one launch of K4, which quantizes
+     the float32 coefficients as it stages them) equals its plain version
+     scan_bits, K4's own plain version and the earlier route (the packed
+     quantize, then K3a's totals) on the same CUDA tensors at 12 MP,
+     1080p, 64 x 500x500 at per-image qualities and 1080p 4:4:4; its
+     step is timed in turns with the earlier route, beside the plain step
+     and its bound, and the palette map per level at 12 MP.  T1-T3 print
+     a digest of their outputs.
  11. K3 against its plain version on the card, at the main path's
      shapes (12 MP and 1080p 4:2:0 at the qualities phase 4 chose, a
      64-image 500x500 chunk, 1080p 4:4:4, ragged 17x9 and 1x1) and at
@@ -106,9 +127,9 @@ Phases, each raising on failure:
      ms_ssim on the card against the CPU within 1e-5, and the effects
      (sharpen, adaptive_sharpen, gaussian_blur) uint8-identical.
 
-The last lines: the kernel table as JSON (K1's, K3a's, K3b's and the
-oracle's K3a launches summed over the main-path runs of phases 4, 6-8
-and 10, each counted from 0),
+The last lines: the kernel table as JSON (K1's, K2's, K3a's, K3b's and
+K4's launches summed over the main-path runs of phases 4, 6-8 and 10,
+each counted from 0),
 the card's name and power limit as nvidia-smi reports them, and {"ok":
 true, "device": {...}}.  Images are made from numpy seeds; nothing is
 fetched.  Without a CUDA card the script fails before printing any
@@ -319,40 +340,57 @@ def host_us(fn, iters: int) -> float:
     return us
 
 
-# K3's launches on the main path (phases 4, 6-8 and 10), each call counted
-# from 0 just before it and read just after: emission's K3a and K3b, and
-# the size oracle's K3a (K4), which the wrapper counts apart.
+# The launches on the main path (phases 4, 6-8 and 10) of K3 (emission's
+# K3a and K3b), of K4 (the size oracle's step) and of K2 (the probe
+# reconstruction), each call counted from 0 just before it and read just
+# after.
 K3_MAIN = {"block_stats": 0, "deposit": 0, "oracle": 0}
+K2_MAIN = {"recon": 0, "finish": 0}
 
 
 def k3_zero() -> None:
+    """Set K2's, K3's and K4's counts to 0."""
     from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
+    from fennec_tpu_torch.ops.probe_recon_cuda import probe_recon
 
     k3.block_stats.launches = 0
     k3.deposit.launches = 0
     k3.oracle_stats.launches = 0
+    k3.quantize_count.launches = 0
+    probe_recon.launches = 0
+    probe_recon.finish_launches = 0
 
 
-def k3_take(tag: str, dev, emissions: int, oracle_steps: int = 0):
-    """K3's launches since k3_zero, added to the main path's totals.  On a
+def k3_take(tag: str, dev, emissions: int, oracle_steps: int = 0,
+            probes: int = 0):
+    """The launches since k3_zero, added to the main path's totals.  On a
     CUDA device every JPEG of the call must have been coded by K3: at
     least `emissions` emissions (one per image or device chunk coded),
-    each one K3a and one K3b launch, and at least `oracle_steps` launches
-    of the size oracle's K3a.  emissions=0: the call keeps the host
-    encoder and must launch neither."""
+    each one K3a and one K3b launch; the size oracle must have launched
+    K4 at least `oracle_steps` times and K3a's totals over packed blocks
+    (the route K4 replaced) never; and K2 must have reconstructed at
+    least `probes` probes.  emissions=0: the call keeps the host encoder
+    and must launch neither K3a nor K3b."""
     from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
+    from fennec_tpu_torch.ops.probe_recon_cuda import probe_recon
 
     a, b = k3.block_stats.launches, k3.deposit.launches
-    o = k3.oracle_stats.launches
+    o = k3.quantize_count.launches
+    p = probe_recon.launches
     K3_MAIN["block_stats"] += a
     K3_MAIN["deposit"] += b
     K3_MAIN["oracle"] += o
+    K2_MAIN["recon"] += p
+    K2_MAIN["finish"] += probe_recon.finish_launches
     if dev.type == "cuda" and (a != b or b < emissions or o < oracle_steps
-                               or (emissions == 0 and b != 0)):
-        raise AssertionError(f"{tag}: K3 launches K3a={a} K3b={b} oracle="
-                             f"{o}, want {emissions} or more emissions of "
-                             f"one K3a and one K3b, and >= {oracle_steps} "
-                             f"oracle steps")
+                               or (emissions == 0 and b != 0)
+                               or k3.oracle_stats.launches or p < probes):
+        raise AssertionError(f"{tag}: launches K3a={a} K3b={b} K4={o} "
+                             f"(K3a over packed blocks as the oracle: "
+                             f"{k3.oracle_stats.launches}) K2={p}, want "
+                             f"{emissions} or more emissions of one K3a and "
+                             f"one K3b, >= {oracle_steps} oracle steps on "
+                             f"K4 alone, and >= {probes} K2 probes")
     return a, b, o
 
 
@@ -406,6 +444,145 @@ def phase_kernel(dev, ssim_window, batched_ssim_plain):
                 f"{t['host_us']:.2f} bound_us={t['bound_ms'] * 1e3:.2f} "
                 f"({t['bound_by']}) share={t['share']:.3f} "
                 f"plain_event_ms={t['plain_ms']:.4f}")
+    return worst, times
+
+
+# K2's cases: (tag, w, h, B, subsample, qualities (one for all, or None
+# for per-image ones from the seed), timed).  The main path's shapes,
+# then ragged ones: under 8 px, one pixel, a side scaled up to 8 rows by
+# SSIMFast (9x1000 and 3x600: rectangles of one row, some empty), a
+# downsample with odd ratios.
+K2_CASES = [("12mp_420_q30", 4032, 3024, 1, True, 30, True),
+            ("12mp_420_q90", 4032, 3024, 1, True, 90, False),
+            ("1080p_420", 1920, 1080, 1, True, 50, True),
+            ("chunk_64x500x500_420", 500, 500, 64, True, None, True),
+            ("t2_lanes_64x499x499_420", 499, 499, 64, True, None, True),
+            ("1080p_444", 1920, 1080, 1, False, 50, True),
+            ("ragged_9x17", 9, 17, 1, True, 75, False),
+            ("ragged_1x1", 1, 1, 1, True, 50, False),
+            ("ragged_1x1_444", 1, 1, 2, False, 50, False),
+            ("ragged_1000x9", 1000, 9, 1, True, 60, False),
+            ("ragged_600x3_444", 600, 3, 1, False, 60, False),
+            ("odd_700x513", 700, 513, 2, True, None, False)]
+# One level of one channel moves the luminance by at most 0.587; all
+# three by 1.0 (plus the float32 rounding of the weighted sum).
+K2_LEVEL_ATOL = 1.0 + 1e-3
+
+
+def k2_bound(inp, bsz: int):
+    """(least ms, "bytes" or "operations") for one K2 call: every
+    coefficient read once, the luminance written once, the tables and
+    rectangles read once; against 34 flops a coefficient (two passes of
+    eight multiply-adds, the quantize-dequantize) and 16 a pixel (the
+    colour maths and roundings) at the card's fp32 rate."""
+    coefs = sum(p.numel() for p in inp.cplanes)
+    nbytes = 4 * coefs + 4 * inp.lum_orig.numel() + 4 * (101 * 128 + 64)
+    if inp.box_rectangles is not None:
+        nbytes += 4 * inp.box_rectangles.numel()
+    flops = 34 * coefs + 16 * bsz * inp.h * inp.w
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_k2(dev, cases=None, timed: bool = True):
+    """K2 against its plain version (see the module docstring, phase 3).
+    Returns (largest |luminance difference|, {tag: times})."""
+    import dataclasses
+
+    from fennec_tpu_torch.engine import compress as C
+    from fennec_tpu_torch.ops.filters import box_bounds
+    from fennec_tpu_torch.ops.probe_recon_cuda import (
+        box_mean_exact,
+        probe_recon,
+    )
+    from fennec_tpu_torch.ops.ssim import batched_ssim_plain, ssim_fast_dims
+    from fennec_tpu_torch.ops.ssim_cuda import ssim_window
+
+    rng = np.random.default_rng(SEED + 21)
+    worst = 0.0
+    times = {}
+    for tag, w, h, n, sub, quality, time_it in (K2_CASES if cases is None
+                                                else cases):
+        imgs = np.stack([photo(w, h, SEED + 2000 + 7 * k + w)
+                         for k in range(n)])
+        x = torch.from_numpy(imgs).to(dev).to(torch.float32)
+        inp, _ = C.prepare_search(x, sub)
+        del x
+        q = (torch.from_numpy(rng.integers(1, 101, n)) if quality is None
+             else torch.full((n,), quality, dtype=torch.int64)).to(dev)
+        before = (probe_recon.launches, probe_recon.finish_launches)
+        got = C.probe_luminance(inp, q)
+        again = C.probe_luminance(inp, q)
+        want = C.probe_luminance_plain(inp, q)
+        box = inp.box_rectangles is not None
+        on_card = dev.type == "cuda"
+        if on_card:
+            torch.cuda.synchronize()
+            if (probe_recon.launches, probe_recon.finish_launches) != (
+                    before[0] + 2, before[1] + 2 * int(box)):
+                raise AssertionError(f"K2 {tag}: two calls did not launch "
+                                     f"the kernel twice")
+        ds_w, ds_h = ssim_fast_dims(w, h)
+        if tuple(got.shape) != (n, ds_h, ds_w) or got.shape != want.shape:
+            raise AssertionError(f"K2 {tag}: shape {tuple(got.shape)}, "
+                                 f"plain {tuple(want.shape)}")
+        diff = (got - want).abs()
+        n_diff = int((diff != 0).sum())
+        err = float(diff.max())
+        # Where the differences come from.  The plain version's r, g, b
+        # with the box mean taken exactly, as K2 takes it: what is left
+        # against K2 is the IDCT's summation order alone, and what that
+        # differs from the plain version by is the float32 box mean.
+        qt = inp.tables[q]
+        rgb = C._reconstruct_rgb_planes(*inp.cplanes, qt, inp.dmat, sub, h,
+                                        w)
+        if box:
+            ys, xs = box_bounds(ds_h, h), box_bounds(ds_w, w)
+            rgb = [box_mean_exact(p, *ys, *xs) for p in rgb]
+        exact = C._luminance(*rgb)
+        del rgb
+        n_idct = int((got != exact).sum())
+        n_mean = int((want != exact).sum())
+        alone_inp = dataclasses.replace(
+            inp, cplanes=tuple(p[-1:].contiguous() for p in inp.cplanes),
+            lum_orig=inp.lum_orig[-1:].contiguous())
+        alone = torch.equal(C.probe_luminance(alone_inp, q[-1:]), got[-1:])
+        repeat = torch.equal(got, again)
+        s_diff = 0.0
+        if min(ds_h, ds_w) > 8:
+            scorer = ssim_window if on_card else batched_ssim_plain
+            s_k = scorer(inp.lum_orig, got.contiguous())
+            s_p = scorer(inp.lum_orig, want.contiguous())
+            s_diff = float((s_k - s_p).abs().max())
+        log(f"k2 {tag} planes={tuple(inp.cplanes[0].shape)} out="
+            f"{tuple(got.shape)} pixels_differing={n_diff} of {got.numel()} "
+            f"(from the IDCT's order {n_idct}, from the plain float32 box "
+            f"mean {n_mean}) max_abs_diff={err:.6f} ssim_diff={s_diff:.3e} "
+            f"repeat_identical={repeat} alone_identical={alone}")
+        if not (torch.isfinite(got).all() and err <= K2_LEVEL_ATOL
+                and s_diff <= K1_ATOL and repeat and alone):
+            raise AssertionError(
+                f"K2 {tag}: |luminance diff| {err} (limit {K2_LEVEL_ATOL}), "
+                f"ssim diff {s_diff} (limit {K1_ATOL}), repeat "
+                f"bit-identical {repeat}, alone as in the batch {alone}")
+        worst = max(worst, err)
+        if timed and time_it:
+            run = lambda: C.probe_luminance(inp, q)  # noqa: E731
+            plain = lambda: C.probe_luminance_plain(inp, q)  # noqa: E731
+            t = {"shape": list(inp.cplanes[0].shape),
+                 "ms": profiled_device_ms(run, 50, "probe_",
+                                          2 if box else 1),
+                 "event_ms": cuda_ms(run, 50), "host_us": host_us(run, 50),
+                 "plain_ms": cuda_ms(plain, 5)}
+            t["bound_ms"], t["bound_by"] = k2_bound(inp, n)
+            t["share"] = t["bound_ms"] / t["ms"]
+            times[tag] = t
+            log(f"k2 time {tag}: device_us={t['ms'] * 1e3:.2f} event_us="
+                f"{t['event_ms'] * 1e3:.2f} host_us={t['host_us']:.2f} "
+                f"bound_us={t['bound_ms'] * 1e3:.2f} ({t['bound_by']}) "
+                f"share={t['share']:.3f} plain_event_ms={t['plain_ms']:.4f}")
+        del inp, alone_inp, got, again, want, exact, diff
     return worst, times
 
 
@@ -849,6 +1026,12 @@ def phase_k3(T, dev, cases, timed: bool = True, first=None, seams=None):
     return worst, times
 
 
+# Over every replay of check_result: the probes scored by both routes,
+# the largest |SSIM difference| between K2 + K1 and the plain scorer, and
+# the decisions (s >= target) on which they differ.
+REPLAY = {"probes": 0, "max_ssim_diff": 0.0, "flips": []}
+
+
 def check_result(T, res, dev, target: float, expect_wh, tag: str,
                  src_img=None):
     """Decode, SSIM target, decode-scored SSIM and boundary decisions.
@@ -858,8 +1041,10 @@ def check_result(T, res, dev, target: float, expect_wh, tag: str,
         _seed_lo,
         prepare_search,
         probe_luminance,
+        probe_luminance_plain,
     )
     from fennec_tpu_torch.ops.ssim import batched_ssim_plain
+    from fennec_tpu_torch.ops.ssim_cuda import ssim_window
 
     target = 0.999 if target >= 1.0 else target
     if res.format != T.JPEG:
@@ -876,10 +1061,17 @@ def check_result(T, res, dev, target: float, expect_wh, tag: str,
     src = torch.from_numpy(src_img).to(dev).to(torch.float32)
     inp, _ = prepare_search(src[None], True)
     t32 = torch.tensor(target, dtype=torch.float32, device=dev)
+    windowed = min(inp.lum_orig.shape[1:]) > 8
 
     def plain(q: int) -> torch.Tensor:
-        lum = probe_luminance(inp, torch.tensor([q], device=dev))
+        """The plain scorer: no kernel anywhere."""
+        lum = probe_luminance_plain(inp, torch.tensor([q], device=dev))
         return batched_ssim_plain(inp.lum_orig, lum)[0]
+
+    def kernels(q: int) -> torch.Tensor:
+        """The search's scorer: K2, then K1."""
+        lum = probe_luminance(inp, torch.tensor([q], device=dev))
+        return ssim_window(inp.lum_orig, lum)[0]
 
     q = res.jpeg_quality
     s_q = plain(q)
@@ -900,18 +1092,29 @@ def check_result(T, res, dev, target: float, expect_wh, tag: str,
         checked.append(q - 1)
 
     # Replay the whole bisection with the plain scorer: every probe's
-    # accept/reject must match, so it must end at the same quality.
+    # accept/reject must match the kernels' (K2 and K1 score the same
+    # probe beside it), so it must end at the same quality.
     lo, hi, best = lo0, 100, (100, 1.0)
     while lo <= hi:
         mid = (lo + hi) // 2
         s_mid = plain(mid)
+        REPLAY["probes"] += 1
+        if dev.type == "cuda" and windowed:
+            s_ker = kernels(mid)
+            REPLAY["max_ssim_diff"] = max(REPLAY["max_ssim_diff"],
+                                          abs(float(s_ker) - float(s_mid)))
+            if bool(s_ker >= t32) != bool(s_mid >= t32):
+                REPLAY["flips"].append((tag, mid, float(s_ker),
+                                        float(s_mid), target))
         if bool(s_mid >= t32):
             best, hi = (mid, float(s_mid)), mid - 1
         else:
             lo = mid + 1
     if best[0] != q or abs(best[1] - res.ssim) > K1_ATOL:
         raise AssertionError(f"{tag}: plain bisection ends at {best}, the "
-                             f"kernel's at ({q}, {res.ssim})")
+                             f"kernel's at ({q}, {res.ssim}); decisions "
+                             f"that differ (input, q, kernels' score, plain "
+                             f"score, target): {REPLAY['flips']}")
 
     dec = torch.from_numpy(out).to(dev).to(torch.float32)
     dec_inp, _ = prepare_search(dec[None], True)
@@ -962,7 +1165,8 @@ def run_batch(T, ssim_window, counters, items, dev, tag: str):
     wall_ms = (time.perf_counter() - t) * 1e3
     launches = ssim_window.launches
     snap = counters.snapshot()
-    k3a, k3b, _ = k3_take(tag, dev, len(snap["chunk_items"]))
+    k3a, k3b, _ = k3_take(tag, dev, len(snap["chunk_items"]),
+                          probes=7 * len(snap["chunk_items"]))
     log(f"{tag}: K3 launches K3a={k3a} K3b={k3b} for "
         f"{len(snap['chunk_items'])} chunks")
     bad = [(r.item.src, r.err) for r in res if r.err is not None]
@@ -1105,7 +1309,8 @@ def phase_pixel_path(T, dev, ssim_window, counters, w=500, h=500):
         wall_ms = (time.perf_counter() - t) * 1e3
         total += ssim_window.launches
         snap = counters.snapshot()
-        k3_take(f"images256 {tag}", dev, len(snap["chunk_items"]))
+        k3_take(f"images256 {tag}", dev, len(snap["chunk_items"]),
+                probes=7 * len(snap["chunk_items"]))
         if snap["routes"] != {"pixel": 256}:
             raise AssertionError(f"pixel path routes {snap['routes']}")
         st = snap["stage_seconds"]
@@ -1628,35 +1833,61 @@ def oracle_cases(T, dev, big_img):
 
 
 def phase_k4(T, dev, big_img):
-    """The size oracle on the card: scan_bytes_at, which launches K3a,
-    against its plain version ops/jpeg_size.scan_bits on the same CUDA
-    tensors (equal integers), a single image's (N, 64) form against its
-    batch of one, and the bisection step's time before (quantize + plain
-    scan_bits) and after (packed quantize + K3a), beside the step's bound:
-    256 B of float32 coefficients per block read once.  Returns {tag:
-    times}."""
+    """The size oracle on the card: scan_bytes_at, one launch of K4,
+    against its plain version ops/jpeg_size.scan_bits, K4's own plain
+    version (the packed quantize, then K3a's plain totals) and the route
+    it replaced (the packed quantize, then K3a's totals over the int16
+    blocks) on the same CUDA tensors (equal integers); a single image's
+    (N, 64) form against its batch of one; and the bisection step's time
+    for the plain step, the earlier route and K4, the last two in turns
+    (earlier, K4, K4, earlier), beside the step's bound: 256 B of float32
+    coefficients per block read once.  Returns {tag: times}."""
     from fennec_tpu_torch.engine import size_search
     from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
+    from fennec_tpu_torch.ops.jpeg_emit import (
+        layout_on,
+        quantize_count_plain,
+        std_tables_on,
+    )
     from fennec_tpu_torch.ops.jpeg_size import scan_bits
 
     out = {}
+    qtables = size_search.quality_tables_on(dev)
+    std = std_tables_on(dev)
     for tag, coefs, q, ph, pw, sub in oracle_cases(T, dev, big_img):
-        before = k3.oracle_stats.launches
+        before = (k3.quantize_count.launches, k3.oracle_stats.launches)
+        lay = layout_on(ph, pw, sub, dev)
 
         def plain():
             bits = scan_bits(*size_search.quantize_at(coefs, q), ph, pw, sub)
             return torch.div(bits + 7, 8, rounding_mode="floor")
 
+        def earlier():
+            packed = size_search.quantize_packed(coefs, qtables[q])
+            bits = k3.oracle_stats(packed, lay, std).totals
+            return torch.div(bits + 7, 8, rounding_mode="floor")
+
         def step():
             return size_search.scan_bytes_at(coefs, q, ph, pw, sub)
 
-        got, want = step(), plain()
-        if k3.oracle_stats.launches != before + 1:
+        got, want, old = step(), plain(), earlier()
+        own_bits = quantize_count_plain(coefs, qtables, q, lay, std)
+        own = torch.div(own_bits + 7, 8, rounding_mode="floor")
+        if (k3.quantize_count.launches, k3.oracle_stats.launches) != (
+                before[0] + 1, before[1] + 1):
             raise AssertionError(f"K4 {tag}: scan_bytes_at did not launch "
-                                 f"K3a once")
-        if not torch.equal(got, want):
-            raise AssertionError(f"K4 {tag}: K3a's totals {got.tolist()[:4]}"
-                                 f" != scan_bits {want.tolist()[:4]}")
+                                 f"K4 once and nothing else")
+        # The bit totals themselves, not only the bytes they round up to.
+        bits = k3.quantize_count([c.contiguous() for c in coefs], qtables, q,
+                                 lay, std)
+        bit_err = int((bits - own_bits).abs().max())
+        if not (torch.equal(got, want) and torch.equal(got, old)
+                and torch.equal(got, own) and bit_err == 0):
+            raise AssertionError(
+                f"K4 {tag}: K4's totals {got.tolist()[:4]} != scan_bits "
+                f"{want.tolist()[:4]}, the earlier route {old.tolist()[:4]} "
+                f"or its plain version {own.tolist()[:4]} (bits off by up "
+                f"to {bit_err})")
         if q.numel() == 1:
             alone = size_search.scan_bytes_at([c[0] for c in coefs], q[0],
                                               ph, pw, sub)
@@ -1665,20 +1896,31 @@ def phase_k4(T, dev, big_img):
                                      f"of one {got}")
         blocks = sum(c.shape[0] * c.shape[1] for c in coefs)
         parts = size_search.quantize_at(coefs, q)
-        t = {"blocks": blocks,
-             "step_ms": cuda_ms(step, 20), "plain_step_ms": cuda_ms(plain, 5),
+        turns = {"earlier": [], "k4": []}
+        for who in ("earlier", "k4", "k4", "earlier"):
+            fn = step if who == "k4" else earlier
+            turns[who].append((cuda_ms(fn, 20), host_us(fn, 20)))
+        t = {"blocks": blocks, "max_abs_err": bit_err,
+             "step_ms": min(ms for ms, _ in turns["k4"]),
+             "host_us": min(us for _, us in turns["k4"]),
+             "kernel_ms": profiled_device_ms(step, 50,
+                                             "block_stats_kernel"),
+             "earlier_step_ms": min(ms for ms, _ in turns["earlier"]),
+             "earlier_host_us": min(us for _, us in turns["earlier"]),
+             "turns_step_us": [round(ms * 1e3, 1) for who in
+                               ("earlier", "k4") for ms, _ in turns[who]],
+             "plain_step_ms": cuda_ms(plain, 5),
              "plain_ms": cuda_ms(lambda: scan_bits(*parts, ph, pw, sub), 5),
-             "quantize_ms": cuda_ms(lambda: size_search.quantize_packed(
-                 coefs, size_search.quality_tables_on(dev)[q]), 20),
-             "host_us": host_us(step, 20),
              "bound_ms": blocks * 256 / HBM_BYTES_PER_S * 1e3,
              "bound_by": "bytes"}
+        t["share"] = t["bound_ms"] / t["kernel_ms"]
         out[tag] = t
-        log(f"k4 {tag}: scan_bytes_at through K3a == plain scan_bits "
-            f"(bytes {got.tolist()[:3]}..) " + " ".join(
+        log(f"k4 {tag}: scan_bytes_at through K4 == plain scan_bits == the "
+            f"earlier route == K4's plain version (bytes "
+            f"{got.tolist()[:3]}..) " + " ".join(
                 f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
                 for k, v in t.items())
-            + f" share={t['bound_ms'] / t['step_ms']:.3f}")
+            + f" step_share={t['bound_ms'] / t['step_ms']:.3f}")
     return out
 
 
@@ -1812,7 +2054,104 @@ def phase_surface(T, dev, big_img):
             f"and the CPU, card_ms={card_ms:.1f}")
 
 
-def build_all(ssim_window, k3):
+def stage_table(T, dev, path: str, tmp: str, rounds: int = 5):
+    """The warm 12 MP compress_file (BALANCED, default Options) stage by
+    stage, each stage ended by a synchronise and timed on the host's
+    clock: the median of `rounds` rounds, beside the whole call's.  The
+    stages call what compress_file calls, in its order; the package is
+    not changed for it."""
+    from fennec_tpu_torch.codecs import jpeg as J
+    from fennec_tpu_torch.engine import compress as C
+    from fennec_tpu_torch.exif import read_orientation
+    from fennec_tpu_torch.image import to_nrgba, to_nrgba_ref, validate_image
+    from fennec_tpu_torch.parallel.batched import emit_scans
+
+    opts = T.Options()
+    out_path = os.path.join(tmp, "stages.jpg")
+    rows = {}
+
+    def stage(name: str, fn):
+        t = time.perf_counter()
+        got = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        rows.setdefault(name, []).append((time.perf_counter() - t) * 1e3)
+        return got
+
+    def read():
+        with open(path, "rb") as f:
+            return f.read()
+
+    whole = []
+    for _ in range(rounds + 1):  # the first round warms every shape
+        data = stage("file read", read)
+        hdr, coefs = stage("host Huffman decode",
+                           lambda: J.decode_jpeg_to_coefs(data))
+        hmax = max(c["h"] for c in hdr.comps)
+        vmax = max(c["v"] for c in hdr.comps)
+        mcus_x = -(-hdr.width // (8 * hmax))
+        mcus_y = -(-hdr.height // (8 * vmax))
+        comps = [dict(hdr.comps[sc["comp"]]) for sc in hdr.scan_comps]
+        up = stage("upload of the quantized blocks", lambda: [
+            (torch.from_numpy(hdr.qtables[c["tq"]]).to(dev),
+             torch.from_numpy(q).to(dev)) for c, q in zip(comps, coefs)])
+        pixels = stage("device dequantize, IDCT, colour", lambda: (
+            J._combine_planes([J._decode_plane(
+                qc.to(torch.float32), qt, mcus_y * c["v"] * 8,
+                mcus_x * c["h"] * 8, hmax // c["h"], vmax // c["v"])
+                for c, (qt, qc) in zip(comps, up)], hdr.height, hdr.width,
+                J.jpeg_color_mode(hdr)).to(torch.uint8)))
+        img = stage("copy back of the decoded image",
+                    lambda: pixels.cpu().numpy())
+        del up, pixels
+        src = stage("orientation, validate, NRGBA", lambda: (
+            read_orientation(data), to_nrgba(validate_image(img)))[1])
+        h, w = src.shape[:2]
+        x = stage("upload of the image", lambda: torch.from_numpy(
+            to_nrgba_ref(src)).to(dev).to(torch.float32))
+        inp, fcoefs = stage("forward DCT, original's luminance",
+                            lambda: C.prepare_search(x[None], True))
+
+        def search():
+            best_q, best_ssim, found = C._bisect_device_batch(
+                inp, *C._search_targets([0.94], dev))
+            return torch.stack([best_q.to(torch.float32), best_ssim,
+                                found.to(torch.float32)]).cpu()[:, 0].tolist()
+
+        q, _s, f = stage("7 probes (K2, K1) and the copy of the result",
+                         search)
+        quality = int(q) if f else 100
+        scans = stage("quantize and emission (K3a, K3b, pulls)", lambda: (
+            emit_scans(C.quantize_packed(
+                fcoefs, C.quality_tables_on(dev)[quality][None]
+            ).contiguous(), h, w, True, opts.optimize_huffman)))
+        blob = stage("container", lambda: scans.jpeg(0, w, h, quality, True))
+
+        def write():
+            with open(out_path, "wb") as fh:
+                fh.write(blob)
+
+        stage("file write", write)
+        del x, inp, fcoefs, scans
+        t = time.perf_counter()
+        res = T.compress_file(None, path, out_path, opts, device=dev)
+        whole.append((time.perf_counter() - t) * 1e3)
+        if res.compressed_data != blob or res.jpeg_quality != quality:
+            raise AssertionError("stage table: the stages' file differs "
+                                 "from compress_file's")
+    med = {k: float(np.median(v[1:])) for k, v in rows.items()}
+    total = sum(med.values())
+    whole_ms = float(np.median(whole[1:]))
+    log(f"stage table, warm 12 MP compress_file (median of {rounds}, ms; "
+        f"each stage synchronised):")
+    for name, ms in med.items():
+        log(f"  {ms:8.2f}  {100 * ms / total:5.1f} %  {name}")
+    log(f"  {total:8.2f}  sum of the stages; the whole call "
+        f"{whole_ms:.2f} (runs {[round(v, 1) for v in whole[1:]]})")
+    return med, whole_ms
+
+
+def build_all(ssim_window, k3, probe_recon):
     """Phase 2: every kernel of the port and the host entropy coder
     built from this checkout's sources, all at once; returns the first
     K3's harness."""
@@ -1825,24 +2164,38 @@ def build_all(ssim_window, k3):
         got = build()
         return time.perf_counter() - t, got
 
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         done = list(pool.map(timed, (
             lambda: ssim_window.build(force=True),
             lambda: k3.library.build(force=True),
-            lambda: native.build(force=True), FirstK3)))
+            lambda: native.build(force=True), FirstK3,
+            lambda: probe_recon.build(force=True))))
     ssim_window.load()
     k3.library.load()
     native.load()
+    probe_recon.load()
     log(f"build k1_nvcc_s={done[0][0]:.3f} k3_nvcc_s={done[1][0]:.3f} "
         f"native_gxx_s={done[2][0]:.3f} first_k3_nvcc_s={done[3][0]:.3f} "
-        f"(in parallel)")
+        f"k2_nvcc_s={done[4][0]:.3f} (in parallel)")
     log(ssim_window.build_log.strip())
     log(k3.library.build_log.strip())
+    log(probe_recon.build_log.strip())
     lib = k3.library.load()
     log(f"K3 segment_blocks={k3.library.segment_blocks} resident CTAs "
         f"K3a={lib.fennec_jpeg_resident_ctas(0)} "
         f"K3b={lib.fennec_jpeg_resident_ctas(1)}")
     return done[3][1]
+
+
+def k2_only(T, dev) -> int:
+    """`--k2`: phases 1 and 2, K2 against its plain version and the size
+    oracle's check (phase_k4) alone; no main path, so no result line."""
+    phase_k2(dev)
+    big = T.codecs.decode_image(T.encode_to_bytes(
+        photo(4032, 3024, SEED), T.JPEG, 92, device=dev), device=dev)
+    phase_k4(T, dev, big)
+    log("k2 only: every case passed")
+    return 0
 
 
 def k3_only(T, dev, first_k3) -> int:
@@ -1925,20 +2278,24 @@ def main(only: str = "") -> int:
             or torch.backends.cudnn.allow_tf32):
         raise AssertionError("TF32 is on")
 
-    # 2. Build: the nvcc builds (K1, K3 and the first K3, kept for phase
-    # 11's timing in turns) and the g++ build at once.
+    # 2. Build: the nvcc builds (K1, K2, K3 and the first K3, kept for
+    # phase 11's timing in turns) and the g++ build at once.
     from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
+    from fennec_tpu_torch.ops import probe_recon_cuda as k2
     from fennec_tpu_torch.ops.ssim import batched_ssim_plain
     from fennec_tpu_torch.ops.ssim_cuda import SOURCE, ssim_window
 
     if only == "digests":  # kernels build at first use
         return digests_only(T, dev)
-    first_k3 = build_all(ssim_window, k3)
+    first_k3 = build_all(ssim_window, k3, k2.probe_recon)
     if only == "k3":
         return k3_only(T, dev, first_k3)
+    if only == "k2":
+        return k2_only(T, dev)
 
-    # 3. K1 against its plain version.
+    # 3. K1, then K2, against their plain versions.
     max_err, times = phase_kernel(dev, ssim_window, batched_ssim_plain)
+    k2_err, k2_times = phase_k2(dev)
 
     # 4. The main path.
     big = photo(4032, 3024, SEED)
@@ -1971,12 +2328,12 @@ def main(only: str = "") -> int:
             t = time.perf_counter()
             run()  # cold: first call at this shape
             cold_ms = (time.perf_counter() - t) * 1e3
-            k3_take(f"{tag} cold", dev, 1)
+            k3_take(f"{tag} cold", dev, 1, probes=7)
             k3_zero()
             t = time.perf_counter()
             res = run()  # warm; the result is host bytes, so synced
             warm_ms = (time.perf_counter() - t) * 1e3
-            k3_take(f"{tag} warm", dev, 1)
+            k3_take(f"{tag} warm", dev, 1, probes=7)
             n_images += 2
             results.append((tag, res, target, wh, cold_ms, warm_ms))
     launches = ssim_window.launches
@@ -1985,8 +2342,9 @@ def main(only: str = "") -> int:
         raise AssertionError(f"K1 ran {launches} times for {n_images} "
                              f"images; the main path must launch it "
                              f">= 7 times per image")
-    log(f"main path: {n_images} images, K1 launches={launches}, K3 "
-        f"launches {K3_MAIN} (one K3b per image, coding it on the card)")
+    log(f"main path: {n_images} images, K1 launches={launches}, K2 "
+        f"launches {K2_MAIN} (seven probes per image), K3 launches "
+        f"{K3_MAIN} (one K3b per image, coding it on the card)")
 
     for tag, res, target, wh, cold_ms, warm_ms in results:
         checked, s_dec = check_result(T, res, dev, target, wh, tag)
@@ -1994,6 +2352,14 @@ def main(only: str = "") -> int:
             f"ssim={res.ssim:.7f} target={target} bytes={res.compressed_size}"
             f" cold_ms={cold_ms:.1f} warm_ms={warm_ms:.1f} "
             f"decoded_ssim={s_dec:.7f} decisions_rescored_q={checked}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "photo_12mp.jpg")
+        with open(src, "wb") as f:
+            f.write(big_jpeg)
+        reset_peak(dev)
+        stage_table(T, dev, src, tmp)
+        log_peak("12 MP compress_file", dev, 1, 4032 * 3024)
 
     # 5. Card against CPU on a small, noisy input (no SSIMFast
     # downsample, so the search ends above its seed and q-1 is probed).
@@ -2038,7 +2404,15 @@ def main(only: str = "") -> int:
         total_launches += phase_ts_files(T, dev, ssim_window, counters, tmp,
                                          big_path)
         phase_ts_card_vs_cpu(T, dev, big_img)
-    log(f"main path K3 launches (phases 4, 6-8, 10): {K3_MAIN}")
+    log(f"main path launches (phases 4, 6-8, 10): K3 and K4 {K3_MAIN}, "
+        f"K2 {K2_MAIN}")
+    log(f"replays of the bisection with the plain scorer: "
+        f"{REPLAY['probes']} probes, largest |SSIM difference| between K2 "
+        f"+ K1 and the plain scorer {REPLAY['max_ssim_diff']:.3e}, "
+        f"decisions that differ: {REPLAY['flips']}")
+    if REPLAY["flips"] or REPLAY["max_ssim_diff"] > K1_ATOL:
+        raise AssertionError(f"K2 + K1 against the plain scorer: "
+                             f"{REPLAY}")
 
     # 11. K3 against its plain version at the main path's shapes.
     quality = {tag: res.jpeg_quality for tag, res, *_ in results}
@@ -2066,9 +2440,23 @@ def main(only: str = "") -> int:
              "block_stats"),
             ("k3b", "jpeg_deposit", "fennec_tpu/ops/jpeg_emit.py:587",
              "deposit"),
-            # K3a's totals alone, as the size oracle launches it.
-            ("k4", "jpeg_block_stats_as_size_oracle",
+            # The size oracle's step: quantize and count in one launch.
+            ("k4", "jpeg_quantize_count",
              "fennec_tpu/ops/jpeg_size.py:138", "oracle")):
+        if part == "k4":
+            k3_rows.append({
+                "name": name, "route": "cuda",
+                "source": os.path.relpath(k3.SOURCE, HERE),
+                "replaces": replaces, "launches": K3_MAIN[key],
+                # Integer bit totals against the plain version's.
+                "max_abs_err": k4t["max_abs_err"],
+                "shape": [1, 285768, 64],
+                "ms": k4t["kernel_ms"], "plain_ms": k4t["plain_step_ms"],
+                "bound_ms": k4t["bound_ms"], "bound_by": k4t["bound_by"],
+                "share": k4t["share"], "library_ms": None,
+                "host_us": k4t["host_us"], "step_ms": k4t["step_ms"],
+                "earlier_step_ms": k4t["earlier_step_ms"]})
+            continue
         k3_rows.append({
             "name": name,
             "route": "cuda",
@@ -2079,8 +2467,7 @@ def main(only: str = "") -> int:
             "max_abs_err": k3_err,
             "shape": [1, 285768, 64],
             "ms": k3t[f"{part}_ms"],
-            "plain_ms": (k4t["plain_ms"] if part == "k4"
-                         else k3t[f"{part}_plain_ms"]),
+            "plain_ms": k3t[f"{part}_plain_ms"],
             "bound_ms": k3t[f"{part}_bound_ms"],
             "bound_by": k3t[f"{part}_bound_by"],
             "share": k3t[f"{part}_share"],
@@ -2090,6 +2477,7 @@ def main(only: str = "") -> int:
             "first_ms": k3t.get(f"{part}_first_ms"),
         })
     t = times[(1, 384, 512)]
+    k2t = k2_times["12mp_420_q30"]
     print(json.dumps({"kernels": [{
         "name": "ssim_window",
         "route": "cuda",
@@ -2108,6 +2496,27 @@ def main(only: str = "") -> int:
         "library_ms": None,
         "event_ms": t["event_ms"],
         "host_us": t["host_us"],
+    }, {
+        "name": "probe_recon",
+        "route": "cuda",
+        "source": os.path.relpath(k2.SOURCE, HERE),
+        # XLA programs of the JAX package's probe, not a Pallas kernel.
+        "replaces": "fennec_tpu/engine/compress.py:140",
+        "launches": K2_MAIN["recon"],
+        "finish_launches": K2_MAIN["finish"],
+        # Luminance levels: a channel that lands on the other side of a
+        # rounding moves it by up to 1.0.
+        "max_abs_err": k2_err,
+        "shape": k2t["shape"],
+        "ms": k2t["ms"],
+        "plain_ms": k2t["plain_ms"],
+        "bound_ms": k2t["bound_ms"],
+        "bound_by": k2t["bound_by"],
+        "share": k2t["share"],
+        # No single PyTorch call reconstructs a probe.
+        "library_ms": None,
+        "event_ms": k2t["event_ms"],
+        "host_us": k2t["host_us"],
     }] + k3_rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2117,7 +2526,7 @@ def main(only: str = "") -> int:
 
 
 if __name__ == "__main__":
-    flags = {"--k3": "k3", "--digests": "digests"}
+    flags = {"--k2": "k2", "--k3": "k3", "--digests": "digests"}
     if len(sys.argv) > 2 or (len(sys.argv) == 2
                              and sys.argv[1] not in flags):
         raise SystemExit(f"usage: python3 chip_smoke.py [{' | '.join(flags)}]")

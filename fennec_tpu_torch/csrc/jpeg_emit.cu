@@ -18,6 +18,15 @@
 //       histograms and the bits of every block.
 //   K3b fennec_jpeg_deposit: the scan's big-endian 32-bit words.  It finds
 //       its own bit offsets: no pass before it, nothing between the two.
+//   K4  fennec_jpeg_quantize_count: the size oracle's step in one launch.
+//       K3a's totals from the unquantized float32 coefficients (y, cb, cr,
+//       each (B, N, 64)) and a (B,) quality on the device: a block is
+//       quantized where it is staged (c / q in IEEE division, then
+//       sign * floor(|s| + 0.5) with the float32 add, operation for
+//       operation ops/dct.quantize_blocks) and the int16 lands at its
+//       zigzag position; everything after the staging is K3a.  The step
+//       reads each coefficient once (256 B a block) and writes B totals:
+//       no packed int16 tensor, no float32 temporaries.
 //
 // What bounds it on an H100.  Every block is 128 bytes read once: 11 us
 // for a 12 MP 4:2:0 image at 3.35 TB/s.  The arithmetic is far below that
@@ -153,6 +162,106 @@ __device__ __forceinline__ void stage(const int16_t* __restrict__ img,
   }
 }
 
+// ops/dct.quantize_blocks for one coefficient: IEEE division, the
+// float32 add of 0.5 (0.49999997f + 0.5f is 1.0f: roundf or rintf would
+// give another block there), floor, the sign put back.  The intrinsics
+// keep the compiler from contracting or reassociating anything.
+__device__ __forceinline__ int quantize(float c, float q) {
+  const float s = __fdiv_rn(c, q);
+  const int f = (int)floorf(__fadd_rn(fabsf(s), 0.5f));
+  return s < 0.0f ? -f : f;
+}
+
+// Where a kernel's blocks come from.  PackedSource: the (B, NT, 64) int16
+// blocks K3a and K3b take.  CoefSource: the float32 coefficients of the
+// three components, quantized on the way into shared memory at the
+// image's luma or chroma table (K4); rows below ny are y, then cb, then
+// cr, the packed order.
+struct PackedSource {
+  const int16_t* blocks;
+  int nt;
+  static constexpr bool kQuantizes = false;
+
+  __device__ __forceinline__ void begin_image(int, float*) const {}
+
+  __device__ __forceinline__ void stage_segment(int b,
+                                                const int* __restrict__ slot_row,
+                                                int s0, unsigned char* rows,
+                                                const StageMap& map,
+                                                const float*) const {
+    stage(blocks + (size_t)b * nt * 64, slot_row, nt, s0, rows, map);
+  }
+
+  // The DC of a block the CTA has not staged.
+  __device__ __forceinline__ int dc(int b, int row, const float*) const {
+    return blocks[((size_t)b * nt + row) * 64];
+  }
+};
+
+struct CoefSource {
+  const float* y;             // (B, ny, 64)
+  const float* cb;            // (B, nc, 64)
+  const float* cr;            // (B, nc, 64)
+  int ny, nc, nt;
+  const float* qtables;       // (101, 2, 64) [luma, chroma] by quality
+  const long long* quality;   // (B,), clamped to [0, 100] here
+  static constexpr bool kQuantizes = true;
+
+  __device__ __forceinline__ const float* block(int b, int row) const {
+    if (row < ny) return y + ((size_t)b * ny + row) * 64;
+    row -= ny;
+    if (row < nc) return cb + ((size_t)b * nc + row) * 64;
+    return cr + ((size_t)b * nc + (row - nc)) * 64;
+  }
+
+  // The image's two tables into shared memory (128 floats).
+  __device__ __forceinline__ void begin_image(int b, float* qtab) const {
+    long long q = quality[b];
+    q = q < 0 ? 0 : (q > 100 ? 100 : q);
+    for (int i = threadIdx.x; i < 128; i += kThreads)
+      qtab[i] = qtables[q * 128 + i];
+  }
+
+  // As stage(): eight lanes load one block, lane `part` its natural row
+  // (two 16-byte loads), quantize it and store each value at its zigzag
+  // position.
+  __device__ __forceinline__ void stage_segment(int b,
+                                                const int* __restrict__ slot_row,
+                                                int s0, unsigned char* rows,
+                                                const StageMap& map,
+                                                const float* qtab) const {
+    const int part = map.part;
+    float q_luma[8], q_chroma[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      q_luma[e] = qtab[8 * part + e];
+      q_chroma[e] = qtab[64 + 8 * part + e];
+    }
+#pragma unroll 4
+    for (int i = threadIdx.x; i < kThreads * 8; i += kThreads) {
+      const int blk = i >> 3;
+      const int g = s0 + blk;
+      if (g >= nt) continue;
+      const int row = slot_row[g];
+      const float4* src =
+          reinterpret_cast<const float4*>(block(b, row)) + 2 * part;
+      const float4 lo = src[0];
+      const float4 hi = src[1];
+      const float c[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      const bool luma = row < ny;
+      unsigned char* dst = rows + blk * kRowBytes;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        *reinterpret_cast<short*>(dst + map.at[e]) =
+            (short)quantize(c[e], luma ? q_luma[e] : q_chroma[e]);
+    }
+  }
+
+  __device__ __forceinline__ int dc(int b, int row, const float* qtab) const {
+    return quantize(block(b, row)[0], qtab[row < ny ? 0 : 64]);
+  }
+};
+
 // A thread's block: its tables and the DC difference.
 struct Block {
   const uint4* row;   // the staged block, zigzag order
@@ -162,14 +271,15 @@ struct Block {
   int diff;           // DC minus the previous block's of the component
 
   // g = s0 + threadIdx.x < nt.  The predecessor's DC is read from the
-  // staged rows when its slot is in the segment.
-  __device__ __forceinline__ Block(const int16_t* __restrict__ img, int g,
-                                   int s0, int ny,
-                                   const int* __restrict__ slot_row,
+  // staged rows when its slot is in the segment, else from the source
+  // (which quantizes it, if it quantizes).
+  template <typename Source>
+  __device__ __forceinline__ Block(const Source& src, int b, int g, int s0,
+                                   int ny, const int* __restrict__ slot_row,
                                    const int* __restrict__ prev_row,
                                    const int* __restrict__ prev_slot,
-                                   const unsigned char* rows,
-                                   const int* tab) {
+                                   const unsigned char* rows, const int* tab,
+                                   const float* qtab) {
     const unsigned char* mine = rows + threadIdx.x * kRowBytes;
     row = reinterpret_cast<const uint4*>(mine);
     cls = slot_row[g] >= ny ? 1 : 0;
@@ -180,7 +290,7 @@ struct Block {
     if (ps >= s0) {
       pdc = *reinterpret_cast<const short*>(rows + (ps - s0) * kRowBytes);
     } else if (ps >= 0) {
-      pdc = img[(size_t)prev_row[g] * 64];
+      pdc = src.dc(b, prev_row[g], qtab);
     }
     diff = *reinterpret_cast<const short*>(mine) - pdc;
   }
@@ -210,9 +320,9 @@ struct Block {
   }
 };
 
-template <bool kWantHist, bool kWantBits>
+template <bool kWantHist, bool kWantBits, typename Source>
 __global__ void __launch_bounds__(kThreads)
-    block_stats_kernel(const int16_t* __restrict__ blocks, int nimg, int nt,
+    block_stats_kernel(const Source src, int nimg, int nt,
                        const int* __restrict__ slot_row,
                        const int* __restrict__ prev_row,
                        const int* __restrict__ prev_slot, int ny,
@@ -222,6 +332,7 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ __align__(16) unsigned char rows[kThreads * kRowBytes];
   __shared__ int tab[2 * kTable];
   __shared__ int shist[kHist];
+  __shared__ float qtab[128];  // the image's quantization tables (K4)
   __shared__ unsigned long long s_total;
   const int lane = threadIdx.x & 31;
   const StageMap map;
@@ -258,15 +369,16 @@ __global__ void __launch_bounds__(kThreads)
   for (int seg = blockIdx.x * per; seg < seg_end; ++seg) {
     const int b = seg / nseg;
     const int s0 = (seg - b * nseg) * kThreads;
-    const int16_t* img = blocks + (size_t)b * nt * 64;
     __syncthreads();  // the rows and the tables are free
     if (b != cur) {   // the same for every thread of the CTA
       if (cur >= 0) flush(cur);
       if (cur < 0 || tables_stride != 0)
         load_tables(tables + (size_t)b * tables_stride, tab);
+      src.begin_image(b, qtab);
+      if (Source::kQuantizes) __syncthreads();  // staging reads qtab
       cur = b;
     }
-    stage(img, slot_row, nt, s0, rows, map);
+    src.stage_segment(b, slot_row, s0, rows, map, qtab);
     __syncthreads();
     const int g = s0 + threadIdx.x;
     const bool valid = g < nt;
@@ -275,8 +387,8 @@ __global__ void __launch_bounds__(kThreads)
     bool eob = false;
     int cls = 0;
     if (valid) {
-      const Block blk(img, g, s0, ny, slot_row, prev_row, prev_slot, rows,
-                      tab);
+      const Block blk(src, b, g, s0, ny, slot_row, prev_row, prev_slot, rows,
+                      tab, qtab);
       cls = blk.cls;
       const int s_dc = bit_length(blk.diff);
       const int dc_sym = s_dc < 15 ? s_dc : 15;
@@ -424,6 +536,7 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const StageMap map;
+  const PackedSource src{blocks, nt};
   const int nseg = (nt + kThreads - 1) / kThreads;
   const int total = nimg * nseg;
   for (int k = threadIdx.x; k < kBufWords; k += kThreads) buf[k] = 0;
@@ -441,11 +554,10 @@ __global__ void __launch_bounds__(kThreads)
     const int b = seg / nseg;
     const int s = seg - b * nseg;
     const int s0 = s * kThreads;
-    const int16_t* img = blocks + (size_t)b * nt * 64;
     if (b != cur && (cur < 0 || tables_stride != 0))
       load_tables(tables + (size_t)b * tables_stride, tab);
     cur = b;
-    stage(img, slot_row, nt, s0, rows, map);
+    src.stage_segment(b, slot_row, s0, rows, map, nullptr);
     __syncthreads();
 
     // The bits of this thread's block, then their exclusive scan over the
@@ -454,8 +566,8 @@ __global__ void __launch_bounds__(kThreads)
     const bool valid = g < nt;
     int bits = 0;
     if (valid) {
-      const Block blk(img, g, s0, ny, slot_row, prev_row, prev_slot, rows,
-                      tab);
+      const Block blk(src, b, g, s0, ny, slot_row, prev_row, prev_slot, rows,
+                      tab, nullptr);
       const int s_dc = bit_length(blk.diff);
       bits = (blk.dc_tab[s_dc < 15 ? s_dc : 15] & 31) + s_dc;
       const int zrl_len = blk.ac_tab[kZrl] & 31;
@@ -498,8 +610,8 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     if (valid) {
-      const Block blk(img, g, s0, ny, slot_row, prev_row, prev_slot, rows,
-                      tab);
+      const Block blk(src, b, g, s0, ny, slot_row, prev_row, prev_slot, rows,
+                      tab, nullptr);
       BitSink sink = buffered
           ? BitSink(buf, flag, offset, 0, kBufWords)
           : BitSink(words, flag, (long long)s_before + offset, lo, hi);
@@ -573,8 +685,8 @@ cudaError_t resident_ctas(Kernel kernel, std::atomic<int>* cache,
   return cudaSuccess;
 }
 
-template <bool kWantHist, bool kWantBits>
-cudaError_t launch_stats(const void* blocks, int nimg, int nt,
+template <bool kWantHist, bool kWantBits, typename Source>
+cudaError_t launch_stats(const Source& src, int nimg, int nt,
                          const void* slot_row, const void* prev_row,
                          const void* prev_slot, int ny, const void* tables,
                          int tables_stride, void* totals, void* hist,
@@ -582,14 +694,14 @@ cudaError_t launch_stats(const void* blocks, int nimg, int nt,
   static std::atomic<int> cache[64];
   int limit = 0;
   cudaError_t err = resident_ctas(
-      block_stats_kernel<kWantHist, kWantBits>, cache, &limit);
+      block_stats_kernel<kWantHist, kWantBits, Source>, cache, &limit);
   if (err != cudaSuccess) return err;
   const long long segs = (long long)nimg * ((nt + kThreads - 1) / kThreads);
   // The fewest CTAs that take the same number of segments each.
   const long long per = (segs + limit - 1) / limit;
   const int grid = (int)((segs + per - 1) / per);
-  block_stats_kernel<kWantHist, kWantBits><<<grid, kThreads, 0, s>>>(
-      (const int16_t*)blocks, nimg, nt, (const int*)slot_row,
+  block_stats_kernel<kWantHist, kWantBits, Source><<<grid, kThreads, 0, s>>>(
+      src, nimg, nt, (const int*)slot_row,
       (const int*)prev_row, (const int*)prev_slot, ny, (const int*)tables,
       tables_stride, (unsigned long long*)totals, (int*)hist,
       (int*)block_bits);
@@ -615,8 +727,9 @@ int fennec_jpeg_resident_ctas(int deposit) {
   int out = 0;
   const cudaError_t err =
       deposit ? resident_ctas(deposit_kernel, cache_b, &out)
-              : resident_ctas(block_stats_kernel<false, false>, cache_a,
-                              &out);
+              : resident_ctas(
+                    block_stats_kernel<false, false, PackedSource>, cache_a,
+                    &out);
   return err == cudaSuccess ? out : -(int)err;
 }
 
@@ -638,23 +751,49 @@ int fennec_jpeg_block_stats(const void* blocks, int nimg, int nt,
   cudaError_t err = cudaMemsetAsync(sums, 0, total_bytes + hist_bytes, s);
   if (err != cudaSuccess) return (int)err;
   void* hist = want_hist ? (char*)sums + total_bytes : nullptr;
+  const PackedSource src{(const int16_t*)blocks, nt};
   if (want_hist && block_bits != nullptr)
-    err = launch_stats<true, true>(blocks, nimg, nt, slot_row, prev_row,
+    err = launch_stats<true, true>(src, nimg, nt, slot_row, prev_row,
                                    prev_slot, ny, tables, tables_stride,
                                    sums, hist, block_bits, s);
   else if (want_hist)
-    err = launch_stats<true, false>(blocks, nimg, nt, slot_row, prev_row,
+    err = launch_stats<true, false>(src, nimg, nt, slot_row, prev_row,
                                     prev_slot, ny, tables, tables_stride,
                                     sums, hist, block_bits, s);
   else if (block_bits != nullptr)
-    err = launch_stats<false, true>(blocks, nimg, nt, slot_row, prev_row,
+    err = launch_stats<false, true>(src, nimg, nt, slot_row, prev_row,
                                     prev_slot, ny, tables, tables_stride,
                                     sums, hist, block_bits, s);
   else
-    err = launch_stats<false, false>(blocks, nimg, nt, slot_row, prev_row,
+    err = launch_stats<false, false>(src, nimg, nt, slot_row, prev_row,
                                      prev_slot, ny, tables, tables_stride,
                                      sums, hist, block_bits, s);
   return (int)err;
+}
+
+// K4.  y (nimg, ny, 64), cb and cr (nimg, nc, 64) float32 coefficients,
+// 16-byte aligned; qtables (101, 2, 64) float32; quality (nimg,) int64 on
+// the device, clamped to [0, 100] by the kernel; tables (1, 2, 272) int32.
+// totals: nimg 64-bit bit totals, zeroed here.  Returns a cudaError_t.
+int fennec_jpeg_quantize_count(const void* y, const void* cb, const void* cr,
+                               int nimg, int ny, int nc,
+                               const void* slot_row, const void* prev_row,
+                               const void* prev_slot, const void* qtables,
+                               const void* quality, const void* tables,
+                               void* totals, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(
+      totals, 0, (size_t)nimg * sizeof(unsigned long long), s);
+  if (err != cudaSuccess) return (int)err;
+  const int nt = ny + 2 * nc;
+  const CoefSource src{(const float*)y,  (const float*)cb,
+                       (const float*)cr, ny,
+                       nc,               nt,
+                       (const float*)qtables,
+                       (const long long*)quality};
+  return (int)launch_stats<false, false>(src, nimg, nt, slot_row, prev_row,
+                                         prev_slot, ny, tables, 0, totals,
+                                         nullptr, nullptr, s);
 }
 
 // K3b.  word_base (nimg + 1,) int64 on the device, or NULL for one image

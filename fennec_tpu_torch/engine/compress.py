@@ -6,10 +6,12 @@ decode → SSIM on the host per bisection step (compress.go:21-87).  Here:
   1. the forward DCT runs once per image (quality-independent);
   2. a 7-step Python loop over (B,) tensors runs the bisection on the
      device: each probe re-quantizes the cached coefficient planes at its
-     quality, IDCTs them blockwise, converts colour, box-downsamples and
-     scores windowed SSIM against the cached downsampled original (kernel
-     K1 on CUDA tensors, ops/ssim_cuda.py).  No value leaves the device
-     inside the loop; one copy to the host follows it;
+     quality, IDCTs them blockwise, converts colour and box-downsamples
+     (on CUDA tensors all of it is kernel K2, ops/probe_recon_cuda.py;
+     probe_luminance_plain is its plain version) and scores windowed
+     SSIM against the cached downsampled original (kernel K1 on CUDA
+     tensors, ops/ssim_cuda.py).  No value leaves the device inside the
+     loop; one copy to the host follows it;
   3. the winning quality is Huffman-coded on the device (kernel K3,
      parallel/batched.emit_scans) or by the host C++ encoder, as
      Options.device_entropy says (device_entropy_on).
@@ -33,7 +35,12 @@ from ..codecs.jpeg import encode_jpeg_from_coefs, forward_dct
 from ..image import is_grayscale, to_gray, to_nrgba_ref
 from ..ops import dct as dct_ops
 from ..ops.color import clamp_u8, ycbcr_to_rgb
-from ..ops.resize import box_weights_device, separable_resample
+from ..ops.probe_recon_cuda import probe_recon
+from ..ops.resize import (
+    box_rectangles_device,
+    box_weights_device,
+    separable_resample,
+)
 from ..ops.ssim import (
     WINDOW_SIZE,
     pixel_ssim_lum,
@@ -130,8 +137,10 @@ class SearchInputs:
 
     cplanes: coefficient planes (B, ph, pw), (B, ch, cw), (B, ch, cw);
     lum_orig: the original's SSIMFast luminance (B, dh, dw); box_wh/box_wv:
-    the SSIMFast box weights, None when no downsample is needed; tables:
-    the (101, 2, 64) quality tables; dmat: the 8×8 DCT matrix."""
+    the SSIMFast box weights and box_rectangles the same rectangles as
+    kernel K2 reads them (ops/resize.box_rectangles), None when no
+    downsample is needed; tables: the (101, 2, 64) quality tables; dmat:
+    the 8×8 DCT matrix."""
 
     cplanes: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
     lum_orig: torch.Tensor
@@ -142,6 +151,7 @@ class SearchInputs:
     subsample: bool
     h: int
     w: int
+    box_rectangles: Optional[torch.Tensor] = None
 
 
 def prepare_search(imgs: torch.Tensor, subsample: bool):
@@ -158,10 +168,11 @@ def search_inputs(imgs: torch.Tensor, coefs, subsample: bool
     dev = imgs.device
     h, w = int(imgs.shape[1]), int(imgs.shape[2])
     ds_w, ds_h = ssim_fast_dims(w, h)
-    box_wh = box_wv = None
+    box_wh = box_wv = rectangles = None
     planes = imgs[..., :3].permute(0, 3, 1, 2)  # (B, 3, H, W) r, g, b
     if (ds_w, ds_h) != (w, h):
         box_wh, box_wv = box_weights_device(w, h, ds_w, ds_h, dev)
+        rectangles = box_rectangles_device(w, h, ds_w, ds_h, dev)
         planes = _box_down_plane(planes, box_wh, box_wv)
     lum_orig = _luminance(planes[:, 0], planes[:, 1], planes[:, 2])
 
@@ -174,12 +185,20 @@ def search_inputs(imgs: torch.Tensor, coefs, subsample: bool
     tables = quality_tables_on(dev)
     dmat = torch.from_numpy(dct_ops.dct_matrix().astype(np.float32)).to(dev)
     return SearchInputs(cplanes, lum_orig.contiguous(), box_wh, box_wv,
-                        tables, dmat, subsample, h, w)
+                        tables, dmat, subsample, h, w, rectangles)
 
 
 def probe_luminance(inp: SearchInputs, quality: torch.Tensor) -> torch.Tensor:
     """SSIMFast luminance (B, dh, dw) of the decode-model reconstruction
-    at (B,) int64 qualities."""
+    at (B,) int64 qualities: kernel K2 on CUDA planes, its plain version
+    probe_luminance_plain on CPU planes."""
+    return probe_recon(inp, quality)
+
+
+def probe_luminance_plain(inp: SearchInputs,
+                          quality: torch.Tensor) -> torch.Tensor:
+    """K2's function in plain torch ops, on the planes' device: what the
+    CPU runs and what K2 is held against on the card."""
     qtabs = inp.tables[quality]  # (B, 2, 64)
     r, g, b = _reconstruct_rgb_planes(*inp.cplanes, qtabs, inp.dmat,
                                       inp.subsample, inp.h, inp.w)

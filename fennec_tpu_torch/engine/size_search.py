@@ -4,12 +4,13 @@ Counterpart of fennec_tpu/engine/size_search.py (size_bisect_traceable).
 The reference runs one full host encode per bisection step
 (targetsize.go:146-166); here each of the 7 steps re-quantizes cached
 forward-DCT coefficients at the step's quality and counts the exact scan
-bits with the size oracle: on a CUDA device one launch of kernel K3a
-(ops/jpeg_emit_cuda.py) over the packed int16 blocks, its per-image
-total under the standard tables; on the CPU ops/jpeg_size.scan_bits, the
-same count in plain torch.  The loop runs over 0-d or (B,) tensors with
-no host sync inside it, like engine/compress.py's _bisect_device_batch:
-the caller copies (best_q, found) back once.
+bits with the size oracle: on a CUDA device one launch of kernel K4
+(ops/jpeg_emit_cuda.quantize_count), which reads the float32 coefficients
+once, quantizes them as it stages them and sums the bits per image under
+the standard tables; on the CPU ops/jpeg_size.scan_bits, the same count
+in plain torch.  The loop runs over 0-d or (B,) tensors with no host sync
+inside it, like engine/compress.py's _bisect_device_batch: the caller
+copies (best_q, found) back once.
 """
 
 from __future__ import annotations
@@ -20,9 +21,12 @@ import numpy as np
 import torch
 
 from ..ops import dct as dct_ops
-from ..ops.jpeg_emit import layout_on, std_tables_on
-from ..ops.jpeg_emit_cuda import oracle_stats
+from ..ops.jpeg_emit import layout_on, quantize_packed, std_tables_on
+from ..ops.jpeg_emit_cuda import check_coefs, quantize_count
 from ..ops.jpeg_size import scan_bits
+
+__all__ = ["MAX_STEPS", "quality_tables_on", "quantize_at",
+           "quantize_packed", "scan_bytes_at", "size_bisect"]
 
 MAX_STEPS = 7  # binary search over [1, 100]
 
@@ -52,38 +56,45 @@ def quantize_at(coefs: Sequence[torch.Tensor], quality: torch.Tensor):
             dct_ops.quantize_blocks(coefs[2], qt[..., 1, :]))
 
 
-def quantize_packed(coefs: Sequence[torch.Tensor],
-                    qtabs: torch.Tensor) -> torch.Tensor:
-    """(B, NT, 64) int16 blocks, y|cb|cr, of (B, N, 64) coefficient
-    blocks quantized at (B, 2, 64) [luma, chroma] tables: what the
-    emission kernels and the size oracle take.  Baseline coefficients
-    stay below 2^11 at any table, so the cast is exact."""
-    return torch.cat([
-        dct_ops.quantize_blocks(coefs[0], qtabs[:, None, 0]),
-        dct_ops.quantize_blocks(coefs[1], qtabs[:, None, 1]),
-        dct_ops.quantize_blocks(coefs[2], qtabs[:, None, 1])],
-        dim=1).to(torch.int16)
+class _CardOracle:
+    """The size oracle's inputs on a CUDA device, checked once for all
+    the steps of a bisection: contiguous (B, N, 64) coefficients (one
+    image's (N, 64) gets a batch axis), the geometry's scan layout, the
+    standard code tables and the quality tables."""
+
+    def __init__(self, coefs, padded_h: int, padded_w: int,
+                 subsample: bool) -> None:
+        dev = coefs[0].device
+        self.single = coefs[0].dim() == 2
+        if self.single:
+            coefs = [c[None] for c in coefs]
+        self.coefs = [c.contiguous() for c in coefs]
+        self.lay = layout_on(padded_h, padded_w, subsample, dev)
+        self.std = std_tables_on(dev)
+        self.qtables = quality_tables_on(dev)
+        check_coefs(self.coefs, self.qtables, self.lay, self.std)
+
+    def scan_bytes(self, quality: torch.Tensor) -> torch.Tensor:
+        """One launch of K4 (it clamps the quality itself), then
+        ceil(bits / 8)."""
+        bits = quantize_count.launch(self.coefs, self.qtables,
+                                     quality.reshape(-1).to(torch.int64),
+                                     self.lay, self.std)
+        if self.single:
+            bits = bits[0]
+        return torch.div(bits + 7, 8, rounding_mode="floor")
 
 
 def scan_bytes_at(coefs, quality: torch.Tensor, padded_h: int,
                   padded_w: int, subsample: bool) -> torch.Tensor:
-    """ceil(scan bits / 8) at `quality`: the scan size before 0xFF
-    stuffing.  (N, 64) components with a 0-d quality are one image."""
-    dev = coefs[0].device
-    if dev.type == "cuda":
-        single = coefs[0].dim() == 2
-        if single:
-            coefs = [c[None] for c in coefs]
-        qtabs = quality_tables_on(dev)[quality.clamp(0, 100).reshape(-1)]
-        packed = quantize_packed(coefs, qtabs)
-        bits = oracle_stats(packed, layout_on(padded_h, padded_w, subsample,
-                                              dev),
-                            std_tables_on(dev)).totals
-        if single:
-            bits = bits[0]
-    else:
-        bits = scan_bits(*quantize_at(coefs, quality), padded_h, padded_w,
-                         subsample)
+    """ceil(scan bits / 8) at `quality` (clamped to [0, 100]): the scan
+    size before 0xFF stuffing.  (N, 64) components with a 0-d quality are
+    one image."""
+    if coefs[0].device.type == "cuda":
+        return _CardOracle(coefs, padded_h, padded_w,
+                           subsample).scan_bytes(quality)
+    bits = scan_bits(*quantize_at(coefs, quality), padded_h, padded_w,
+                     subsample)
     return torch.div(bits + 7, 8, rounding_mode="floor")
 
 
@@ -108,11 +119,16 @@ def size_bisect(coefs, padded_h: int, padded_w: int, subsample: bool,
     lo, hi, target = as_tensor(lo0), as_tensor(hi0), as_tensor(target_bytes)
     best_q = torch.zeros(shape, dtype=torch.int64, device=dev)
     found = torch.zeros(shape, dtype=torch.bool, device=dev)
+    if dev.type == "cuda":
+        scan_bytes = _CardOracle(coefs, padded_h, padded_w,
+                                 subsample).scan_bytes
+    else:
+        def scan_bytes(q: torch.Tensor) -> torch.Tensor:
+            return scan_bytes_at(coefs, q, padded_h, padded_w, subsample)
     for _ in range(MAX_STEPS):
         active = lo <= hi
         mid = torch.div(lo + hi, 2, rounding_mode="floor")
-        fits = scan_bytes_at(coefs, mid, padded_h, padded_w,
-                             subsample) <= target
+        fits = scan_bytes(mid) <= target
         ok = active & fits
         best_q = torch.where(ok, mid, best_q)
         found = found | ok

@@ -60,25 +60,50 @@ def lanczos_weights(dst_size: int, src_size: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=512)
-def box_weights(dst_size: int, src_size: int) -> np.ndarray:
-    """(dst_size, src_size) float64 box-filter weight matrix.
+def box_bounds(dst_size: int, src_size: int):
+    """(s0, s1) int32 arrays of length dst_size: output d averages source
+    indices [s0[d], s1[d]).
 
     Boundaries match boxDownsample (reference ssim.go:244-284):
     s0 = floor(d * ratio), s1 = floor((d+1) * ratio), clamped, with the
-    degenerate-box fixups; each row holds 1/count over [s0, s1).
-    """
+    degenerate-box fixups.  Both are non-decreasing; a rectangle may be
+    empty (s0 == s1 == 0, when the source is scaled up)."""
     ratio = src_size / dst_size
-    w = np.zeros((dst_size, src_size), dtype=np.float64)
+    s0 = np.zeros(dst_size, dtype=np.int32)
+    s1 = np.zeros(dst_size, dtype=np.int32)
     for d in range(dst_size):
-        s0 = int(d * ratio)
-        s1 = int((d + 1) * ratio)
-        if s1 > src_size:
-            s1 = src_size
-        if s0 >= s1:
-            s0 = s1 - 1
-        if s0 < 0:
-            s0 = 0
-        count = s1 - s0
+        a = int(d * ratio)
+        b = int((d + 1) * ratio)
+        if b > src_size:
+            b = src_size
+        if a >= b:
+            a = b - 1
+        if a < 0:
+            a = 0
+        s0[d], s1[d] = a, b
+    s0.setflags(write=False)  # cached + shared
+    s1.setflags(write=False)
+    return s0, s1
+
+
+def box_cover(dst_size: int, src_size: int):
+    """(lo, hi) int32 arrays of length src_size: source index s lies in
+    the rectangles [lo[s], hi[s]) of box_bounds (usually one; none where
+    the rectangles leave a gap, several where the source is scaled up)."""
+    s0, s1 = box_bounds(dst_size, src_size)
+    src = np.arange(src_size)
+    lo = np.searchsorted(s1, src, side="right")  # rectangles ended by s
+    hi = np.searchsorted(s0, src, side="right")  # rectangles begun by s
+    return lo.astype(np.int32), hi.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=512)
+def box_weights(dst_size: int, src_size: int) -> np.ndarray:
+    """(dst_size, src_size) float64 box-filter weight matrix: each row
+    holds 1/count over its rectangle of box_bounds."""
+    w = np.zeros((dst_size, src_size), dtype=np.float64)
+    for d, (s0, s1) in enumerate(zip(*box_bounds(dst_size, src_size))):
+        count = int(s1) - int(s0)
         if count > 0:
             w[d, s0:s1] = 1.0 / count
     return w

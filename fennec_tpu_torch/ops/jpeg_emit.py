@@ -47,13 +47,13 @@ from __future__ import annotations
 
 import functools
 import threading
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..codecs import tables as std_tables
-from .dct import ZIGZAG
+from .dct import ZIGZAG, quantize_blocks
 from .jpeg_size import mcu_order
 
 TABLE = 16 + 256  # entries per class: DC then AC
@@ -286,6 +286,32 @@ def block_stats_plain(packed: torch.Tensor, lay: ScanLayout,
                        s["eob"].to(torch.int64).reshape(-1))
         hist = acc.reshape(bsz, HIST).to(torch.int32)
     return BlockStats(bits if want_bits else None, hist, totals)
+
+
+def quantize_packed(coefs: Sequence[torch.Tensor],
+                    qtabs: torch.Tensor) -> torch.Tensor:
+    """(B, NT, 64) int16 blocks, y|cb|cr, of (B, N, 64) coefficient
+    blocks quantized at (B, 2, 64) [luma, chroma] tables: what the
+    emission kernels take.  Baseline coefficients stay below 2^11 at any
+    table, so the cast is exact."""
+    return torch.cat([
+        quantize_blocks(coefs[0], qtabs[:, None, 0]),
+        quantize_blocks(coefs[1], qtabs[:, None, 1]),
+        quantize_blocks(coefs[2], qtabs[:, None, 1])],
+        dim=1).to(torch.int16)
+
+
+def quantize_count_plain(coefs: Sequence[torch.Tensor],
+                         qtables: torch.Tensor, quality: torch.Tensor,
+                         lay: ScanLayout, tables: torch.Tensor
+                         ) -> torch.Tensor:
+    """K4's function, the size oracle's step: (B,) int64 scan bits under
+    `tables` of (B, N, 64) float32 coefficient blocks (y, cb, cr)
+    quantized at the (101, 2, 64) tables' entries for (B,) int64
+    qualities, clamped to [0, 100]: the packed quantize, then K3a's
+    totals."""
+    packed = quantize_packed(coefs, qtables[quality.clamp(0, 100)])
+    return block_stats_plain(packed, lay, tables).totals
 
 
 def deposit_plain(packed: torch.Tensor, lay: ScanLayout,

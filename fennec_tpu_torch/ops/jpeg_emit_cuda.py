@@ -7,9 +7,13 @@ K3a's per-image totals, the size oracle's bit count
 (fennec_tpu/ops/jpeg_size.py component_scan_bits :102, scan_bits_device
 :138).  At first use on a CUDA tensor the source is compiled with nvcc
 for sm_90a into fennec_tpu_torch/_build/ and loaded with ctypes, as K1 is
-(ops/ssim_cuda.py).  Two entry points, each with its wrapper and its
+(ops/ssim_cuda.py).  Three entry points, each with its wrapper and its
 launch count:
 
+  quantize_count (K4) the size oracle's step in one launch: K3a's totals
+                     from the unquantized float32 coefficients and a
+                     (B,) quality on the device, the quantization done
+                     where the kernel stages its blocks;
   block_stats (K3a)  the scan's bits per image under given tables and,
                      when asked for, the per-image symbol histograms and
                      the bits of every block; `oracle_stats` is the same
@@ -32,7 +36,7 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -43,6 +47,7 @@ from .jpeg_emit import (
     ScanLayout,
     block_stats_plain,
     deposit_plain,
+    quantize_count_plain,
 )
 from .ssim_cuda import compile_library, is_current
 
@@ -87,6 +92,9 @@ class EmitLibrary:
                 lib.fennec_jpeg_block_stats.restype = i
                 lib.fennec_jpeg_block_stats.argtypes = [
                     p, i, i, p, p, p, i, p, i, p, i, p, p]
+                lib.fennec_jpeg_quantize_count.restype = i
+                lib.fennec_jpeg_quantize_count.argtypes = [
+                    p, p, p, i, i, i, p, p, p, p, p, p, p, p]
                 lib.fennec_jpeg_deposit.restype = i
                 lib.fennec_jpeg_deposit.argtypes = [
                     p, i, i, p, p, p, i, p, i, p, p, ll, ll, p]
@@ -282,8 +290,98 @@ class DepositKernel(_Counted):
         return buf[:n_words + 1]
 
 
+def check_coefs(coefs: Sequence[torch.Tensor], qtables: torch.Tensor,
+                lay: ScanLayout, tables: torch.Tensor) -> None:
+    """Raise unless coefs are (B, ny, 64), (B, nc, 64), (B, nc, 64)
+    float32 contiguous, 16-byte aligned tensors of one device (B >= 1,
+    fewer than 2^31 blocks) that fill the layout, qtables is (101, 2,
+    64) float32 and tables (1, 2, 272) int32, all contiguous there."""
+    if len(coefs) != 3 or not all(isinstance(c, torch.Tensor)
+                                  for c in coefs):
+        raise TypeError("fennec: K4 takes (y, cb, cr) coefficient tensors")
+    y, cb, cr = coefs
+    dev = y.device
+    for c in coefs:
+        if c.dtype != torch.float32:
+            raise TypeError(f"fennec: K4 takes float32 coefficients, got "
+                            f"{c.dtype}")
+        if c.dim() != 3 or c.shape[2] != 64 or c.shape[0] != y.shape[0] \
+                or c.device != dev:
+            raise ValueError(f"fennec: K4 takes (B, N, 64) coefficients on "
+                             f"one device, got {tuple(c.shape)} on "
+                             f"{c.device}")
+        if not c.is_contiguous() or c.data_ptr() % 16:
+            raise ValueError("fennec: K4 takes contiguous, 16-byte aligned "
+                             "coefficients")
+    bsz, ny = y.shape[:2]
+    nt = ny + 2 * cb.shape[1]
+    if cb.shape != cr.shape or ny != lay.ny or bsz < 1 or ny < 1 \
+            or cb.shape[1] < 1 or bsz * nt >= MAX_BLOCKS:
+        raise ValueError(f"fennec: K4 coefficients {tuple(y.shape)}, "
+                         f"{tuple(cb.shape)}, {tuple(cr.shape)} do not fill "
+                         f"a layout of {lay.ny} luma blocks")
+    for name, t in (("slot_row", lay.slot_row), ("prev_row", lay.prev_row),
+                    ("prev_slot", lay.prev_slot)):
+        if (not isinstance(t, torch.Tensor) or t.dtype != torch.int32
+                or tuple(t.shape) != (nt,) or not t.is_contiguous()
+                or t.device != dev):
+            raise ValueError(f"fennec: K4 layout {name} must be ({nt},) "
+                             f"int32 on {dev}")
+    if (not isinstance(qtables, torch.Tensor)
+            or qtables.dtype != torch.float32
+            or tuple(qtables.shape) != (101, 2, 64)
+            or not qtables.is_contiguous() or qtables.device != dev):
+        raise ValueError(f"fennec: K4 quality tables must be (101, 2, 64) "
+                         f"float32 on {dev}")
+    check_tables(tables, 1, dev)
+
+
+class QuantizeCountKernel(_Counted):
+    """K4: the (B,) int64 scan bits under `tables` of (y, cb, cr)
+    float32 coefficient blocks quantized at (B,) int64 qualities on
+    their device (clamped to [0, 100]): the size oracle's step, one
+    launch, no host sync."""
+
+    def __call__(self, coefs: Sequence[torch.Tensor], qtables: torch.Tensor,
+                 quality: torch.Tensor, lay: ScanLayout,
+                 tables: torch.Tensor) -> torch.Tensor:
+        check_coefs(coefs, qtables, lay, tables)
+        return self.launch(coefs, qtables, quality, lay, tables)
+
+    def launch(self, coefs: Sequence[torch.Tensor], qtables: torch.Tensor,
+               quality: torch.Tensor, lay: ScanLayout,
+               tables: torch.Tensor) -> torch.Tensor:
+        """The call without check_coefs (it has passed: a bisection
+        checks once for its seven steps)."""
+        y, cb, cr = coefs
+        dev = y.device
+        bsz = y.shape[0]
+        if (quality.dtype != torch.int64 or tuple(quality.shape) != (bsz,)
+                or quality.device != dev or not quality.is_contiguous()):
+            raise ValueError(f"fennec: K4 takes ({bsz},) int64 qualities "
+                             f"on {dev}, got {tuple(quality.shape)} "
+                             f"{quality.dtype} on {quality.device}")
+        if not _on_card(dev):
+            return quantize_count_plain(coefs, qtables, quality, lay, tables)
+        if dev.index != torch.cuda.current_device():
+            with torch.cuda.device(dev):
+                return self.launch(coefs, qtables, quality, lay, tables)
+        lib = library.load()
+        totals = torch.empty(bsz, dtype=torch.int64, device=dev)
+        err = lib.fennec_jpeg_quantize_count(
+            y.data_ptr(), cb.data_ptr(), cr.data_ptr(), bsz, y.shape[1],
+            cb.shape[1], lay.slot_row.data_ptr(), lay.prev_row.data_ptr(),
+            lay.prev_slot.data_ptr(), qtables.data_ptr(), quality.data_ptr(),
+            tables.data_ptr(), totals.data_ptr(), _stream(dev))
+        library.check(err, "K4")
+        self.count_launch()
+        return totals
+
+
 # The instances the engines launch and chip_smoke.py counts: emission's,
-# and the size oracle's K3a (engine/size_search.py), counted apart.
+# the size oracle's step (engine/size_search.py), and K3a's totals as the
+# oracle's count over packed blocks, counted apart.
 block_stats = BlockStatsKernel()
 oracle_stats = BlockStatsKernel()
 deposit = DepositKernel()
+quantize_count = QuantizeCountKernel()

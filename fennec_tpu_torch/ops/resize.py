@@ -27,7 +27,7 @@ import torch
 from .. import device as _device
 from ..image import to_nrgba_ref
 from .color import clamp_u8
-from .filters import box_weights, lanczos_weights
+from .filters import box_bounds, box_cover, box_weights, lanczos_weights
 
 
 def resize_weights(src_w: int, src_h: int, dst_w: int,
@@ -43,8 +43,20 @@ def box_resize_weights(src_w: int, src_h: int, dst_w: int,
             box_weights(dst_h, src_h).astype(np.float32))
 
 
+def box_rectangles(src_w: int, src_h: int, dst_w: int,
+                   dst_h: int) -> Tuple[np.ndarray]:
+    """The box downsample's rectangles as kernel K2 reads them, one int32
+    array: y0, y1 (dst_h each), x0, x1 (dst_w each), then for every
+    source row the first and one-past-last rectangle that holds it
+    (src_h each), then the same for every source column (src_w each).
+    In a 1-tuple, for the weight cache."""
+    rows, cols = box_cover(dst_h, src_h), box_cover(dst_w, src_w)
+    return (np.concatenate([*box_bounds(dst_h, src_h),
+                            *box_bounds(dst_w, src_w), *rows, *cols]),)
+
+
 def weights_on(pair, device: torch.device):
-    """Host weight matrices → float32 tensors on `device`."""
+    """Host weight arrays → tensors of their type on `device`."""
     return tuple(torch.from_numpy(w).to(device) for w in pair)
 
 
@@ -80,6 +92,13 @@ def box_weights_device(src_w: int, src_h: int, dst_w: int, dst_h: int,
     """Box weights (counterpart of box_weights_device, JAX :141)."""
     return _cached_weights("box", box_resize_weights, src_w, src_h, dst_w,
                            dst_h, device)
+
+
+def box_rectangles_device(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                          device: torch.device) -> torch.Tensor:
+    """box_rectangles on `device`, cached like the weights."""
+    return _cached_weights("box_rectangles", box_rectangles, src_w, src_h,
+                           dst_w, dst_h, device)[0]
 
 
 def lanczos_weights_device(src_w: int, src_h: int, dst_w: int, dst_h: int,

@@ -370,10 +370,13 @@ def test_k3_optimal_emission_is_two_launches(cuda_device, monkeypatch):
 
 def test_size_oracle_on_card_runs_through_k3a(cuda_device, monkeypatch):
     """scan_bytes_at and size_bisect on CUDA tensors equal the CPU's
-    (plain scan_bits) on the oracle's cases, launch K3a under the
-    oracle's own count, and never take the plain version."""
+    (plain scan_bits) on the oracle's cases, launch K4 (K3a's totals from
+    the float32 coefficients, one launch a step) under its own count, and
+    never take a plain version, the packed quantize or K3a over packed
+    blocks."""
     from fennec_tpu_torch.codecs.jpeg import forward_dct
     from fennec_tpu_torch.engine import size_search
+    from fennec_tpu_torch.ops import jpeg_emit
     from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
 
     cases = []
@@ -392,13 +395,19 @@ def test_size_oracle_on_card_runs_through_k3a(cuda_device, monkeypatch):
             for c, ph, pw, sub in cases]
 
     def refuse(*args, **kw):
-        raise AssertionError("a CUDA tensor reached the plain version")
+        raise AssertionError("a CUDA tensor reached the plain version or "
+                             "the packed quantize")
 
     monkeypatch.setattr(size_search, "scan_bits", refuse)
+    monkeypatch.setattr(size_search, "quantize_packed", refuse)
+    monkeypatch.setattr(size_search, "quantize_at", refuse)
+    monkeypatch.setattr(jpeg_emit, "quantize_packed", refuse)
     monkeypatch.setattr(k3, "block_stats_plain", refuse)
+    monkeypatch.setattr(k3, "quantize_count_plain", refuse)
     for (c, ph, pw, sub), (w_batch, w_one, w_bisect) in zip(cases, want):
         c = [p.to(cuda_device) for p in c]
-        before = (k3.oracle_stats.launches, k3.block_stats.launches)
+        before = (k3.quantize_count.launches, k3.block_stats.launches,
+                  k3.oracle_stats.launches)
         got = size_search.scan_bytes_at(c, quals.to(cuda_device), ph, pw,
                                         sub)
         one = size_search.scan_bytes_at([p[2] for p in c],
@@ -411,8 +420,49 @@ def test_size_oracle_on_card_runs_through_k3a(cuda_device, monkeypatch):
                                          device=cuda_device), 1, 100)
         assert q.cpu().tolist() == w_bisect[0].tolist()
         assert found.cpu().tolist() == w_bisect[1].tolist()
-        assert k3.oracle_stats.launches == before[0] + 2 + 7
-        assert k3.block_stats.launches == before[1]
+        assert k3.quantize_count.launches == before[0] + 2 + 7
+        assert (k3.block_stats.launches, k3.oracle_stats.launches) == \
+            before[1:]
+
+
+@pytest.mark.parametrize("h,w,sub,bsz", [
+    (1, 1, True, 1), (9, 17, True, 3), (9, 17, False, 2),
+    (400, 600, True, 2), (8, 344, False, 1), (16, 368, True, 5),
+    (80, 96, True, 64), (1080, 1920, False, 1), (3024, 4032, True, 1)])
+def test_k4_matches_plain(cuda_device, h, w, sub, bsz):
+    """K4 on float32 coefficients with extreme values, exact halves and
+    per-image qualities: the integers its plain version and the earlier
+    route (packed quantize, K3a) give."""
+    from fennec_tpu_torch.engine import size_search
+    from fennec_tpu_torch.ops import jpeg_emit, jpeg_emit_cuda as k3
+
+    mult = 16 if sub else 8
+    ph, pw = h + (-h) % mult, w + (-w) % mult
+    ny = (ph // 8) * (pw // 8)
+    nc = (ph // 16) * (pw // 16) if sub else ny
+    rng = np.random.default_rng(h * w + bsz)
+    coefs = []
+    for n in (ny, nc, nc):
+        c = rng.normal(0, 30, (bsz, n, 64)) * (rng.random((bsz, n, 64)) < .3)
+        c[:, :, 0] = rng.uniform(-1020, 1020, (bsz, n))
+        c[:, ::5, 1:] = 0
+        c[:, 1::7, 63] = -900.0
+        c[:, 2::9, 5] = 0.5 * 17  # exact halves at some tables
+        coefs.append(torch.from_numpy(c.astype(np.float32)).to(cuda_device))
+    quals = torch.from_numpy(rng.integers(1, 101, bsz)).to(cuda_device)
+    quals[0] = 100
+    lay = jpeg_emit.layout_on(ph, pw, sub, cuda_device)
+    std = jpeg_emit.std_tables_on(cuda_device)
+    tables = size_search.quality_tables_on(cuda_device)
+    before = k3.quantize_count.launches
+    got = k3.quantize_count(coefs, tables, quals, lay, std)
+    again = k3.quantize_count(coefs, tables, quals, lay, std)
+    torch.cuda.synchronize()
+    assert k3.quantize_count.launches == before + 2
+    want = jpeg_emit.quantize_count_plain(coefs, tables, quals, lay, std)
+    packed = jpeg_emit.quantize_packed(coefs, tables[quals])
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert torch.equal(got, k3.block_stats(packed, lay, std).totals)
 
 
 def test_k3_never_takes_the_plain_version(cuda_device, monkeypatch):
@@ -482,3 +532,120 @@ def test_surface_on_card_matches_cpu(cuda_device):
         fn = getattr(effects, name)
         np.testing.assert_array_equal(fn(a, arg, device=cuda_device),
                                       fn(a, arg, device="cpu"))
+
+
+# ── Kernel K2: the fused probe reconstruction ───────────────────────────────
+
+
+def k2_inputs(w, h, sub, bsz, device, seed=0):
+    from fennec_tpu_torch.engine.compress import prepare_search
+
+    imgs = np.stack([photo(w, h, seed + k) for k in range(bsz)])
+    x = torch.from_numpy(imgs).to(device).to(torch.float32)
+    return prepare_search(x, sub)[0]
+
+
+def k2_alone(inp, j):
+    import dataclasses
+
+    return dataclasses.replace(
+        inp, cplanes=tuple(p[j:j + 1].contiguous() for p in inp.cplanes),
+        lum_orig=inp.lum_orig[j:j + 1].contiguous())
+
+
+# (w, h): under 8 px, ragged last blocks, a side scaled up by SSIMFast,
+# box-downs with odd ratios, 1080p.
+@pytest.mark.parametrize("sub", [True, False], ids=["420", "444"])
+@pytest.mark.parametrize("w,h,bsz", [(1, 1, 2), (9, 17, 3), (17, 9, 1),
+                                     (500, 500, 4), (499, 499, 3),
+                                     (1000, 9, 1), (600, 3, 2),
+                                     (700, 513, 2), (513, 700, 1),
+                                     (1920, 1080, 1)])
+def test_k2_matches_plain(cuda_device, w, h, bsz, sub):
+    """K2 against probe_luminance_plain on the card: equal except where a
+    channel lands on the other level (at most 1.0 in luminance, on few
+    pixels), SSIM through K1 within 1e-5, repeatable, and an image alone
+    as in its batch."""
+    from fennec_tpu_torch.engine import compress as C
+    from fennec_tpu_torch.ops.probe_recon_cuda import probe_recon
+
+    inp = k2_inputs(w, h, sub, bsz, cuda_device, seed=w + h)
+    q = torch.from_numpy(np.random.default_rng(w * h).integers(
+        1, 101, bsz)).to(cuda_device)
+    box = inp.box_rectangles is not None
+    before = (probe_recon.launches, probe_recon.finish_launches)
+    got = C.probe_luminance(inp, q)
+    again = C.probe_luminance(inp, q)
+    torch.cuda.synchronize()
+    assert (probe_recon.launches, probe_recon.finish_launches) == (
+        before[0] + 2, before[1] + 2 * int(box))
+    want = C.probe_luminance_plain(inp, q)
+    assert got.shape == want.shape == inp.lum_orig.shape
+    assert got.is_contiguous() and torch.isfinite(got).all()
+    diff = (got - want).abs()
+    assert float(diff.max()) <= 1.0 + 1e-3
+    assert int((diff != 0).sum()) <= max(1, 1e-3 * diff.numel())
+    assert torch.equal(got, again)
+    for j in {0, bsz - 1}:
+        assert torch.equal(C.probe_luminance(k2_alone(inp, j), q[j:j + 1]),
+                           got[j:j + 1])
+    if min(got.shape[1:]) > 8:
+        s_k = ssim_window(inp.lum_orig, got)
+        s_p = ssim_window(inp.lum_orig, want.contiguous())
+        assert float((s_k - s_p).abs().max()) <= ATOL
+
+
+def test_k2_on_a_side_stream(cuda_device):
+    from fennec_tpu_torch.engine import compress as C
+
+    inp = k2_inputs(700, 513, True, 3, cuda_device, seed=9)
+    q = torch.tensor([20, 55, 90], device=cuda_device)
+    want = C.probe_luminance(inp, q)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = C.probe_luminance(inp, q)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_k2_rejects_bad_inputs_on_card(cuda_device):
+    import dataclasses
+
+    from fennec_tpu_torch.engine import compress as C
+
+    inp = k2_inputs(96, 80, True, 2, cuda_device)
+    q = torch.tensor([40, 60], device=cuda_device)
+    with pytest.raises(TypeError):
+        C.probe_luminance(dataclasses.replace(
+            inp, cplanes=tuple(p.half() for p in inp.cplanes)), q)
+    with pytest.raises(ValueError):
+        C.probe_luminance(inp, q[:1])
+    with pytest.raises(ValueError):
+        C.probe_luminance(dataclasses.replace(inp, dmat=inp.dmat.cpu()), q)
+
+
+def test_standard_mode_never_takes_the_plain_probe(cuda_device, monkeypatch):
+    """compress_image on the card scores every probe through K2 (seven
+    launches) and K1 and never calls probe_luminance_plain, with and
+    without the SSIMFast downsample; the quality is the CPU's."""
+    from fennec_tpu_torch.engine import compress as C
+    from fennec_tpu_torch.ops.probe_recon_cuda import probe_recon
+
+    imgs = [photo(320, 240, 3), photo(700, 520, 4)]
+    on_cpu = [T.compress_image(None, img, T.Options(), device="cpu")
+              for img in imgs]
+
+    def refuse(*args, **kw):
+        raise AssertionError("a CUDA probe reached the plain version")
+
+    monkeypatch.setattr(C, "probe_luminance_plain", refuse)
+    monkeypatch.setattr(C, "_reconstruct_rgb_planes", refuse)
+    for img, want in zip(imgs, on_cpu):
+        before = (probe_recon.launches, ssim_window.launches)
+        got = T.compress_image(None, img, T.Options(), device=cuda_device)
+        assert probe_recon.launches == before[0] + 7
+        assert ssim_window.launches == before[1] + 7
+        assert got.jpeg_quality == want.jpeg_quality
+        assert abs(got.ssim - want.ssim) <= ATOL

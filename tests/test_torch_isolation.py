@@ -34,6 +34,7 @@ def test_import_leaves_jax_out():
             " fennec_tpu_torch.ops.jpeg_size, fennec_tpu_torch.ops.quantize,"
             " fennec_tpu_torch.ops.jpeg_emit,"
             " fennec_tpu_torch.ops.jpeg_emit_cuda,"
+            " fennec_tpu_torch.ops.probe_recon_cuda,"
             " fennec_tpu_torch.ops.effects, fennec_tpu_torch.io; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'fennec_tpu' "

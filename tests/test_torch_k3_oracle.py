@@ -14,6 +14,8 @@ three forms it replaced, the plain deposit finding its own offsets, the
 layout's prev_slot, and the wrappers' new argument checks.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -343,3 +345,134 @@ def test_oracle_counts_its_launches_apart():
     size_search.size_bisect(coefs, 32, 48, True, 900, 1, 100)
     assert (k3.block_stats.launches, k3.oracle_stats.launches,
             k3.deposit.launches) == before
+
+
+# ── K4: the quantize-and-count entry (the oracle's step in one launch) ──────
+
+
+def port_coefs(img, subsample):
+    """The port's unquantized (1, N, 64) coefficient blocks of one image
+    and the padded geometry."""
+    h, w = img.shape[:2]
+    mult = 16 if subsample else 8
+    coefs = forward_dct(torch.from_numpy(img[None]).to(torch.float32),
+                        subsample)
+    return coefs, h + (-h) % mult, w + (-w) % mult
+
+
+@pytest.mark.parametrize("name", sorted(ORACLE_CASES))
+def test_quantize_count_plain_equals_scan_bits_and_jax(name):
+    """K4's plain version (the packed quantize, then K3a's plain totals)
+    from the float32 coefficients and a quality tensor: the integer
+    scan_bits gives, and the one the JAX package's quantize and
+    scan_bits_device give on the same coefficients."""
+    make, quality, subsample = ORACLE_CASES[name]
+    coefs, ph, pw = port_coefs(make(), subsample)
+    lay = temit.layout_on(ph, pw, subsample, CPU)
+    q = torch.tensor([quality])
+    got = temit.quantize_count_plain(coefs, size_search.quality_tables_on(CPU),
+                                     q, lay, temit.std_tables_on(CPU))
+    assert got.dtype == torch.int64 and got.shape == (1,)
+    parts = size_search.quantize_at(coefs, q)
+    assert got.tolist() == scan_bits(*parts, ph, pw, subsample).tolist()
+    jq = quantize_coefs_device(
+        tuple(jnp.asarray(c[0].numpy()) for c in coefs),
+        jnp.asarray(all_quality_tables()[quality]), subsample)
+    assert got.tolist() == [int(jax_scan_bits(*jq, ph, pw, subsample))]
+    # Through the wrapper, which takes the plain version on the CPU and
+    # launches nothing.
+    before = k3.quantize_count.launches
+    assert k3.quantize_count(coefs, size_search.quality_tables_on(CPU), q,
+                             lay, temit.std_tables_on(CPU)).tolist() == \
+        got.tolist()
+    assert k3.quantize_count.launches == before
+
+
+def test_quantize_count_plain_batched_and_clamped():
+    """Per-image qualities on the device, 0 and 101 clamped as
+    scan_bytes_at clamps them."""
+    imgs = np.stack([make_noise_image(64, 48, seed=s) for s in range(4)])
+    coefs = forward_dct(torch.from_numpy(imgs).to(torch.float32), True)
+    lay = temit.layout_on(48, 64, True, CPU)
+    tables = size_search.quality_tables_on(CPU)
+    for quals in ([1, 35, 70, 100], [0, 101, -5, 50]):
+        q = torch.tensor(quals)
+        bits = temit.quantize_count_plain(coefs, tables, q, lay,
+                                          temit.std_tables_on(CPU))
+        want = size_search.scan_bytes_at(coefs, q.clamp(0, 100), 48, 64,
+                                         True)
+        assert torch.div(bits + 7, 8, rounding_mode="floor").tolist() == \
+            want.tolist()
+
+
+def test_quantize_rounds_with_the_float32_add():
+    """0.49999997 · q quantizes to 1 (the float32 sum 0.49999997 + 0.5 is
+    1.0), as ops/dct.quantize_blocks has it and K4's kernel spells it
+    out; roundf, rintf or an integer rule would give 0 there.  Exact
+    halves go away from zero, on both signs."""
+    q = np.float32(16.0)
+    below = np.nextafter(np.float32(0.5), np.float32(0))  # 0.49999997
+    assert np.float32(below) + np.float32(0.5) == np.float32(1.0)
+    vals = np.zeros((1, 1, 64), np.float32)
+    vals[0, 0, :6] = [below * q, -below * q, 0.5 * q, -0.5 * q, 1.5 * q,
+                      0.25 * q]
+    table = torch.full((1, 2, 64), float(q))
+    coefs = (torch.from_numpy(vals), torch.zeros(1, 1, 64),
+             torch.zeros(1, 1, 64))
+    packed = size_search.quantize_packed(coefs, table)
+    assert packed[0, 0, :6].tolist() == [1, -1, 1, -1, 2, 0]
+    want = tdct.quantize_blocks(coefs[0], table[:, None, 0])
+    assert torch.equal(packed[:, :1].to(torch.float32), want)
+    assert np.round(below) == 0 and np.rint(np.float32(0.5)) == 0
+    # The kernel's source spells the same three operations out.
+    src = open(k3.SOURCE).read()
+    body = src[src.index("__device__ __forceinline__ int quantize("):]
+    body = body[:body.index("}")]
+    assert "__fdiv_rn(c, q)" in body
+    assert "floorf(__fadd_rn(fabsf(s), 0.5f))" in body
+    code = re.sub(r"//[^\n]*", "", src)
+    assert "roundf" not in code and "rintf" not in code
+    assert not any("fast_math" in f for f in k3.NVCC_FLAGS)
+
+
+def test_scan_bytes_at_is_one_entry_on_the_card():
+    """The card's route of scan_bytes_at names K4 alone: no packed
+    quantize, no K3a over int16 blocks; and quantize_packed stays one
+    function under both of its names."""
+    import inspect
+
+    assert size_search.quantize_packed is temit.quantize_packed
+    src = inspect.getsource(size_search._CardOracle)
+    assert "quantize_count.launch" in src
+    assert "quantize_packed" not in src and "oracle_stats" not in src
+    assert ".item()" not in src and ".tolist()" not in src
+    assert ".cpu()" not in src
+    c_src = open(k3.SOURCE).read()
+    assert "fennec_jpeg_quantize_count" in c_src
+    # One launch site serves K3a and K4; K3b has its own.
+    assert len(re.findall(r"<<<", c_src)) == 2
+
+
+def test_check_coefs_refuses_what_the_kernel_cannot_take():
+    coefs, ph, pw = port_coefs(make_noise_image(48, 32, seed=1), True)
+    lay = temit.layout_on(ph, pw, True, CPU)
+    tables = size_search.quality_tables_on(CPU)
+    std = temit.std_tables_on(CPU)
+    k3.check_coefs(coefs, tables, lay, std)
+    with pytest.raises(TypeError, match="float32"):
+        k3.check_coefs([c.double() for c in coefs], tables, lay, std)
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.check_coefs([coefs[0].transpose(1, 2).contiguous().transpose(1, 2)
+                        [:, :, :64], *coefs[1:]], tables, lay, std)
+    with pytest.raises(ValueError, match="layout"):
+        k3.check_coefs(coefs, tables, temit.layout_on(16, 16, True, CPU),
+                       std)
+    with pytest.raises(ValueError, match="quality tables"):
+        k3.check_coefs(coefs, tables[:100].contiguous(), lay, std)
+    with pytest.raises(ValueError, match="tables"):
+        k3.check_coefs(coefs, tables, lay, std.expand(2, 2, 272).contiguous())
+    with pytest.raises(ValueError, match="qualities"):
+        k3.quantize_count(coefs, tables, torch.tensor([5, 6]), lay, std)
+    with pytest.raises(ValueError, match="qualities"):
+        k3.quantize_count(coefs, tables, torch.tensor([5], dtype=torch.int32),
+                          lay, std)
