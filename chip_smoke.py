@@ -6,7 +6,7 @@ them.
 With no argument, every phase below; it needs one card.  --k2 runs
 phases 1 and 2, K2's part of phase 3 and the size oracle's check of
 phase 10 alone (the two search loops' kernels against their plain
-versions); --k3 runs phases 1, 2 and 11 and the size oracle's check (K3
+versions, and K2 against the first K2); --k3 runs phases 1, 2 and 11 and the size oracle's check (K3
 against its plain version and, in turns, against the first K3);
 --digests prints digests of a few main-path outputs, to compare two
 checkouts on one card.  None of these prints the result lines.
@@ -14,9 +14,9 @@ checkouts on one card.  None of these prints the result lines.
 Phases, each raising on failure:
   1. environment: a CUDA card, its name and power limit, TF32 off;
   2. build: kernels K1, K2 and K3 with K4's entry (nvcc, sm_90a), the
-     first K3 (kept under bench_sources/ to be timed against) and the
-     host C++ entropy coder, from the sources in this checkout, all five
-     at once;
+     first K3 and the first K2 (kept under bench_sources/ to be timed
+     against) and the host C++ entropy coder, from the sources in this
+     checkout, all six at once;
   3. K1 against its plain PyTorch version on the card, at the shapes the
      main paths give it and beyond, the batch engines' (64, 500, 500)
      included, and at ragged shapes for its strips and bands: max |diff|
@@ -34,8 +34,11 @@ Phases, each raising on failure:
      and attributed: the IDCT's summation order, or the plain version's
      float32 box mean at an exact k + 1/2), SSIM through K1 within 1e-5
      of the plain route, two calls bit-identical, the last image alone
-     bit-identical to its luminance in the batch; K2's device time, host
-     time per call, bound and share, and the plain version's time;
+     bit-identical to its luminance in the batch, and the luminance
+     bit-identical to the first K2's (FIRST_K2_SOURCE); K2's device time
+     and device operations per call, CUDA-event time and host time per
+     call, in turns with the first K2 (new, first, first, new), its bound
+     and share, and the plain version's time;
   4. the single-image path through the public entry points: compress_file
      on a 12 MP (4032x3024) photo-like JPEG, cold then warm; with
      max_width=1920; compress_bytes on four 1920x1080 requests at ULTRA,
@@ -187,6 +190,9 @@ INT_ISSUE_PER_S = 33.4e12
 # The first K3 (one thread per block, three launches and a cumsum per
 # optimal-table emission), kept only to be timed against the current one.
 FIRST_K3_SOURCE = os.path.join("bench_sources", "jpeg_emit_first.cu")
+# The first K2 (PR 7's design), kept to be held bit for bit and timed in
+# turns against the current one.
+FIRST_K2_SOURCE = os.path.join("bench_sources", "probe_recon_first.cu")
 DECODE_SSIM_ATOL = 1e-3  # probe model vs real decode: IDCT order, ties
 # The coefficient path's contract against per-image compression
 # (tests/test_coef_fastpath.py:60-97, tests/test_torch_batch.py).
@@ -327,6 +333,34 @@ def profiled_all_device(fn, iters: int):
     return total / iters / 1e3, sum(e.count for e in rows) / iters
 
 
+def profiled_per_call(fn, iters: int, name: str):
+    """(device ms, device operations) per fn() call, which launches one
+    kernel whose name holds `name` and maybe other device work (memsets,
+    more kernels): torch.profiler's CUDA rows of everything, over the
+    number of `name` launches it recorded (it drops some records of a long
+    run of short launches; see profiled_device_ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        calls = sum(e.count for e in rows if name in e.key)
+        if calls:
+            total = sum(getattr(e, "self_device_time_total",
+                                getattr(e, "self_cuda_time_total", 0))
+                        for e in rows)
+            return total / calls / 1e3, sum(e.count for e in rows) / calls
+    raise AssertionError(f"torch.profiler recorded no launch of '{name}' "
+                         f"in {iters} calls")
+
+
 def host_us(fn, iters: int) -> float:
     """Host µs per fn() call: the time to enqueue it, the device not
     awaited."""
@@ -345,7 +379,7 @@ def host_us(fn, iters: int) -> float:
 # reconstruction), each call counted from 0 just before it and read just
 # after.
 K3_MAIN = {"block_stats": 0, "deposit": 0, "oracle": 0}
-K2_MAIN = {"recon": 0, "finish": 0}
+K2_MAIN = {"recon": 0}
 
 
 def k3_zero() -> None:
@@ -358,7 +392,6 @@ def k3_zero() -> None:
     k3.oracle_stats.launches = 0
     k3.quantize_count.launches = 0
     probe_recon.launches = 0
-    probe_recon.finish_launches = 0
 
 
 def k3_take(tag: str, dev, emissions: int, oracle_steps: int = 0,
@@ -381,7 +414,6 @@ def k3_take(tag: str, dev, emissions: int, oracle_steps: int = 0,
     K3_MAIN["deposit"] += b
     K3_MAIN["oracle"] += o
     K2_MAIN["recon"] += p
-    K2_MAIN["finish"] += probe_recon.finish_launches
     if dev.type == "cuda" and (a != b or b < emissions or o < oracle_steps
                                or (emissions == 0 and b != 0)
                                or k3.oracle_stats.launches or p < probes):
@@ -453,7 +485,7 @@ def phase_kernel(dev, ssim_window, batched_ssim_plain):
 # SSIMFast (9x1000 and 3x600: rectangles of one row, some empty), a
 # downsample with odd ratios.
 K2_CASES = [("12mp_420_q30", 4032, 3024, 1, True, 30, True),
-            ("12mp_420_q90", 4032, 3024, 1, True, 90, False),
+            ("12mp_420_q90", 4032, 3024, 1, True, 90, True),
             ("1080p_420", 1920, 1080, 1, True, 50, True),
             ("chunk_64x500x500_420", 500, 500, 64, True, None, True),
             ("t2_lanes_64x499x499_420", 499, 499, 64, True, None, True),
@@ -485,9 +517,11 @@ def k2_bound(inp, bsz: int):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_k2(dev, cases=None, timed: bool = True):
-    """K2 against its plain version (see the module docstring, phase 3).
-    Returns (largest |luminance difference|, {tag: times})."""
+def phase_k2(dev, cases=None, timed: bool = True, first=None):
+    """K2 against its plain version and, given `first` (a FirstK2), bit
+    for bit against the first K2, timed in turns with it (see the module
+    docstring, phase 3).  Returns (largest |luminance difference|, {tag:
+    times})."""
     import dataclasses
 
     from fennec_tpu_torch.engine import compress as C
@@ -511,7 +545,7 @@ def phase_k2(dev, cases=None, timed: bool = True):
         del x
         q = (torch.from_numpy(rng.integers(1, 101, n)) if quality is None
              else torch.full((n,), quality, dtype=torch.int64)).to(dev)
-        before = (probe_recon.launches, probe_recon.finish_launches)
+        before = probe_recon.launches
         got = C.probe_luminance(inp, q)
         again = C.probe_luminance(inp, q)
         want = C.probe_luminance_plain(inp, q)
@@ -519,14 +553,15 @@ def phase_k2(dev, cases=None, timed: bool = True):
         on_card = dev.type == "cuda"
         if on_card:
             torch.cuda.synchronize()
-            if (probe_recon.launches, probe_recon.finish_launches) != (
-                    before[0] + 2, before[1] + 2 * int(box)):
+            if probe_recon.launches != before + 2:
                 raise AssertionError(f"K2 {tag}: two calls did not launch "
                                      f"the kernel twice")
         ds_w, ds_h = ssim_fast_dims(w, h)
         if tuple(got.shape) != (n, ds_h, ds_w) or got.shape != want.shape:
             raise AssertionError(f"K2 {tag}: shape {tuple(got.shape)}, "
                                  f"plain {tuple(want.shape)}")
+        # The first K2 on the same inputs: the same luminance, bit for bit.
+        same_as_first = first is None or torch.equal(got, first(inp, q))
         diff = (got - want).abs()
         n_diff = int((diff != 0).sum())
         err = float(diff.max())
@@ -559,31 +594,63 @@ def phase_k2(dev, cases=None, timed: bool = True):
             f"{tuple(got.shape)} pixels_differing={n_diff} of {got.numel()} "
             f"(from the IDCT's order {n_idct}, from the plain float32 box "
             f"mean {n_mean}) max_abs_diff={err:.6f} ssim_diff={s_diff:.3e} "
-            f"repeat_identical={repeat} alone_identical={alone}")
+            f"repeat_identical={repeat} alone_identical={alone} "
+            f"equal_to_first_k2={same_as_first}")
         if not (torch.isfinite(got).all() and err <= K2_LEVEL_ATOL
-                and s_diff <= K1_ATOL and repeat and alone):
+                and s_diff <= K1_ATOL and repeat and alone
+                and same_as_first):
             raise AssertionError(
                 f"K2 {tag}: |luminance diff| {err} (limit {K2_LEVEL_ATOL}), "
                 f"ssim diff {s_diff} (limit {K1_ATOL}), repeat "
-                f"bit-identical {repeat}, alone as in the batch {alone}")
+                f"bit-identical {repeat}, alone as in the batch {alone}, "
+                f"equal to the first K2 {same_as_first}")
         worst = max(worst, err)
         if timed and time_it:
-            run = lambda: C.probe_luminance(inp, q)  # noqa: E731
-            plain = lambda: C.probe_luminance_plain(inp, q)  # noqa: E731
-            t = {"shape": list(inp.cplanes[0].shape),
-                 "ms": profiled_device_ms(run, 50, "probe_",
-                                          2 if box else 1),
-                 "event_ms": cuda_ms(run, 50), "host_us": host_us(run, 50),
-                 "plain_ms": cuda_ms(plain, 5)}
-            t["bound_ms"], t["bound_by"] = k2_bound(inp, n)
-            t["share"] = t["bound_ms"] / t["ms"]
-            times[tag] = t
-            log(f"k2 time {tag}: device_us={t['ms'] * 1e3:.2f} event_us="
-                f"{t['event_ms'] * 1e3:.2f} host_us={t['host_us']:.2f} "
-                f"bound_us={t['bound_ms'] * 1e3:.2f} ({t['bound_by']}) "
-                f"share={t['share']:.3f} plain_event_ms={t['plain_ms']:.4f}")
+            times[tag] = time_k2(inp, q, n, first)
+            t = times[tag]
+            log(f"k2 time {tag}: device_us={t['ms'] * 1e3:.2f} (turns "
+                f"{[round(v * 1e3, 2) for v in t['turns']]}) first_us="
+                f"{t['first_ms'] * 1e3:.2f} (turns "
+                f"{[round(v * 1e3, 2) for v in t['first_turns']]}) event_us="
+                f"{t['event_ms'] * 1e3:.2f} first_event_us="
+                f"{t['first_event_ms'] * 1e3:.2f} host_us={t['host_us']:.2f} "
+                f"first_host_us={t['first_host_us']:.2f} ops={t['ops']:.2f} "
+                f"first_ops={t['first_ops']:.2f} bound_us="
+                f"{t['bound_ms'] * 1e3:.2f} ({t['bound_by']}) share="
+                f"{t['share']:.3f} first_share={t['first_share']:.3f} "
+                f"plain_event_ms={t['plain_ms']:.4f}")
         del inp, alone_inp, got, again, want, exact, diff
     return worst, times
+
+
+def time_k2(inp, q, n: int, first) -> dict:
+    """K2's times on one case, in turns with the first K2 (new, first,
+    first, new): device ms and device operations per call (torch.profiler,
+    every CUDA row: the first K2's memset and finishing kernel included),
+    CUDA-event ms and host µs per call; the bound, the share of it, and
+    the plain version's CUDA-event ms."""
+    from fennec_tpu_torch.engine import compress as C
+
+    def turn(fn):
+        ms, ops = profiled_per_call(fn, 50, "probe_recon_kernel")
+        return ms, ops, cuda_ms(fn, 50), host_us(fn, 50)
+
+    new = lambda: C.probe_luminance(inp, q)  # noqa: E731
+    old = lambda: first(inp, q)  # noqa: E731
+    runs = {"new": [], "first": []}
+    for name in ("new", "first", "first", "new"):
+        runs[name].append(turn(new if name == "new" else old))
+    t = {"shape": list(inp.cplanes[0].shape),
+         "turns": [r[0] for r in runs["new"]],
+         "first_turns": [r[0] for r in runs["first"]]}
+    for key, i in (("ms", 0), ("ops", 1), ("event_ms", 2), ("host_us", 3)):
+        t[key] = float(np.mean([r[i] for r in runs["new"]]))
+        t[f"first_{key}"] = float(np.mean([r[i] for r in runs["first"]]))
+    t["plain_ms"] = cuda_ms(lambda: C.probe_luminance_plain(inp, q), 5)
+    t["bound_ms"], t["bound_by"] = k2_bound(inp, n)
+    t["share"] = t["bound_ms"] / t["ms"]
+    t["first_share"] = t["bound_ms"] / t["first_ms"]
+    return t
 
 
 def quantized_stack(images, quality: int, subsample: bool, dev):
@@ -720,6 +787,57 @@ class FirstK3:
         words = self.deposit(packed, lay, tables, off,
                              torch.from_numpy(base).to(dev), int(base[-1]))
         return words.cpu().numpy()
+
+
+class FirstK2:
+    """The first K2 (FIRST_K2_SOURCE: a CTA per 16 x 128 pixel tile; with a
+    downsample, integer atomics into a zeroed buffer and a second kernel
+    that rounds the means), built here and called as its wrapper called
+    it, inputs checked in full on every call, to be held bit for bit and
+    timed in turns against the current kernel.  The port does not import
+    it."""
+
+    def __init__(self) -> None:
+        import ctypes
+
+        from fennec_tpu_torch.ops import probe_recon_cuda as k2
+        from fennec_tpu_torch.ops.ssim_cuda import compile_library
+
+        so = os.path.join(k2.BUILD_DIR, "libprobe_recon_first.so")
+        self.build_log = compile_library(os.path.join(HERE, FIRST_K2_SOURCE),
+                                         so, k2.NVCC_FLAGS)
+        lib = ctypes.CDLL(so)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.fennec_probe_recon.restype = i
+        lib.fennec_probe_recon.argtypes = [p, p, p, i, i, i, i, i, i, i, i,
+                                           p, p, p, i, i, p, p, p, p]
+        self.lib = lib
+        self.check_inputs = k2.check_inputs
+
+    def __call__(self, inp, quality: torch.Tensor) -> torch.Tensor:
+        y, cb, cr = inp.cplanes
+        dev = y.device
+        quality = quality.to(torch.int64).reshape(-1).contiguous()
+        out_hw = tuple(inp.lum_orig.shape[1:])
+        self.check_inputs(inp.cplanes, quality, inp.tables, inp.dmat,
+                          inp.subsample, inp.h, inp.w, inp.box_rectangles,
+                          out_hw)
+        bsz, ph, pw = y.shape
+        dh, dw = out_hw
+        box = out_hw != (inp.h, inp.w)
+        cells = bsz * dh * dw
+        buf = torch.empty(cells * (4 if box else 1), dtype=torch.float32,
+                          device=dev)
+        err = self.lib.fennec_probe_recon(
+            y.data_ptr(), cb.data_ptr(), cr.data_ptr(), bsz, ph, pw,
+            cb.shape[1], cb.shape[2], inp.h, inp.w, int(inp.subsample),
+            inp.tables.data_ptr(), quality.data_ptr(), inp.dmat.data_ptr(),
+            dh, dw, inp.box_rectangles.data_ptr() if box else None,
+            buf.data_ptr(), buf.data_ptr() + 4 * cells if box else None,
+            torch._C._cuda_getCurrentRawStream(dev.index))
+        if err:
+            raise RuntimeError(f"first K2: CUDA error {err}")
+        return buf[:cells].view(bsz, dh, dw)
 
 
 def synthetic_blocks(h: int, w: int, subsample: bool, bsz: int, seed: int,
@@ -2154,7 +2272,7 @@ def stage_table(T, dev, path: str, tmp: str, rounds: int = 5):
 def build_all(ssim_window, k3, probe_recon):
     """Phase 2: every kernel of the port and the host entropy coder
     built from this checkout's sources, all at once; returns the first
-    K3's harness."""
+    K3's and the first K2's harnesses."""
     from concurrent.futures import ThreadPoolExecutor
 
     from fennec_tpu_torch import native
@@ -2164,19 +2282,20 @@ def build_all(ssim_window, k3, probe_recon):
         got = build()
         return time.perf_counter() - t, got
 
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         done = list(pool.map(timed, (
             lambda: ssim_window.build(force=True),
             lambda: k3.library.build(force=True),
             lambda: native.build(force=True), FirstK3,
-            lambda: probe_recon.build(force=True))))
+            lambda: probe_recon.build(force=True), FirstK2)))
     ssim_window.load()
     k3.library.load()
     native.load()
     probe_recon.load()
     log(f"build k1_nvcc_s={done[0][0]:.3f} k3_nvcc_s={done[1][0]:.3f} "
         f"native_gxx_s={done[2][0]:.3f} first_k3_nvcc_s={done[3][0]:.3f} "
-        f"k2_nvcc_s={done[4][0]:.3f} (in parallel)")
+        f"k2_nvcc_s={done[4][0]:.3f} first_k2_nvcc_s={done[5][0]:.3f} "
+        f"(in parallel)")
     log(ssim_window.build_log.strip())
     log(k3.library.build_log.strip())
     log(probe_recon.build_log.strip())
@@ -2184,13 +2303,17 @@ def build_all(ssim_window, k3, probe_recon):
     log(f"K3 segment_blocks={k3.library.segment_blocks} resident CTAs "
         f"K3a={lib.fennec_jpeg_resident_ctas(0)} "
         f"K3b={lib.fennec_jpeg_resident_ctas(1)}")
-    return done[3][1]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    log(f"K2 resident CTAs, SMs: 4:2:0 {probe_recon.card(dev, True)} "
+        f"4:4:4 {probe_recon.card(dev, False)}")
+    return done[3][1], done[5][1]
 
 
-def k2_only(T, dev) -> int:
-    """`--k2`: phases 1 and 2, K2 against its plain version and the size
-    oracle's check (phase_k4) alone; no main path, so no result line."""
-    phase_k2(dev)
+def k2_only(T, dev, first_k2) -> int:
+    """`--k2`: phases 1 and 2, K2 against its plain version and the first
+    K2 (timed in turns) and the size oracle's check (phase_k4) alone; no
+    main path, so no result line."""
+    phase_k2(dev, first=first_k2)
     big = T.codecs.decode_image(T.encode_to_bytes(
         photo(4032, 3024, SEED), T.JPEG, 92, device=dev), device=dev)
     phase_k4(T, dev, big)
@@ -2287,15 +2410,15 @@ def main(only: str = "") -> int:
 
     if only == "digests":  # kernels build at first use
         return digests_only(T, dev)
-    first_k3 = build_all(ssim_window, k3, k2.probe_recon)
+    first_k3, first_k2 = build_all(ssim_window, k3, k2.probe_recon)
     if only == "k3":
         return k3_only(T, dev, first_k3)
     if only == "k2":
-        return k2_only(T, dev)
+        return k2_only(T, dev, first_k2)
 
     # 3. K1, then K2, against their plain versions.
     max_err, times = phase_kernel(dev, ssim_window, batched_ssim_plain)
-    k2_err, k2_times = phase_k2(dev)
+    k2_err, k2_times = phase_k2(dev, first=first_k2)
 
     # 4. The main path.
     big = photo(4032, 3024, SEED)
@@ -2503,7 +2626,6 @@ def main(only: str = "") -> int:
         # XLA programs of the JAX package's probe, not a Pallas kernel.
         "replaces": "fennec_tpu/engine/compress.py:140",
         "launches": K2_MAIN["recon"],
-        "finish_launches": K2_MAIN["finish"],
         # Luminance levels: a channel that lands on the other side of a
         # rounding moves it by up to 1.0.
         "max_abs_err": k2_err,
@@ -2517,6 +2639,11 @@ def main(only: str = "") -> int:
         "library_ms": None,
         "event_ms": k2t["event_ms"],
         "host_us": k2t["host_us"],
+        "device_ops": k2t["ops"],
+        # The first K2 (bench_sources/probe_recon_first.cu), in turns.
+        "first_ms": k2t["first_ms"],
+        "first_host_us": k2t["first_host_us"],
+        "first_device_ops": k2t["first_ops"],
     }] + k3_rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -152,6 +152,11 @@ class SearchInputs:
     h: int
     w: int
     box_rectangles: Optional[torch.Tensor] = None
+    # Kernel K2's checked launch state, made at the search's first probe
+    # on the card (ops/probe_recon_cuda.ProbeReconKernel.prepare); a copy
+    # made with dataclasses.replace starts without it.
+    k2_state: Optional[object] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
 
 def prepare_search(imgs: torch.Tensor, subsample: bool):

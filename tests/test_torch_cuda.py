@@ -9,6 +9,8 @@ K1 is held to its plain PyTorch version on the same card within 1e-5,
 the bound the JAX package holds its Pallas kernel to.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -572,13 +574,11 @@ def test_k2_matches_plain(cuda_device, w, h, bsz, sub):
     inp = k2_inputs(w, h, sub, bsz, cuda_device, seed=w + h)
     q = torch.from_numpy(np.random.default_rng(w * h).integers(
         1, 101, bsz)).to(cuda_device)
-    box = inp.box_rectangles is not None
-    before = (probe_recon.launches, probe_recon.finish_launches)
+    before = probe_recon.launches
     got = C.probe_luminance(inp, q)
     again = C.probe_luminance(inp, q)
     torch.cuda.synchronize()
-    assert (probe_recon.launches, probe_recon.finish_launches) == (
-        before[0] + 2, before[1] + 2 * int(box))
+    assert probe_recon.launches == before + 2
     want = C.probe_luminance_plain(inp, q)
     assert got.shape == want.shape == inp.lum_orig.shape
     assert got.is_contiguous() and torch.isfinite(got).all()
@@ -593,6 +593,39 @@ def test_k2_matches_plain(cuda_device, w, h, bsz, sub):
         s_k = ssim_window(inp.lum_orig, got)
         s_p = ssim_window(inp.lum_orig, want.contiguous())
         assert float((s_k - s_p).abs().max()) <= ATOL
+
+
+@functools.lru_cache(maxsize=1)
+def first_k2():
+    """chip_smoke.FirstK2: the first K2 (bench_sources/probe_recon_first.cu)
+    built and called as its wrapper called it."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.FirstK2()
+
+
+# test_k2_matches_plain's shapes, and a 12 MP photo at two qualities.
+@pytest.mark.parametrize("sub", [True, False], ids=["420", "444"])
+@pytest.mark.parametrize("w,h,bsz,quality", [
+    (1, 1, 2, None), (9, 17, 3, None), (17, 9, 1, None), (500, 500, 4, None),
+    (499, 499, 3, None), (1000, 9, 1, None), (600, 3, 2, None),
+    (700, 513, 2, None), (513, 700, 1, None), (1920, 1080, 1, None),
+    (4032, 3024, 1, 30), (4032, 3024, 1, 90)])
+def test_k2_equals_the_first_k2(cuda_device, w, h, bsz, sub, quality):
+    """The redesigned K2 gives the first K2's luminance bit for bit: the
+    same roundings in the same order, zero terms skipped exactly, integer
+    box sums."""
+    from fennec_tpu_torch.engine import compress as C
+
+    inp = k2_inputs(w, h, sub, bsz, cuda_device, seed=w + h)
+    q = (torch.from_numpy(np.random.default_rng(w * h).integers(1, 101, bsz))
+         if quality is None else torch.full((bsz,), quality)).to(cuda_device)
+    assert torch.equal(C.probe_luminance(inp, q), first_k2()(inp, q))
 
 
 def test_k2_on_a_side_stream(cuda_device):
@@ -624,6 +657,13 @@ def test_k2_rejects_bad_inputs_on_card(cuda_device):
         C.probe_luminance(inp, q[:1])
     with pytest.raises(ValueError):
         C.probe_luminance(dataclasses.replace(inp, dmat=inp.dmat.cpu()), q)
+    # A search's inputs are checked once; each probe checks its quality.
+    C.probe_luminance(inp, q)
+    assert inp.k2_state is not None
+    with pytest.raises(ValueError):
+        C.probe_luminance(inp, q.cpu())
+    with pytest.raises(ValueError):
+        C.probe_luminance(inp, torch.cat([q, q]))
 
 
 def test_standard_mode_never_takes_the_plain_probe(cuda_device, monkeypatch):

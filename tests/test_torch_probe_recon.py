@@ -135,12 +135,12 @@ def test_probe_luminance_on_cpu_is_the_plain_version(name, monkeypatch):
     w, h, subsample, quals = PROBE_CASES[name]
     inp = search_inputs_of(w, h, subsample, len(quals))
     q = torch.tensor(quals)
-    before = (k2.probe_recon.launches, k2.probe_recon.finish_launches)
+    before = k2.probe_recon.launches
     want = tcomp.probe_luminance_plain(inp, q)
     assert torch.equal(tcomp.probe_luminance(inp, q), want)
     assert torch.equal(k2.probe_recon(inp, q), want)
-    assert (k2.probe_recon.launches,
-            k2.probe_recon.finish_launches) == before
+    assert k2.probe_recon.launches == before
+    assert inp.k2_state is None  # nothing prepared for a launch
     last = dataclasses.replace(
         inp, cplanes=tuple(p[-1:].contiguous() for p in inp.cplanes),
         lum_orig=inp.lum_orig[-1:].contiguous())
@@ -310,6 +310,195 @@ def test_wrapper_checks_its_inputs():
                         small.dmat, True, 50, 70, None, (50, 70))
 
 
+# ── K2's units: the plan of whole rectangles ──────────────────────────────
+
+
+def plan_parts(plan, nbands, nstrips):
+    """box_plan's records: (bands, strips, each (n, 4) with the index of
+    its first chunk record beside it, and every record)."""
+    rec = plan.reshape(-1, 4)
+    heads = rec[:2 * (nbands + nstrips)].reshape(-1, 2, 4)
+    return heads[:nbands], heads[nbands:], rec
+
+
+def emulate_box(rgb, w, h, subsample, bsz=1, ctas=264, sms=132):
+    """The kernel's walk of one image's units, in numpy on integer r, g, b
+    planes (3, h, w): per chunk the horizontal sums per (source row,
+    rectangle column) of the rows and columns its records give, then the
+    vertical sums into the unit's cells; per unit the rounded means.
+    Asserts what the kernel relies on: chunks start on an MCU inside the
+    image, every output is written by one unit, a unit fits the shared
+    memory, a horizontal sum fits 16 bits."""
+    dw, dh = ssim_fast_dims(w, h)
+    plan, nbands, nstrips = k2.box_plan(w, h, dw, dh, subsample, bsz, ctas,
+                                        sms)
+    bands, strips, rec = plan_parts(plan, nbands, nstrips)
+    y0, y1 = (v.astype(np.int64) for v in box_bounds(dh, h))
+    x0, x1 = (v.astype(np.int64) for v in box_bounds(dw, w))
+    rows, align = k2.chunk_rows(subsample), k2.mcu(subsample)
+    out = np.full((3, dh, dw), -1)
+    for (oy0, oy1, ay, ny), (rfirst, *_) in bands:
+        assert oy1 - oy0 <= k2.MAX_UNIT_ROWS
+        for (ox0, ox1, ax, nx), (cfirst, *_) in strips:
+            assert ox1 - ox0 <= k2.MAX_UNIT_COLS
+            assert (oy1 - oy0) * (ox1 - ox0) <= k2.MAX_CELLS
+            acc = np.zeros((3, oy1 - oy0, ox1 - ox0), np.int64)
+            for iy in range(ny):
+                for ix in range(nx):
+                    cy0, cx0 = ay + iy * rows, ax + ix * k2.CHUNK_W
+                    assert cy0 % align == 0 and cx0 % align == 0
+                    assert cy0 < h and cx0 < w
+                    cy1, cx1 = min(cy0 + rows, h), min(cx0 + k2.CHUNK_W, w)
+                    dya, dyb, ra, nr = rec[rfirst + iy]
+                    dxa, dxb, _, _ = rec[cfirst + ix]
+                    if dyb <= dya or dxb <= dxa:
+                        continue
+                    assert cy0 <= ra and ra + nr <= cy1 and nr > 0
+                    hs = np.stack([rgb[:, ra:ra + nr, max(x0[dx], cx0):
+                                       min(x1[dx], cx1)].sum(-1)
+                                   for dx in range(dxa, dxb)], -1)
+                    assert hs.max() < 1 << 16
+                    for dy in range(dya, dyb):
+                        ya = max(y0[dy], ra) - ra
+                        yb = min(y1[dy], ra + nr) - ra
+                        acc[:, dy - oy0, dxa - ox0:dxb - ox0] += (
+                            hs[:, ya:yb].sum(1))
+            n = ((y1 - y0)[oy0:oy1, None] * (x1 - x0)[None, ox0:ox1])
+            assert (out[:, oy0:oy1, ox0:ox1] == -1).all()
+            out[:, oy0:oy1, ox0:ox1] = np.where(
+                n > 0, (2 * acc + n) // (2 * np.maximum(n, 1)), 0)
+    return out
+
+
+@pytest.mark.parametrize("w,h,subsample", [
+    (600, 530, True), (530, 600, False), (700, 513, True), (513, 700, False),
+    (1000, 9, True), (600, 3, False), (1920, 1080, True), (1920, 1080, False),
+    (4032, 3024, True), (9000, 700, True), (513, 9000, False)])
+def test_units_sum_every_rectangle_once(w, h, subsample):
+    """The kernel's walk of box_plan's units, emulated on random integer
+    planes, gives box_mean_exact's means: every rectangle whole, once."""
+    rgb = np.random.default_rng(w * h).integers(0, 256, (3, h, w))
+    ds_w, ds_h = ssim_fast_dims(w, h)
+    want = k2.box_mean_exact(torch.from_numpy(rgb), *box_bounds(ds_h, h),
+                             *box_bounds(ds_w, w)).numpy()
+    np.testing.assert_array_equal(emulate_box(rgb, w, h, subsample), want)
+
+
+def check_axis(groups, records, k, dst, src, align, chunk, limit):
+    """The groups cover the outputs in order, each from the MCU of its
+    first rectangle's first source index through its last one's end, in
+    chunks inside the source; each chunk record is the outputs of its
+    group that meet the chunk (box_cover) and the source indices their
+    rectangles hold in it."""
+    s0, s1 = box_bounds(dst, src)
+    lo, hi = box_cover(dst, src)
+    assert groups[0][0][0] == 0 and groups[-1][0][1] == dst
+    for i, ((o0, o1, a, n), (first, *_)) in enumerate(groups):
+        if i:
+            assert o0 == groups[i - 1][0][1]
+        assert 0 < o1 - o0 <= limit and n >= 1
+        assert a == s0[o0] // align * align
+        assert a + n * chunk >= s1[o1 - 1] and a + (n - 1) * chunk < src
+        assert first == k
+        for j in range(n):
+            c0 = a + j * chunk
+            c1 = min(c0 + chunk, src)
+            meet = [d for d in range(o0, o1) if s0[d] < c1 and s1[d] > c0]
+            d0, d1, r0, nr = records[k + j]
+            if meet:
+                assert (d0, d1) == (meet[0], meet[-1] + 1)
+                assert (d0, d1) == (max(lo[c0], o0), min(hi[c1 - 1], o1))
+                assert r0 == max(s0[d0], c0)
+                assert r0 + nr == min(s1[d1 - 1], c1)
+            else:
+                assert (d0, d1, r0, nr) == (0, 0, 0, 0)
+        k += n
+
+
+@settings(max_examples=25, deadline=None, database=None, derandomize=True)
+@given(st.integers(513, 5000), st.integers(1, 5000), st.booleans(),
+       st.sampled_from([1, 3, 64]))
+def test_box_plan_at_ssim_fast_geometries(w, h, subsample, bsz):
+    """The plan's groups and chunk records against box_bounds and
+    box_cover, at the geometries SSIMFast makes."""
+    ds_w, ds_h = ssim_fast_dims(w, h)
+    plan, nbands, nstrips = k2.box_plan(w, h, ds_w, ds_h, subsample, bsz,
+                                        396, 132)
+    assert plan.dtype == np.int32 and not plan.flags.writeable
+    bands, strips, rec = plan_parts(plan, nbands, nstrips)
+    widest = int((strips[:, 0, 1] - strips[:, 0, 0]).max())
+    base = 2 * (nbands + nstrips)
+    check_axis(bands, rec, base, ds_h, h, k2.mcu(subsample),
+               k2.chunk_rows(subsample),
+               min(k2.MAX_CELLS // widest, k2.MAX_UNIT_ROWS))
+    check_axis(strips, rec, base + bands[:, 0, 3].sum(), ds_w, w,
+               k2.mcu(subsample), k2.CHUNK_W, k2.MAX_UNIT_COLS)
+    assert len(rec) == base + bands[:, 0, 3].sum() + strips[:, 0, 3].sum()
+
+
+@pytest.mark.parametrize("dst,src,align,chunk,span,limit,want", [
+    # 8 px rectangles from 0: 16 fit a 128-px chunk.
+    (4, 32, 16, 128, 128, 128, [(0, 4, 0, 1)]),
+    (32, 256, 16, 128, 128, 128, [(0, 16, 0, 1), (16, 32, 128, 1)]),
+    # At most `limit` outputs a group.
+    (32, 256, 16, 128, 128, 10, [(0, 10, 0, 1), (10, 20, 80, 1),
+                                 (20, 30, 160, 1), (30, 32, 240, 1)]),
+    # A rectangle longer than the span makes a group of its own.
+    (2, 600, 16, 128, 128, 128, [(0, 1, 0, 3), (1, 2, 288, 3)]),
+    # Scaled up: one group of one-row rectangles, empty ones first.
+    (8, 3, 8, 16, 16, 128, [(0, 8, 0, 1)])])
+def test_axis_plan_cases(dst, src, align, chunk, span, limit, want):
+    got = k2.axis_plan(*box_bounds(dst, src), align, chunk, span, limit)
+    assert got.dtype == np.int32
+    assert [tuple(g) for g in got.tolist()] == want
+
+
+def test_busiest_counts_the_round_robin():
+    # 5 units of 2 chunks on 4 CTAs over 2 SMs: CTA 0 takes units 0 and
+    # 4 (4 chunks), so SM 0 (CTAs 0 and 2) walks 6.
+    assert k2.busiest(np.full(5, 2), 1, 4, 2) == (6, 4)
+    assert k2.busiest(np.full(5, 2), 2, 4, 2) == (10, 6)
+    assert k2.busiest(np.array([[3]]), 1, 396, 132) == (3, 3)
+
+
+# ── The check once per search ───────────────────────────────────────────────
+
+
+@pytest.mark.parametrize("name", ["box_600x530_420", "40x24_444"])
+def test_prepare_checks_a_search_once(name):
+    """prepare runs check_inputs on a search's inputs and gives what every
+    probe launches with: the plan of box_plan (none without a downsample),
+    the grid's units, the DCT matrix in host memory.  A copy made with
+    dataclasses.replace starts without it."""
+    w, h, subsample, quals = PROBE_CASES[name]
+    inp = search_inputs_of(w, h, subsample, len(quals))
+    state = k2.probe_recon.prepare(inp, 396, 132)
+    ds_w, ds_h = ssim_fast_dims(w, h)
+    assert state.bsz == len(quals) and state.out_hw == (ds_h, ds_w)
+    assert state.ctas == 396
+    np.testing.assert_array_equal(np.array(state.dmat, np.float32),
+                                  inp.dmat.numpy().ravel())
+    if (ds_w, ds_h) == (w, h):
+        assert state.plan is None
+        assert (state.nbands, state.nstrips) == (
+            -(-h // k2.chunk_rows(subsample)), -(-w // k2.CHUNK_W))
+    else:
+        plan, nbands, nstrips = k2.box_plan(w, h, ds_w, ds_h, subsample,
+                                            len(quals), 396, 132)
+        np.testing.assert_array_equal(state.plan.numpy(), plan)
+        assert (state.nbands, state.nstrips) == (nbands, nstrips)
+        again = k2.probe_recon.prepare(inp, 396, 132)
+        assert again.plan is state.plan  # uploaded once per geometry
+    inp.k2_state = state
+    assert dataclasses.replace(inp).k2_state is None
+    with pytest.raises(TypeError, match="float32"):
+        k2.probe_recon.prepare(dataclasses.replace(
+            inp, cplanes=tuple(p.double() for p in inp.cplanes)), 396, 132)
+    with pytest.raises(ValueError, match="dmat"):
+        k2.probe_recon.prepare(dataclasses.replace(
+            inp, dmat=inp.dmat[:4].contiguous()), 396, 132)
+
+
 # ── The source and its build ────────────────────────────────────────────────
 
 SOURCE = pathlib.Path(k2.SOURCE).read_text()
@@ -325,20 +514,24 @@ def test_built_for_hopper_without_contraction_or_fast_math():
 
 
 def test_no_float_atomics_in_the_source():
-    """The only atomic adds an int to the int32 rectangle sums."""
+    """No atomic at all: each rectangle's sums are owned by one CTA, in
+    int32, and its mean is taken in integers."""
     assert "atomicAdd(float" not in SOURCE
-    calls = re.findall(r"\batomic\w*\s*\(([^,]*),", CODE)
-    assert len(calls) == 1 and calls[0].strip().startswith("p.acc +")
-    assert re.search(r"int\* acc;", CODE)
+    assert not re.findall(r"\batomic\w*\s*\(", CODE)
+    assert re.search(r"int\* acc = ", CODE)
     assert re.search(r"\bint sum = 0;", CODE)
+    assert "(2 * s + n) / (2 * n)" in CODE
 
 
 def test_two_kernels_one_launch_site_each():
+    """One kernel template, instantiated for 4:2:0 and for 4:4:4, one
+    launch site each; no memset, no second kernel."""
     assert re.findall(r"__global__[^;{]*?(probe_\w+)\s*\(", CODE) == [
-        "probe_recon_kernel", "probe_finish_kernel"]
+        "probe_recon_kernel"]
     assert len(re.findall(r"<<<", CODE)) == 2
-    assert len(re.findall(r"probe_recon_kernel<<<", CODE)) == 1
-    assert len(re.findall(r"probe_finish_kernel<<<", CODE)) == 1
+    assert len(re.findall(r"probe_recon_kernel<1><<<", CODE)) == 1
+    assert len(re.findall(r"probe_recon_kernel<0><<<", CODE)) == 1
+    assert "cudaMemset" not in CODE
 
 
 def test_arithmetic_is_spelled_out():
@@ -352,7 +545,25 @@ def test_arithmetic_is_spelled_out():
     for const in ("1.402f", "0.344136286f", "0.714136286f", "1.772f",
                   "0.299f", "0.587f", "0.114f"):
         assert const in CODE
-    # The tile is whole 4:2:0 MCUs and whole 16-byte vectors.
-    tile_h = int(re.search(r"constexpr int kTileH = (\d+);", CODE).group(1))
-    tile_w = int(re.search(r"constexpr int kTileW = (\d+);", CODE).group(1))
-    assert tile_h % 16 == 0 and tile_w % 16 == 0
+    # A chunk is whole MCUs and whole 16-byte vectors, as the wrapper's
+    # plan cuts them, and the unit limits are the wrapper's.
+    assert re.search(r"kRows = SUB \? 32 : 16;", CODE)
+    assert (k2.chunk_rows(True), k2.chunk_rows(False)) == (32, 16)
+    assert (k2.mcu(True), k2.mcu(False)) == (16, 8)
+    for name, value in (("kChunkW", k2.CHUNK_W), ("kMaxCells", k2.MAX_CELLS),
+                        ("kMaxUnitRows", k2.MAX_UNIT_ROWS),
+                        ("kMaxUnitCols", k2.MAX_UNIT_COLS)):
+        got = re.search(rf"constexpr int {name} = (\d+);", CODE)
+        assert got and int(got.group(1)) == value, name
+    assert k2.CHUNK_W % 16 == 0
+
+
+def test_chunks_are_staged_asynchronously_and_zeros_skipped():
+    """cp.async with a source size of 0 outside the planes, a ring of
+    stages; a ballot per row of 32 blocks and a vote per term."""
+    assert "cp.async.cg.shared.global" in CODE
+    assert re.search(r"inside \? 16 : 0", CODE)
+    assert re.search(r"constexpr int kStages = [23];", CODE)
+    assert "cp.async.wait_group" in CODE
+    assert "__ballot_sync" in CODE and "__any_sync" in CODE
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in CODE
