@@ -1,7 +1,7 @@
 """Drive the PyTorch port's main paths once on one CUDA card, and check
 them.
 
-    python3 chip_smoke.py [--k2 | --k3 | --digests]
+    python3 chip_smoke.py [--k2 | --k3 | --digests | --mesh]
 
 With no argument, every phase below; it needs one card.  --k2 runs
 phases 1 and 2, K2's part of phase 3 and the size oracle's check of
@@ -9,7 +9,8 @@ phase 10 alone (the two search loops' kernels against their plain
 versions, and K2 against the first K2); --k3 runs phases 1, 2 and 11 and the size oracle's check (K3
 against its plain version and, in turns, against the first K3);
 --digests prints digests of a few main-path outputs, to compare two
-checkouts on one card.  None of these prints the result lines.
+checkouts on one card; --mesh runs phases 1, 2 and 14 alone.  None of
+these prints the result lines.
 
 Phases, each raising on failure:
   1. environment: a CUDA card, its name and power limit, TF32 off;
@@ -128,7 +129,25 @@ Phases, each raising on failure:
      and T2; the outputs byte-identical;
  13. the rest of the surface at 12 MP: ssim (K1 at (1, 3024, 4032)) and
      ms_ssim on the card against the CPU within 1e-5, and the effects
-     (sharpen, adaptive_sharpen, gaussian_blur) uint8-identical.
+     (sharpen, adaptive_sharpen, gaussian_blur) uint8-identical;
+ 14. the mesh and the stages.  torch.cuda.device_count() and
+     data_mesh(None), which must be None with one card (the default
+     paths unchanged there).  The 512-file 500x500 compress_batch
+     (coefficient path, K3 emission), the 256-image compress_images
+     (pixel path) and 64 of the files with max_width=256 (the Lanczos
+     route, host encoder), each on [cuda:k, cuda:k] (two shards, each on
+     its own thread and stream) and on cuda:k, in turns (a warm-up round,
+     then 3 rounds alternating which goes first): every output
+     byte-identical, and K1, K2, K3a and K3b, counted from 0 around each
+     call, launched 7, 7, 1 and 1 times (7, 7, 0, 0 on the Lanczos route)
+     per shard chunk (a chunk's non-empty shards; one device's chunk is
+     one); warm img/s of both, median of 3.  The four *_sharded
+     functions at (64, 500, 500) on the two shards against their
+     unsharded forms (q, found, SSIM bit-equal; scan bytes equal; the size
+     search's (q, found) equal).  The CLI's -v on the 12 MP file: a
+     `Stages:` report naming the JAX CLI's stages.  One warm 12 MP
+     compress_file under utils/profiling.device_trace: the Chrome trace
+     must name the kernels of K1, K2, K3a and K3b.
 
 The last lines: the kernel table as JSON (K1's, K2's, K3a's, K3b's and
 K4's launches summed over the main-path runs of phases 4, 6-8 and 10,
@@ -2269,6 +2288,197 @@ def stage_table(T, dev, path: str, tmp: str, rounds: int = 5):
     return med, whole_ms
 
 
+def mesh_units(snap, shards: int) -> int:
+    """Shard chunks an engine call ran: each chunk's non-empty shards."""
+    return sum(min(n, shards) for n in snap["chunk_items"])
+
+
+def mesh_run(tag: str, run, counters, dev, shards: int, per_unit):
+    """One engine call with K1's, K2's and K3's counts set to 0 just
+    before it and read just after: (outputs, wall s, launches).  Each
+    kernel must have launched per_unit[k] times per shard chunk (a chunk
+    of one device is one shard chunk; the kernels launch on a CUDA device
+    only)."""
+    from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
+    from fennec_tpu_torch.ops.probe_recon_cuda import probe_recon
+    from fennec_tpu_torch.ops.ssim_cuda import ssim_window
+
+    kernels = {"K1": ssim_window, "K2": probe_recon,
+               "K3a": k3.block_stats, "K3b": k3.deposit}
+    counters.reset()
+    for k in kernels.values():
+        k.launches = 0
+    t = time.perf_counter()
+    out = run()
+    wall = time.perf_counter() - t
+    got = {name: k.launches for name, k in kernels.items()}
+    snap = counters.snapshot()
+    units = mesh_units(snap, shards)
+    want = {name: per_unit[name] * units for name in kernels}
+    if dev.type == "cuda" and got != want:
+        raise AssertionError(f"{tag}: launches {got}, want {want} "
+                             f"({units} shard chunks of {snap['chunk_items']}"
+                             f" over {shards} shard(s))")
+    return out, wall, got, snap
+
+
+def phase_mesh(T, dev, counters, big_path, tmp, n=512, w=500, h=500,
+               rounds: int = 3):
+    """Phase 14: the mesh and the stages.  On one card, data_mesh(None)
+    is None; the three batch routes on [cuda:k, cuda:k] (two shards, each
+    on its own stream and thread) against cuda:k, in turns, byte for
+    byte, with their launches per shard chunk; the four *_sharded
+    functions against their unsharded forms at (64, 500, 500); the CLI's
+    -v report; a device_trace of one warm 12 MP compress_file naming K1,
+    K2, K3a and K3b."""
+    from fennec_tpu_torch.parallel import batched as pb
+    from fennec_tpu_torch.utils.profiling import device_trace
+
+    cards = torch.cuda.device_count()
+    log(f"mesh: torch.cuda.device_count()={cards} data_mesh(None)="
+        f"{pb.data_mesh(None)}")
+    if cards == 1 and pb.data_mesh(None) is not None:
+        raise AssertionError("mesh: one card must keep the unsharded path")
+    one = (torch.device("cuda", torch.cuda.current_device())
+           if dev.type == "cuda" else dev)
+    two = [one, one]
+    paths, datas = write_files500(T, dev, os.path.join(tmp, "mesh500"), n,
+                                  w, h)
+    distinct = [photo(w, h, SEED + 300 + k) for k in range(32)]
+    images = [distinct[i % 32] for i in range(256)]
+
+    def batch(paths_, opts, tag):
+        def run(device):
+            res = T.compress_batch(None, [
+                T.BatchItem(src=p, dst=os.path.join(tmp, f"{tag}{i}.jpg"))
+                for i, p in enumerate(paths_)], T.BatchOptions(
+                    fused=True, default_opts=opts), device=device)
+            bad = [r.err for r in res if r.err is not None]
+            if bad:
+                raise AssertionError(f"mesh {tag}: {bad[:3]}")
+            return [r.result.compressed_data for r in res]
+        return run
+
+    def pixel(device):
+        return [r.compressed_data for r in T.compress_images(
+            None, images, T.Options(format=T.JPEG), device=device)]
+
+    routes = [
+        ("batch512", batch(paths, T.Options(format=T.JPEG), "m"), n,
+         {"K1": 7, "K2": 7, "K3a": 1, "K3b": 1}, "coefficient"),
+        ("images256", pixel, 256,
+         {"K1": 7, "K2": 7, "K3a": 1, "K3b": 1}, "pixel"),
+        # The Lanczos route keeps the host encoder (JAX :598-604).
+        ("resize64", batch(paths[:64], T.Options(format=T.JPEG,
+                                                  max_width=256), "r"), 64,
+         {"K1": 7, "K2": 7, "K3a": 0, "K3b": 0}, "coefficient"),
+    ]
+    summary = {}
+    for tag, run, count, per_unit, route in routes:
+        outs, walls = {}, {"one": [], "mesh": []}
+        for k in range(rounds + 1):  # the first round warms both up
+            order = (("one", one, 1), ("mesh", two, 2))
+            if k % 2:
+                order = order[::-1]
+            for name, device, shards in order:
+                out, wall, got, snap = mesh_run(
+                    f"mesh {tag} {name}", lambda: run(device), counters, dev,
+                    shards, per_unit)
+                if snap["routes"] != {route: count}:
+                    raise AssertionError(f"mesh {tag} {name}: routes "
+                                         f"{snap['routes']}")
+                if name in outs and out != outs[name]:
+                    raise AssertionError(f"mesh {tag} {name}: outputs "
+                                         f"differ between rounds")
+                outs[name] = out
+                if k:
+                    walls[name].append(wall)
+                log(f"mesh {tag} {name} round {k}: wall_ms="
+                    f"{wall * 1e3:.1f} img_per_s={count / wall:.1f} "
+                    f"chunks={snap['chunk_items']} launches={got}")
+        if outs["one"] != outs["mesh"]:
+            diff = sum(a != b for a, b in zip(outs["one"], outs["mesh"]))
+            raise AssertionError(f"mesh {tag}: {diff} of {count} outputs "
+                                 f"differ between the mesh and one device")
+        med = {name: count / float(np.median(v)) for name, v in
+               walls.items()}
+        summary[tag] = med
+        log(f"mesh {tag}: {count} outputs byte-identical on {two} and "
+            f"{one}; warm img/s median of {rounds}: one={med['one']:.1f} "
+            f"mesh={med['mesh']:.1f} digest={digest(outs['one'])}")
+
+    # The four *_sharded functions at (64, 500, 500) against their
+    # unsharded forms on the card.
+    mesh = pb.data_mesh(two)
+    imgs = torch.from_numpy(np.stack(distinct + distinct)).to(dev)
+    targets = [0.94] * 64
+    q1, s1, f1 = pb.batched_quality_search(imgs, targets)
+    q2, s2, f2 = pb.batched_quality_search_sharded(mesh, imgs, targets)
+    if not (torch.equal(q1, q2) and torch.equal(f1, f2)
+            and torch.equal(s1, s2)):
+        raise AssertionError("mesh: batched_quality_search_sharded differs")
+    e1 = pb.batched_search_emit(imgs, targets)
+    e2 = pb.batched_search_emit_sharded(mesh, imgs, targets)
+    scans1 = [e1[3].scan(j) for j in range(64)]
+    if (not np.array_equal(e1[0], e2[0]) or not np.array_equal(e1[2], e2[2])
+            or e1[1].tobytes() != e2[1].tobytes()
+            or scans1 != [e2[3].scan(j) for j in range(64)]):
+        raise AssertionError("mesh: batched_search_emit_sharded differs")
+    z1 = pb.batched_size_search(imgs, 20000, 1, 100)
+    z2 = pb.batched_size_search_sharded(mesh, imgs, 20000, 1, 100)
+    if not all(torch.equal(a, b) for a, b in zip(z1, z2)):
+        raise AssertionError("mesh: batched_size_search_sharded differs")
+    other = torch.clamp(imgs.to(torch.float32) + 9.0, 0, 255)
+    if not torch.equal(pb.batched_ssim(imgs, other),
+                       pb.batched_ssim_sharded(mesh, imgs, other)):
+        raise AssertionError("mesh: batched_ssim_sharded differs")
+    log(f"mesh sharded functions at (64, 500, 500) on {two}: q, found and "
+        f"SSIM bit-equal, scan bytes equal (digest {digest(scans1)}), size "
+        f"search (q, found) equal (found {int(z1[1].sum())} of 64)")
+
+    # The CLI's -v report on the 12 MP file.
+    env = dict(os.environ, PYTHONPATH=HERE)
+    proc = subprocess.run(
+        [sys.executable, "-m", "fennec_tpu_torch", big_path,
+         os.path.join(tmp, "cli_v.jpg"), "-v", "--device", dev.type],
+        capture_output=True,
+        text=True, cwd=HERE, env=env, timeout=600)
+    lines = proc.stderr.splitlines()
+    if proc.returncode != 0 or "  Stages:" not in lines:
+        raise AssertionError(f"cli -v: rc={proc.returncode}\n"
+                             f"{proc.stderr[-3000:]}")
+    stages = lines[lines.index("  Stages:") + 1:]
+    names = sorted(ln[:24].strip() for ln in stages if ln.endswith("avg)"))
+    if names != ["jpeg quality search", "open + decode", "write"]:
+        raise AssertionError(f"cli -v stages {names}")
+    for ln in stages:
+        log(f"  cli -v: {ln}")
+
+    # A device_trace of one warm 12 MP compress_file.
+    out = os.path.join(tmp, "trace_out.jpg")
+    T.compress_file(None, big_path, out, T.Options(), device=dev)
+    want = ("ssim_window_kernel", "probe_recon_kernel", "block_stats_kernel",
+            "deposit_kernel")
+    found = {}
+    for attempt in range(3):  # the profiler may drop records
+        trace_dir = os.path.join(tmp, f"trace{attempt}")
+        with device_trace(trace_dir):
+            T.compress_file(None, big_path, out, T.Options(), device=dev)
+        names = set()
+        for fname in os.listdir(trace_dir):
+            with open(os.path.join(trace_dir, fname)) as f:
+                names.update(str(e.get("name", ""))
+                             for e in json.load(f)["traceEvents"])
+        found = {k: any(k in nm for nm in names) for k in want}
+        log(f"device_trace of a warm 12 MP compress_file: {len(names)} "
+            f"event names, kernels named {found} (trace {attempt + 1})")
+        if all(found.values()) or dev.type != "cuda":
+            break
+    if dev.type == "cuda" and not all(found.values()):
+        raise AssertionError(f"device_trace names {found}")
+    return summary
+
+
 def build_all(ssim_window, k3, probe_recon):
     """Phase 2: every kernel of the port and the host entropy coder
     built from this checkout's sources, all at once; returns the first
@@ -2415,6 +2625,17 @@ def main(only: str = "") -> int:
         return k3_only(T, dev, first_k3)
     if only == "k2":
         return k2_only(T, dev, first_k2)
+    if only == "mesh":
+        from fennec_tpu_torch.engine.batched import counters
+
+        big = T.encode_to_bytes(photo(4032, 3024, SEED), T.JPEG, 92,
+                                device=dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            big_path = os.path.join(tmp, "photo_12mp.jpg")
+            with open(big_path, "wb") as f:
+                f.write(big)
+            phase_mesh(T, dev, counters, big_path, tmp)
+        return 0
 
     # 3. K1, then K2, against their plain versions.
     max_err, times = phase_kernel(dev, ssim_window, batched_ssim_plain)
@@ -2552,6 +2773,15 @@ def main(only: str = "") -> int:
             f.write(big_jpeg)
         ab = phase_ab(T, dev, tmp, big_path)
     phase_surface(T, dev, big_img)
+
+    # 14. The mesh over this card, and the stage report and trace.
+    with tempfile.TemporaryDirectory() as tmp:
+        big_path = os.path.join(tmp, "photo_12mp.jpg")
+        with open(big_path, "wb") as f:
+            f.write(big_jpeg)
+        mesh = phase_mesh(T, dev, counters, big_path, tmp)
+    log("mesh summary (warm img/s, median of 3; cross-card scaling not "
+        "measured: one card): " + json.dumps(mesh))
     log("A/B summary (warm ms, K3 vs host encoder): " + json.dumps(
         {k: {"k3": v[None], "host": v[False]} for k, v in ab.items()}))
 
@@ -2653,7 +2883,8 @@ def main(only: str = "") -> int:
 
 
 if __name__ == "__main__":
-    flags = {"--k2": "k2", "--k3": "k3", "--digests": "digests"}
+    flags = {"--k2": "k2", "--k3": "k3", "--digests": "digests",
+             "--mesh": "mesh"}
     if len(sys.argv) > 2 or (len(sys.argv) == 2
                              and sys.argv[1] not in flags):
         raise SystemExit(f"usage: python3 chip_smoke.py [{' | '.join(flags)}]")

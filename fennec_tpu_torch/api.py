@@ -14,6 +14,7 @@ from .engine.pipeline import compress_image_internal
 from .exif import Orientation
 from .io import encode_to_bytes, open_with_orientation
 from .types import Context, Options, ProgressStage, Result
+from .utils.profiling import stage
 
 
 def compress_file(ctx: Optional[Context], src: str, dst: str,
@@ -26,7 +27,8 @@ def compress_file(ctx: Optional[Context], src: str, dst: str,
     opts.validate()
     opts.report_progress(ctx, ProgressStage.ANALYZING, 0.0)
 
-    img, orient, file_size = open_with_orientation(src, device)
+    with stage("open + decode"):
+        img, orient, file_size = open_with_orientation(src, device)
     result = compress_image_internal(ctx, img, orient, opts, device)
     result.original_size = file_size
     result.compute_stats()
@@ -41,8 +43,9 @@ def compress_file(ctx: Optional[Context], src: str, dst: str,
         result.compressed_size = len(data)
         result.compute_stats()
 
-    with open(dst, "wb") as f:
-        f.write(data)
+    with stage("write"):
+        with open(dst, "wb") as f:
+            f.write(data)
 
     opts.report_progress(ctx, ProgressStage.WRITING, 1.0)
     return result
@@ -81,11 +84,13 @@ def compress_bytes(ctx: Optional[Context], data: bytes,
 
 def compress_images(ctx: Optional[Context], images,
                     opts: Optional[Options] = None, workers: int = 0,
-                    device: _device.DeviceLike = None) -> list:
+                    device: _device.MeshLike = None) -> list:
     """Compress many decoded images with shared options, device-batched
     (fennec_tpu/api.py:76; the reference's CompressBatch works on files).
     Same-shape images share lockstep chunks; results keep input order.
-    workers sizes the host encode pool (0 = auto)."""
+    workers sizes the host encode pool (0 = auto).  `device` may be a
+    sequence of devices, whose shards split every chunk; None on a node
+    with two or more cards uses all of them (FENNEC_MESH=0: one)."""
     from .engine.batched import compress_images_batched
 
     opts = opts if opts is not None else Options()

@@ -76,10 +76,16 @@ class BatchOptions:
 
 def compress_batch(ctx: Optional[Context], items: List[BatchItem],
                    batch_opts: Optional[BatchOptions] = None,
-                   device: _device.DeviceLike = None) -> List[BatchResult]:
+                   device: _device.MeshLike = None) -> List[BatchResult]:
     """Compress many files on `device`; results keep input order
     (reference batch.go:58-128).  Cancellation skips not-yet-started
-    items (they get the context error); in-flight items finish."""
+    items (they get the context error); in-flight items finish.
+
+    `device` may be a sequence of devices: the device engines spread
+    their chunks over it (engine/batched.py), and with None a node with
+    two or more cards spreads them over all of its cards (FENNEC_MESH=0
+    turns that off).  The per-file pool and the per-image decode run on
+    one device, a sequence's first."""
     if not items:
         return []
     batch_opts = batch_opts or BatchOptions()
@@ -111,7 +117,8 @@ def compress_batch(ctx: Optional[Context], items: List[BatchItem],
         item_opts = item.opts if item.opts is not None \
             else batch_opts.default_opts
         try:
-            res = compress_file(ctx, item.src, item.dst, item_opts, device)
+            res = compress_file(ctx, item.src, item.dst, item_opts,
+                                _one_device(device))
             results[idx] = BatchResult(item=item, result=res, index=idx)
         except Exception as e:  # per-item capture (batch.go:108-113)
             results[idx] = BatchResult(item=item, err=e, index=idx)
@@ -128,6 +135,12 @@ def compress_batch(ctx: Optional[Context], items: List[BatchItem],
     return [r for r in results if r is not None]
 
 
+def _one_device(device: _device.MeshLike) -> _device.DeviceLike:
+    """Where the parts of a batch that run on one device go: a mesh's
+    first device, else `device` itself."""
+    return device[0] if isinstance(device, (list, tuple)) else device
+
+
 def _dst_done(dst: str) -> bool:
     try:
         return os.path.getsize(dst) > 0
@@ -137,7 +150,7 @@ def _dst_done(dst: str) -> bool:
 
 def _compress_batch_fused(ctx: Optional[Context], items: List[BatchItem],
                           batch_opts: BatchOptions,
-                          device: _device.DeviceLike) -> List[BatchResult]:
+                          device: _device.MeshLike) -> List[BatchResult]:
     """Parallel file reads → the device engines → streamed writes."""
     from .codecs import decode_image
     from .engine.batched import (
@@ -243,7 +256,7 @@ def _compress_batch_fused(ctx: Optional[Context], items: List[BatchItem],
             if ctx is not None:
                 ctx.raise_if_done()
             try:
-                img = decode_image(raw[i], device)
+                img = decode_image(raw[i], _one_device(device))
                 if opts.auto_orient and orients[i] > int(Orientation.NORMAL):
                     img = apply_orientation(to_nrgba(img),
                                             Orientation(orients[i]))

@@ -8,7 +8,9 @@ Usage: python -m fennec_tpu_torch [options] <input> [output]
 versions of the kernels).  --device-entropy on|off|auto: Huffman-code
 JPEGs on the device (kernel K3 on cuda, its plain version on cpu), on
 the host C++ encoder, or on the device exactly when it is cuda (the
-default); every route writes the same bytes.
+default); every route writes the same bytes.  -v prints the progress
+stages, the result and, to stderr, a `Stages:` report of the wall time of
+each pipeline stage (utils/profiling.StageTimer), as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from . import (
     compress_file,
     open_image,
 )
+from .utils.profiling import StageTimer, use_timer
 
 
 def parse_size(s: str) -> int:
@@ -233,10 +236,12 @@ def run_compression(args) -> int:
         opts.on_progress = on_progress
 
     output = args.output or default_output(args.input)
+    timer = StageTimer()
     start = time.monotonic()
     try:
-        result = compress_file(Context.background(), args.input, output,
-                               opts, device=args.device)
+        with use_timer(timer):
+            result = compress_file(Context.background(), args.input,
+                                   output, opts, device=args.device)
     except Exception as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
@@ -244,6 +249,9 @@ def run_compression(args) -> int:
 
     if args.verbose:
         print(f"{result}\n  Time: {elapsed * 1000:.0f}ms")
+        report = timer.report()
+        if report:
+            print(f"  Stages:\n{report}", file=sys.stderr)
     else:
         print(f"{args.input} -> {output} | {result.format} | "
               f"SSIM: {result.ssim:.4f} | "

@@ -363,6 +363,27 @@ def decode_jpeg_image(blocks: torch.Tensor, qtabs: torch.Tensor, h: int,
     return torch.cat([rgb, alpha], dim=-1)
 
 
+def _search_chunk(imgs: torch.Tensor, targets, subsample: bool):
+    """The lockstep search of (B, H, W, 4) float32 images (an opaque
+    (B, H, W, 3) stack gets alpha 255) at B per-image targets →
+    (SearchInputs, forward-DCT blocks, (best_q, best_ssim, found))."""
+    if imgs.shape[-1] == 3:
+        imgs = torch.cat([imgs, torch.full_like(imgs[..., :1], 255.0)],
+                         dim=-1)
+    t, lo0 = _search_targets(targets, imgs.device)
+    inp, coefs = prepare_search(imgs, subsample)
+    return inp, coefs, _bisect_device_batch(inp, t, lo0)
+
+
+def batched_quality_search(imgs: torch.Tensor, targets,
+                           subsample: bool = True):
+    """(B, H, W, 4) float32 images on the device + B per-image targets →
+    (quality int64, ssim float32, found bool), each (B,), on the device:
+    the lockstep bisection alone (counterpart of
+    batched_quality_search_device, compress.py:395)."""
+    return _search_chunk(imgs, targets, subsample)[2]
+
+
 def batched_quality_search_quantize(imgs: torch.Tensor, targets,
                                     subsample: bool, emit: bool = False,
                                     optimize: bool = True):
@@ -380,14 +401,9 @@ def batched_quality_search_quantize(imgs: torch.Tensor, targets,
     copy; with it they stay on the device, are Huffman-coded there
     (parallel/batched.emit_scans, optimal tables when `optimize`) and
     the fourth output is the emitted scans (a HostScans)."""
-    dev = imgs.device
-    if imgs.shape[-1] == 3:
-        imgs = torch.cat([imgs, torch.full_like(imgs[..., :1], 255.0)],
-                         dim=-1)
     bsz, h, w = imgs.shape[:3]
-    t, lo0 = _search_targets(targets, dev)
-    inp, coefs = prepare_search(imgs, subsample)
-    best_q, best_ssim, found = _bisect_device_batch(inp, t, lo0)
+    inp, coefs, (best_q, best_ssim, found) = _search_chunk(imgs, targets,
+                                                           subsample)
     blocks = quantize_packed(coefs, inp.tables[torch.where(found, best_q,
                                                             100)])
     head = torch.cat([best_q.to(torch.int16)[:, None],
@@ -406,7 +422,7 @@ def batched_quality_search_quantize(imgs: torch.Tensor, targets,
                        pin_memory=wire.is_cuda)
     host.copy_(wire, non_blocking=wire.is_cuda)
     if wire.is_cuda:
-        torch.cuda.current_stream(dev).synchronize()
+        torch.cuda.current_stream(wire.device).synchronize()
     out = host.numpy()
     ssim = np.ascontiguousarray(out[:, 2:4]).view(np.float32)[:, 0]
     return (out[:, 0].astype(np.int64), ssim, out[:, 1] != 0,

@@ -23,6 +23,7 @@ from ..types import (
     Result,
     UnsupportedFormatError,
 )
+from ..utils.profiling import stage
 from .compress import compress_jpeg_optimal, compress_png
 
 
@@ -37,13 +38,16 @@ def compress_image_internal(ctx: Optional[Context], img: np.ndarray,
     src = to_nrgba(arr)
 
     if opts.auto_orient and int(orient) > int(Orientation.NORMAL):
-        src = apply_orientation(src, orient)
+        with stage("orient"):
+            src = apply_orientation(src, orient)
         result.original_dimensions = (src.shape[1], src.shape[0])
 
     opts.report_progress(ctx, ProgressStage.RESIZING, 0.1)
 
     if opts.max_width > 0 or opts.max_height > 0:
-        src = smart_resize(src, opts.max_width, opts.max_height, device)
+        with stage("resize"):
+            src = smart_resize(src, opts.max_width, opts.max_height,
+                               device)
     result.image = src
     result.final_dimensions = (src.shape[1], src.shape[0])
 
@@ -60,7 +64,8 @@ def _handle_target_size_mode(ctx: Optional[Context], src: np.ndarray,
     # reference fennec.go:143-160
     from .targetsize import hit_target_size
 
-    sr = hit_target_size(ctx, src, opts.target_size, opts, device)
+    with stage("target-size search"):
+        sr = hit_target_size(ctx, src, opts.target_size, opts, device)
     apply_size_result(result, sr)
     return result
 
@@ -90,14 +95,16 @@ def _handle_standard_mode(ctx: Optional[Context], src: np.ndarray,
     opts.report_progress(ctx, ProgressStage.OPTIMIZING, 0.3)
 
     if fmt == Format.PNG:
-        result.compressed_data = compress_png(src, opts)
+        with stage("png encode"):
+            result.compressed_data = compress_png(src, opts)
         result.ssim = 1.0
     elif fmt == Format.JPEG:
         target = opts.quality.target_ssim()
         if 0.0 < opts.target_ssim <= 1.0:
             target = opts.target_ssim
-        quality, ssim_val, data = compress_jpeg_optimal(src, target, opts,
-                                                        device)
+        with stage("jpeg quality search"):
+            quality, ssim_val, data = compress_jpeg_optimal(src, target,
+                                                            opts, device)
         result.jpeg_quality = quality
         result.ssim = ssim_val
         result.compressed_data = data

@@ -689,3 +689,90 @@ def test_standard_mode_never_takes_the_plain_probe(cuda_device, monkeypatch):
         assert ssim_window.launches == before[1] + 7
         assert got.jpeg_quality == want.jpeg_quality
         assert abs(got.ssim - want.ssim) <= ATOL
+
+
+# ── The mesh over one card (two shards on cuda:0) ───────────────────────────
+
+
+def test_batch_engines_on_a_one_card_mesh(cuda_device):
+    """compress_images and the coefficient path over ["cuda:0", "cuda:0"]:
+    the bytes of one device, K1, K2, K3a and K3b launched once per
+    non-empty shard for each launch a one-device chunk makes."""
+    from fennec_tpu_torch.engine import batched as B
+    from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
+    from fennec_tpu_torch.ops.probe_recon_cuda import probe_recon
+
+    kernels = (ssim_window, probe_recon, k3.block_stats, k3.deposit)
+    imgs = [photo(96, 80, s) for s in range(5)]
+    datas = [T.encode_to_bytes(img, T.JPEG, 92, device=cuda_device)
+             for img in imgs]
+    opts = T.Options(format=T.JPEG)
+    for run in (lambda dev: T.compress_images(None, imgs, opts, device=dev),
+                lambda dev: B.compress_jpeg_bytes_batched(None, datas, opts,
+                                                          device=dev)):
+        counts = []
+        outs = []
+        for dev in ("cuda:0", ["cuda:0", "cuda:0"]):
+            before = [k.launches for k in kernels]
+            outs.append(run(dev))
+            counts.append([k.launches - b for k, b in zip(kernels, before)])
+        assert [r.compressed_data for r in outs[0]] == \
+            [r.compressed_data for r in outs[1]]
+        # One chunk of 5: one shard alone, then two shards (3 + 2).
+        assert counts[1] == [2 * c for c in counts[0]]
+        assert counts[0] == [7, 7, 1, 1]
+
+
+def test_sharded_functions_on_a_one_card_mesh(cuda_device):
+    from fennec_tpu_torch.parallel import batched as pb
+
+    mesh = pb.data_mesh(["cuda:0", "cuda:0", "cuda:0"])
+    rng = np.random.default_rng(5)
+    imgs = torch.from_numpy(rng.integers(0, 256, (5, 64, 48, 4),
+                                         dtype=np.uint8)).to(cuda_device)
+    imgs[..., 3] = 255
+    targets = [0.9, 0.94, 0.97, 0.85, 0.99]
+    q1, s1, f1 = pb.batched_quality_search(imgs, targets)
+    q2, s2, f2 = pb.batched_quality_search_sharded(mesh, imgs, targets)
+    assert torch.equal(q1, q2) and torch.equal(f1, f2)
+    assert torch.equal(s1, s2)
+    e1 = pb.batched_search_emit(imgs, targets)
+    e2 = pb.batched_search_emit_sharded(mesh, imgs, targets)
+    np.testing.assert_array_equal(e1[0], e2[0])
+    assert e1[1].tobytes() == e2[1].tobytes()
+    assert [e1[3].scan(j) for j in range(5)] == \
+        [e2[3].scan(j) for j in range(5)]
+    z1 = pb.batched_size_search(imgs, 900, 1, 100)
+    z2 = pb.batched_size_search_sharded(mesh, imgs, 900, 1, 100)
+    assert all(torch.equal(a, b) for a, b in zip(z1, z2))
+    b = torch.clamp(imgs.float() + 9, 0, 255)
+    assert torch.equal(pb.batched_ssim(imgs, b),
+                       pb.batched_ssim_sharded(mesh, imgs, b))
+
+
+def test_shard_threads_build_once_and_count_every_launch(cuda_device,
+                                                         tmp_path,
+                                                         monkeypatch):
+    """Two shard threads launch a fresh K1 at once: nvcc runs once and
+    every launch is counted."""
+    from fennec_tpu_torch.ops import ssim_cuda
+    from fennec_tpu_torch.parallel import batched as pb
+
+    builds = []
+    real = ssim_cuda.compile_library
+
+    def counted(*args):
+        builds.append(args[1])
+        return real(*args)
+
+    monkeypatch.setattr(ssim_cuda, "compile_library", counted)
+    fresh = ssim_cuda.WindowedSsimKernel(
+        library=str(tmp_path / "libssim_window.so"))
+    a, b = noise_pair((8, 96, 128), 3, cuda_device)
+
+    def fn(x, y):
+        return [fresh(x.contiguous(), y.contiguous()) for _ in range(10)][-1]
+
+    got = pb.shard_data_call(pb.data_mesh(["cuda:0", "cuda:0"]), fn, a, b)
+    assert len(builds) == 1 and fresh.launches == 20
+    assert torch.equal(got, ssim_window(a, b))

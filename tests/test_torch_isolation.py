@@ -35,7 +35,10 @@ def test_import_leaves_jax_out():
             " fennec_tpu_torch.ops.jpeg_emit,"
             " fennec_tpu_torch.ops.jpeg_emit_cuda,"
             " fennec_tpu_torch.ops.probe_recon_cuda,"
-            " fennec_tpu_torch.ops.effects, fennec_tpu_torch.io; "
+            " fennec_tpu_torch.ops.effects, fennec_tpu_torch.io,"
+            " fennec_tpu_torch.parallel, fennec_tpu_torch.parallel.mesh,"
+            " fennec_tpu_torch.parallel.distributed,"
+            " fennec_tpu_torch.utils, fennec_tpu_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'fennec_tpu' "
             "or m.startswith('fennec_tpu.')]; "
