@@ -4,17 +4,18 @@ them.
     python3 chip_smoke.py [--k2 | --k3 | --digests | --mesh]
 
 With no argument, every phase below; it needs one card.  --k2 runs
-phases 1 and 2, K2's part of phase 3 and the size oracle's check of
+phases 1 and 2, K2's part of phase 3 and the size oracle's checks of
 phase 10 alone (the two search loops' kernels against their plain
-versions, and K2 against the first K2); --k3 runs phases 1, 2 and 11 and the size oracle's check (K3
-against its plain version and, in turns, against the first K3);
+versions, and K2 against the first K2); --k3 runs phases 1, 2 and 11
+and the size oracle's checks (K3 against its plain version and, in
+turns, against the first K3; K4's step and bisection);
 --digests prints digests of a few main-path outputs, to compare two
 checkouts on one card; --mesh runs phases 1, 2 and 14 alone.  None of
 these prints the result lines.
 
 Phases, each raising on failure:
   1. environment: a CUDA card, its name and power limit, TF32 off;
-  2. build: kernels K1, K2 and K3 with K4's entry (nvcc, sm_90a), the
+  2. build: kernels K1, K2 and K3 with K4's entries (nvcc, sm_90a), the
      first K3 and the first K2 (kept under bench_sources/ to be timed
      against) and the host C++ entropy coder, from the sources in this
      checkout, all six at once;
@@ -97,16 +98,24 @@ Phases, each raising on failure:
      the scaled image's SSIM before encoding, as the reference does,
      reproduced within 1e-4).  Every timed compress_* call of T1-T3
      must launch K1, counted from 0 just before it and read just after,
-     before any check runs, and the size oracle's kernel K4 at least 7
-     times per bisection (and never the packed quantize).  The size
-     oracle on the card (scan_bytes_at: one launch of K4, which quantizes
-     the float32 coefficients as it stages them) equals its plain version
-     scan_bits, K4's own plain version and the earlier route (the packed
-     quantize, then K3a's totals) on the same CUDA tensors at 12 MP,
-     1080p, 64 x 500x500 at per-image qualities and 1080p 4:4:4; its
-     step is timed in turns with the earlier route, beside the plain step
-     and its bound, and the palette map per level at 12 MP.  T1-T3 print
-     a digest of their outputs.
+     before any check runs, and K4's bisection once per size bisection
+     (counted by count_bisections; never K4's step, never the packed
+     quantize).  The size oracle's step on the card (scan_bytes_at: one
+     launch of K4's step, which quantizes the float32 coefficients as it
+     stages them) equals its plain version scan_bits, K4's own plain
+     version and the earlier route (the packed quantize, then K3a's
+     totals) on the same CUDA tensors at 12 MP, 1080p, 64 x 500x500 at
+     per-image qualities and 1080p 4:4:4; its step is timed in turns
+     with the earlier route, beside the plain step and its bound.  K4's
+     bisection (phase_bisect) equals the step loop through K4's step and
+     the plain step loop ((best_q, found) and the (7, B) table of each
+     step's bits) at those shapes with the main path's targets and
+     ranges, over a narrowed and an empty range, at a target nothing
+     fits and one everything fits, for one image in its 0-d form and at
+     16 x 12 MP; it is timed in turns with the step loop (CUDA events,
+     host µs, device µs, device operations) beside its bound and the
+     plain loop.  The palette map per level at 12 MP.  T1-T3 print a
+     digest of their outputs.
  11. K3 against its plain version on the card, at the main path's
      shapes (12 MP and 1080p 4:2:0 at the qualities phase 4 chose, a
      64-image 500x500 chunk, 1080p 4:4:4, ragged 17x9 and 1x1) and at
@@ -144,14 +153,16 @@ Phases, each raising on failure:
      one); warm img/s of both, median of 3.  The four *_sharded
      functions at (64, 500, 500) on the two shards against their
      unsharded forms (q, found, SSIM bit-equal; scan bytes equal; the size
-     search's (q, found) equal).  The CLI's -v on the 12 MP file: a
-     `Stages:` report naming the JAX CLI's stages.  One warm 12 MP
+     search's (q, found) equal, K4's bisection launched once on one
+     device and once per shard on the two).  The CLI's -v on the 12 MP
+     file: a `Stages:` report naming the JAX CLI's stages.  One warm 12 MP
      compress_file under utils/profiling.device_trace: the Chrome trace
      must name the kernels of K1, K2, K3a and K3b.
 
 The last lines: the kernel table as JSON (K1's, K2's, K3a's, K3b's and
-K4's launches summed over the main-path runs of phases 4, 6-8 and 10,
-each counted from 0),
+K4's step's and bisection's launches summed over the main-path runs of
+phases 4, 6-8 and 10, each counted from 0; K4's step, now the
+bisection's yardstick, launches 0 times there),
 the card's name and power limit as nvidia-smi reports them, and {"ok":
 true, "device": {...}}.  Images are made from numpy seeds; nothing is
 fetched.  Without a CUDA card the script fails before printing any
@@ -301,55 +312,71 @@ def k1_bound(shape):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def profiled_device_ms(fn, iters: int, name: str,
-                       per_call: int = 1) -> float:
-    """Device ms per fn() call, which launches `per_call` kernels whose
-    names hold `name`, from torch.profiler's CUDA rows of those kernels:
-    their mean time per launch times per_call.  The profiler on the card
-    drops some records of a long run of short launches, so the mean is
-    taken over the launches it recorded (profiled again, up to three
-    times, while it records none)."""
+# Timings torch.profiler could not give, each timed with CUDA events
+# instead (profiled_rows); main() reports them.
+PROFILER_MISSES = []
+
+
+def device_us(e) -> float:
+    """A torch.profiler row's own device µs."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
+
+
+def profiled_rows(fn, iters: int, name: str = ""):
+    """torch.profiler's CUDA rows (kernels, memsets and copies) of fn()
+    calls after one warm-up, with the number of calls profiled.  The
+    profiler on the card drops some records of a long run of short
+    launches, and in some runs all of them, so while no row's name holds
+    `name` (no row at all, when empty) it profiles again, up to three
+    times, the last time over a tenth of the calls.  (None, iters) when it
+    never does: the caller then times the whole call with CUDA events."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for n in (iters, iters, max(3, iters // 10)):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        total, count = 0.0, 0
-        for e in prof.key_averages():
-            if (e.device_type == torch.autograd.DeviceType.CUDA
-                    and name in e.key):
-                total += getattr(e, "self_device_time_total",
-                                 getattr(e, "self_cuda_time_total", 0))
-                count += e.count
-        if count:
-            return total / count * per_call / 1e3
-    raise AssertionError(f"torch.profiler recorded no launch of '{name}' "
-                         f"in {iters} calls")
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if any(name in e.key for e in rows):
+            return rows, n
+    what = f"'{name}'" if name else "any device operation"
+    PROFILER_MISSES.append(what)
+    log(f"torch.profiler recorded no launch of {what} in three tries; "
+        f"timed with CUDA events instead (the whole call)")
+    return None, iters
+
+
+def profiled_device_ms(fn, iters: int, name: str,
+                       per_call: int = 1) -> float:
+    """Device ms per fn() call, which launches `per_call` kernels whose
+    names hold `name`, from torch.profiler's CUDA rows of those kernels:
+    their mean time per launch (over the launches it recorded) times
+    per_call.  CUDA-event ms of the whole call when the profiler records
+    none (profiled_rows)."""
+    rows, _ = profiled_rows(fn, iters, name)
+    if rows is None:
+        return cuda_ms(fn, iters)
+    mine = [e for e in rows if name in e.key]
+    return (sum(device_us(e) for e in mine) / sum(e.count for e in mine)
+            * per_call / 1e3)
 
 
 def profiled_all_device(fn, iters: int):
     """(device ms, device operations) per fn() call over everything it
     runs on the card: torch.profiler's CUDA rows (kernels, memsets and
-    copies) of `iters` calls."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    total = sum(getattr(e, "self_device_time_total",
-                        getattr(e, "self_cuda_time_total", 0)) for e in rows)
-    return total / iters / 1e3, sum(e.count for e in rows) / iters
+    copies).  (CUDA-event ms, None) when the profiler records nothing
+    (profiled_rows)."""
+    rows, n = profiled_rows(fn, iters)
+    if rows is None:
+        return cuda_ms(fn, iters), None
+    return (sum(device_us(e) for e in rows) / n / 1e3,
+            sum(e.count for e in rows) / n)
 
 
 def profiled_per_call(fn, iters: int, name: str):
@@ -357,27 +384,14 @@ def profiled_per_call(fn, iters: int, name: str):
     kernel whose name holds `name` and maybe other device work (memsets,
     more kernels): torch.profiler's CUDA rows of everything, over the
     number of `name` launches it recorded (it drops some records of a long
-    run of short launches; see profiled_device_ms)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        calls = sum(e.count for e in rows if name in e.key)
-        if calls:
-            total = sum(getattr(e, "self_device_time_total",
-                                getattr(e, "self_cuda_time_total", 0))
-                        for e in rows)
-            return total / calls / 1e3, sum(e.count for e in rows) / calls
-    raise AssertionError(f"torch.profiler recorded no launch of '{name}' "
-                         f"in {iters} calls")
+    run of short launches; see profiled_rows).  (CUDA-event ms, None)
+    when it records none."""
+    rows, _ = profiled_rows(fn, iters, name)
+    if rows is None:
+        return cuda_ms(fn, iters), None
+    calls = sum(e.count for e in rows if name in e.key)
+    return (sum(device_us(e) for e in rows) / calls / 1e3,
+            sum(e.count for e in rows) / calls)
 
 
 def host_us(fn, iters: int) -> float:
@@ -394,15 +408,42 @@ def host_us(fn, iters: int) -> float:
 
 
 # The launches on the main path (phases 4, 6-8 and 10) of K3 (emission's
-# K3a and K3b), of K4 (the size oracle's step) and of K2 (the probe
-# reconstruction), each call counted from 0 just before it and read just
-# after.
-K3_MAIN = {"block_stats": 0, "deposit": 0, "oracle": 0}
+# K3a and K3b), of K4 (the size oracle's bisection, and its step, which
+# only phase_k4 launches now) and of K2 (the probe reconstruction), each
+# call counted from 0 just before it and read just after; and the engines'
+# size bisections on the card (count_bisections).
+K3_MAIN = {"block_stats": 0, "deposit": 0, "oracle": 0, "bisect": 0}
 K2_MAIN = {"recon": 0}
+BISECTIONS = {"calls": 0}
+
+
+def count_bisections() -> None:
+    """Count every size_search.size_bisect call of the engines on a CUDA
+    device into BISECTIONS, so that k3_take can hold K4's bisection to
+    one launch per bisection: the three modules that call it get a
+    counting wrapper around it (installed once)."""
+    import threading
+
+    from fennec_tpu_torch.engine import size_search, targetsize
+    from fennec_tpu_torch.engine import targetsize_batched
+    from fennec_tpu_torch.parallel import batched
+
+    real = size_search.size_bisect
+    lock = threading.Lock()
+
+    def counted(coefs, *args, **kwargs):
+        if coefs[0].device.type == "cuda":
+            with lock:
+                BISECTIONS["calls"] += 1
+        return real(coefs, *args, **kwargs)
+
+    for mod in (targetsize, targetsize_batched, batched):
+        if mod.size_bisect is real:
+            mod.size_bisect = counted
 
 
 def k3_zero() -> None:
-    """Set K2's, K3's and K4's counts to 0."""
+    """Set K2's, K3's and K4's counts and the bisections to 0."""
     from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
     from fennec_tpu_torch.ops.probe_recon_cuda import probe_recon
 
@@ -410,39 +451,47 @@ def k3_zero() -> None:
     k3.deposit.launches = 0
     k3.oracle_stats.launches = 0
     k3.quantize_count.launches = 0
+    k3.size_bisect.launches = 0
+    BISECTIONS["calls"] = 0
     probe_recon.launches = 0
 
 
-def k3_take(tag: str, dev, emissions: int, oracle_steps: int = 0,
+def k3_take(tag: str, dev, emissions: int, bisections: int = 0,
             probes: int = 0):
     """The launches since k3_zero, added to the main path's totals.  On a
     CUDA device every JPEG of the call must have been coded by K3: at
     least `emissions` emissions (one per image or device chunk coded),
-    each one K3a and one K3b launch; the size oracle must have launched
-    K4 at least `oracle_steps` times and K3a's totals over packed blocks
-    (the route K4 replaced) never; and K2 must have reconstructed at
-    least `probes` probes.  emissions=0: the call keeps the host encoder
-    and must launch neither K3a nor K3b."""
+    each one K3a and one K3b launch; the size oracle must have bisected
+    at least `bisections` times, each bisection one launch of K4's
+    bisection, and launched neither K4's step nor K3a's totals over
+    packed blocks; and K2 must have reconstructed at least `probes`
+    probes.  emissions=0: the call keeps the host encoder and must launch
+    neither K3a nor K3b."""
     from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
     from fennec_tpu_torch.ops.probe_recon_cuda import probe_recon
 
     a, b = k3.block_stats.launches, k3.deposit.launches
-    o = k3.quantize_count.launches
+    o, z = k3.quantize_count.launches, k3.size_bisect.launches
     p = probe_recon.launches
     K3_MAIN["block_stats"] += a
     K3_MAIN["deposit"] += b
     K3_MAIN["oracle"] += o
+    K3_MAIN["bisect"] += z
     K2_MAIN["recon"] += p
-    if dev.type == "cuda" and (a != b or b < emissions or o < oracle_steps
+    calls = BISECTIONS["calls"]
+    if dev.type == "cuda" and (a != b or b < emissions or z != calls
+                               or calls < bisections or o
                                or (emissions == 0 and b != 0)
                                or k3.oracle_stats.launches or p < probes):
-        raise AssertionError(f"{tag}: launches K3a={a} K3b={b} K4={o} "
-                             f"(K3a over packed blocks as the oracle: "
-                             f"{k3.oracle_stats.launches}) K2={p}, want "
-                             f"{emissions} or more emissions of one K3a and "
-                             f"one K3b, >= {oracle_steps} oracle steps on "
-                             f"K4 alone, and >= {probes} K2 probes")
-    return a, b, o
+        raise AssertionError(f"{tag}: launches K3a={a} K3b={b} K4 "
+                             f"bisection={z} for {calls} bisections, K4 "
+                             f"step={o} (K3a over packed blocks as the "
+                             f"oracle: {k3.oracle_stats.launches}) K2={p}, "
+                             f"want {emissions} or more emissions of one K3a"
+                             f" and one K3b, one K4 bisection per bisection "
+                             f"and >= {bisections} of them, no K4 step, and "
+                             f">= {probes} K2 probes")
+    return a, b, z
 
 
 def phase_kernel(dev, ssim_window, batched_ssim_plain):
@@ -633,8 +682,8 @@ def phase_k2(dev, cases=None, timed: bool = True, first=None):
                 f"{[round(v * 1e3, 2) for v in t['first_turns']]}) event_us="
                 f"{t['event_ms'] * 1e3:.2f} first_event_us="
                 f"{t['first_event_ms'] * 1e3:.2f} host_us={t['host_us']:.2f} "
-                f"first_host_us={t['first_host_us']:.2f} ops={t['ops']:.2f} "
-                f"first_ops={t['first_ops']:.2f} bound_us="
+                f"first_host_us={t['first_host_us']:.2f} ops={t['ops']} "
+                f"first_ops={t['first_ops']} bound_us="
                 f"{t['bound_ms'] * 1e3:.2f} ({t['bound_by']}) share="
                 f"{t['share']:.3f} first_share={t['first_share']:.3f} "
                 f"plain_event_ms={t['plain_ms']:.4f}")
@@ -663,8 +712,9 @@ def time_k2(inp, q, n: int, first) -> dict:
          "turns": [r[0] for r in runs["new"]],
          "first_turns": [r[0] for r in runs["first"]]}
     for key, i in (("ms", 0), ("ops", 1), ("event_ms", 2), ("host_us", 3)):
-        t[key] = float(np.mean([r[i] for r in runs["new"]]))
-        t[f"first_{key}"] = float(np.mean([r[i] for r in runs["first"]]))
+        for who, out in (("new", key), ("first", f"first_{key}")):
+            got = [r[i] for r in runs[who] if r[i] is not None]
+            t[out] = float(np.mean(got)) if got else None  # ops unseen
     t["plain_ms"] = cuda_ms(lambda: C.probe_luminance_plain(inp, q), 5)
     t["bound_ms"], t["bound_by"] = k2_bound(inp, n)
     t["share"] = t["bound_ms"] / t["ms"]
@@ -1348,18 +1398,14 @@ def profile_device(fn, tag: str) -> None:
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
-    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    busy_ms = sum(device_us(e) for e in events) / 1e3
     if busy_ms <= 0:
         log(f"{tag} profile: no device time recorded (not measured)")
         return
     log(f"{tag} profile: wall_ms={wall_ms:.1f} device_busy_ms="
         f"{busy_ms:.1f} idle_share={1 - busy_ms / wall_ms:.3f}")
-    for e in sorted(events, key=dev_us, reverse=True)[:8]:
-        log(f"  {dev_us(e) / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
+    for e in sorted(events, key=device_us, reverse=True)[:8]:
+        log(f"  {device_us(e) / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
 
 
 def reset_peak(dev) -> None:
@@ -1700,8 +1746,8 @@ def phase_ts_single(T, dev, ssim_window, counters, big_path, big_img, tmp,
         warm_launches = ssim_window.launches
         # The per-image target-size engine encodes on the host C++
         # encoder, as the JAX package's does (engine/targetsize.py:197):
-        # no emission, but its size oracle's bisection runs on K3a.
-        k3_warm = k3_take(f"T1 {tag}", dev, 0, 7)
+        # no emission, but its size oracle's bisections run on K4.
+        k3_warm = k3_take(f"T1 {tag}", dev, 0, 1)
         total += cold_launches + warm_launches
         if dev.type == "cuda" and not (cold_launches and warm_launches):
             raise AssertionError(f"T1 {tag}: K1 launches cold="
@@ -1714,7 +1760,7 @@ def phase_ts_single(T, dev, ssim_window, counters, big_path, big_img, tmp,
             f"ssim={res.ssim:.6f} decoded_ssim={decoded:.6f} "
             f"cold_ms={cold_ms:.1f} warm_ms={warm_ms:.1f} K1 launches "
             f"cold={cold_launches} warm={warm_launches} K3 launches warm "
-            f"(K3a, K3b, oracle K3a)={k3_warm} (host encoder) "
+            f"(K3a, K3b, K4 bisection)={k3_warm} (host encoder) "
             f"warm {ts_seconds(counters)} "
             f"digest={digest([res.compressed_data])}")
     log(f"T1: K1 launches={total} (the compress_* calls only)")
@@ -1746,7 +1792,7 @@ def phase_ts_batch(T, dev, ssim_window, counters, n=64, w=500, h=500,
         res = T.compress_images(None, images, opts, device=dev)
         wall_ms = (time.perf_counter() - t) * 1e3
         launches = ssim_window.launches
-        k3a, k3b, k4 = k3_take(f"T2 {tag}", dev, 1, 7)
+        k3a, k3b, k4 = k3_take(f"T2 {tag}", dev, 1, 1)
         total += launches
         if dev.type == "cuda" and launches == 0:
             raise AssertionError(f"T2 {tag}: the batched pass never ran K1")
@@ -1765,7 +1811,7 @@ def phase_ts_batch(T, dev, ssim_window, counters, n=64, w=500, h=500,
             f" memo_hits={ev.get('ts_memo_hits', 0)} rounds="
             f"{ev.get('ts_s3_rounds', 0)} over_target={over} strategies="
             f"{strategies} K1 launches={launches} K3 launches K3a={k3a} "
-            f"K3b={k3b} oracle K3a={k4} {ts_seconds(counters)} "
+            f"K3b={k3b} K4 bisection={k4} {ts_seconds(counters)} "
             f"digest={digest(r.compressed_data for r in res)}")
         if over:
             raise AssertionError(f"T2: {over} result(s) over the target")
@@ -1787,7 +1833,7 @@ def phase_ts_batch(T, dev, ssim_window, counters, n=64, w=500, h=500,
                             device=dev)
     wall_ms = (time.perf_counter() - t) * 1e3
     launches = ssim_window.launches
-    k3_take("T2 auto bucket", dev, 1, 7)
+    k3_take("T2 auto bucket", dev, 1, 1)
     total += launches
     if dev.type == "cuda" and launches == 0:
         raise AssertionError("T2 auto bucket: the batched pass never ran K1")
@@ -1827,7 +1873,7 @@ def phase_ts_full_size(T, dev, ssim_window, counters, big_img, n=16,
     wall_ms = (time.perf_counter() - t) * 1e3
     launches = ssim_window.launches
     snap = counters.snapshot()
-    k3_take("T2 12 MP", dev, 1, 7)
+    k3_take("T2 12 MP", dev, 1, 1)
     if dev.type == "cuda" and launches == 0:
         raise AssertionError("T2 12 MP: the batched pass never ran K1")
     if snap["routes"] != {"target-size": n}:
@@ -1873,7 +1919,7 @@ def phase_ts_files(T, dev, ssim_window, counters, tmp, big_path, n=64,
         device=dev)
     wall_ms = (time.perf_counter() - t) * 1e3
     launches = ssim_window.launches
-    k3_take("T3", dev, 1, 7)
+    k3_take("T3", dev, 1, 1)
     bad = [(r.item.src, r.err) for r in res if r.err is not None]
     if bad:
         raise AssertionError(f"T3: {len(bad)} item(s) failed: {bad[:3]}")
@@ -2058,6 +2104,188 @@ def phase_k4(T, dev, big_img):
                 f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
                 for k, v in t.items())
             + f" step_share={t['bound_ms'] / t['step_ms']:.3f}")
+    return out
+
+
+def bisect_cases(T, dev, big_img, rolled: int = 16):
+    """(tag, coefs, (target, lo0, hi0), padded h, padded w, subsample) for
+    K4's bisection.  The main path's: the 12 MP photo at T1's 100 KB, a
+    1080p photo at 200 KB (each over the engine's bits-per-pixel range,
+    the container header subtracted), T2's 64 x 500x500 at per-image
+    targets of 10-30 KB, 1080p 4:4:4 over [1, 100].  Then the 1080p photo
+    over a narrowed range, an empty one (lo0 > hi0: nothing read), at a
+    target nothing fits and one everything fits; one 500x500 image as
+    (N, 64) components with 0-d bounds; and `rolled` rolled copies of the
+    12 MP photo at 100 KB (1.17 GB of coefficients at 16)."""
+    from fennec_tpu_torch.codecs.jpeg import forward_dct
+    from fennec_tpu_torch.engine.targetsize import _bpp_bounds, _header_len
+
+    by = {c[0]: c for c in oracle_cases(T, dev, big_img)}
+
+    def main_path(target: int, w: int, h: int):
+        return (target - _header_len(w, h),) + _bpp_bounds(target, w * h)
+
+    _, c12, _, ph12, pw12, _ = by["12mp_420"]
+    _, c1080, _, ph, pw, _ = by["1080p_420"]
+    _, c500, _, p5, _, _ = by["t2_64x500_420"]
+    _, c444, _, ph4, pw4, _ = by["1080p_444"]
+    rng = np.random.default_rng(SEED + 78)
+    t2_targets = torch.from_numpy(   # on the card: bounds built there
+        rng.integers(10 * 1024, 30 * 1024, 64) - _header_len(500, 500)
+    ).to(dev)
+    cases = [
+        ("12mp_420", c12, main_path(100 * 1024, 4032, 3024), ph12, pw12,
+         True),
+        ("1080p_420", c1080, main_path(200 * 1024, 1920, 1080), ph, pw,
+         True),
+        ("t2_64x500_420", c500, (t2_targets,) + _bpp_bounds(20 * 1024,
+                                                            250000),
+         p5, p5, True),
+        ("1080p_444", c444, (200 * 1024, 1, 100), ph4, pw4, False),
+        ("1080p_narrow", c1080, (200 * 1024, 40, 60), ph, pw, True),
+        ("1080p_empty", c1080, (200 * 1024, 70, 20), ph, pw, True),
+        ("1080p_none_fits", c1080, (1, 1, 100), ph, pw, True),
+        ("1080p_all_fit", c1080, (10 ** 9, 1, 100), ph, pw, True),
+        ("500_single", [c[7] for c in c500], (torch.tensor(18000),
+                                              torch.tensor(10),
+                                              torch.tensor(70)),
+         p5, p5, True),
+    ]
+    if rolled:
+        x = torch.from_numpy(np.stack([
+            np.roll(big_img, (61 * i, 97 * i), axis=(0, 1))
+            for i in range(rolled)])).to(dev)
+        coefs = forward_dct(x.to(torch.float32), True)
+        del x
+        cases.append((f"{rolled}x12mp_420", coefs,
+                      main_path(100 * 1024, 4032, 3024), ph12, pw12, True))
+    return cases
+
+
+def bisect_bound(coefs, table) -> dict:
+    """K4's bisection's least time from its bytes: 256 B of float32
+    coefficients per block of every image at every step it was still
+    searching ("reread", the work the kernel does: its coefficients do
+    not stay in L2 between steps when over 50 MB) and, as the kernel
+    contract counts bytes, every input read once ("once": each image
+    that searched at all, once; all a bisection needs if its
+    coefficients stayed in L2), each in ms at 3.35 TB/s."""
+    per_image = sum(c.shape[-2] for c in coefs) * 256
+    active = (table >= 0).reshape(table.shape[0], -1)
+    reread = int(active.sum()) * per_image
+    once = int(active.any(dim=0).sum()) * per_image
+    return {"reread_bound_ms": reread / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": once / HBM_BYTES_PER_S * 1e3,
+            "coef_mb": active.shape[1] * per_image / 1e6,
+            "active_steps": int(active.sum())}
+
+
+def phase_bisect(T, dev, big_img, rolled: int = 16):
+    """K4's bisection on the card against the step loop through K4's step
+    and against the plain step loop (scan_bits), on the same CUDA tensors
+    at every bisect_cases case: (best_q, found) and the (7, B) table of
+    each step's bits equal; size_search.size_bisect launches the
+    bisection once and K4's step never.  Timed in turns (step loop, new,
+    new, step loop): CUDA-event ms and host µs per bisection, the new
+    kernel's device µs (torch.profiler, its kernel's rows), the device
+    ms and operations per bisection of both (every CUDA row), beside the
+    bound and the plain step loop's ms.  Returns {tag: times}."""
+    from fennec_tpu_torch.engine import size_search
+    from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
+    from fennec_tpu_torch.ops.jpeg_emit import (
+        bisect_steps,
+        layout_on,
+        std_tables_on,
+    )
+    from fennec_tpu_torch.ops.jpeg_size import scan_bits
+
+    out = {}
+    steps = size_search.MAX_STEPS
+    for tag, coefs, (target, lo, hi), ph, pw, sub in bisect_cases(
+            T, dev, big_img, rolled):
+        single = coefs[0].dim() == 2
+
+        def new():
+            return size_search.size_bisect(coefs, ph, pw, sub, target, lo,
+                                           hi)
+
+        def loop():
+            return size_search.size_bisect_steps(coefs, ph, pw, sub, target,
+                                                 lo, hi)
+
+        bounds = size_search._bounds(coefs, target, lo, hi)
+
+        def plain():
+            def count(q):
+                return scan_bits(*size_search.quantize_at(coefs, q), ph, pw,
+                                 sub)
+            return bisect_steps(count, *bounds, steps)
+
+        before = (k3.size_bisect.launches, k3.quantize_count.launches)
+        q, found = new()
+        if dev.type == "cuda" and (
+                k3.size_bisect.launches, k3.quantize_count.launches) != (
+                before[0] + 1, before[1]):
+            raise AssertionError(f"bisect {tag}: size_bisect did not launch "
+                                 f"K4's bisection once and nothing else")
+        stacked = [c[None] if single else c for c in coefs]
+        kq, kf, table = k3.size_bisect(
+            [c.contiguous() for c in stacked],
+            size_search.quality_tables_on(dev),
+                layout_on(ph, pw, sub, dev), std_tables_on(dev),
+            bounds.reshape(3, -1), steps)
+        lq, lf, ltable = loop()
+        pq, pf, ptable = plain()
+        if single and (q.dim() or found.dim()):
+            raise AssertionError(f"bisect {tag}: one image gave "
+                                 f"{tuple(q.shape)} results, not 0-d")
+        got = [t.reshape(-1) for t in (q, found, kq, kf)]
+        want = [t.reshape(-1) for t in (lq, lf, pq, pf)]
+        if not (all(torch.equal(g, w) for g, w in zip(got[:2], want[:2]))
+                and all(torch.equal(g, w) for g, w in zip(got[2:], want[:2]))
+                and all(torch.equal(g, w) for g, w in zip(got[:2], want[2:]))
+                and torch.equal(table, ltable.reshape(steps, -1))
+                and torch.equal(table, ptable.reshape(steps, -1))):
+            raise AssertionError(
+                f"bisect {tag}: K4's bisection (q {got[0].tolist()[:6]}, "
+                f"found {got[1].tolist()[:6]}) differs from the step loop "
+                f"({want[0].tolist()[:6]}, {want[1].tolist()[:6]}) or the "
+                f"plain loop ({want[2].tolist()[:6]}); tables\n"
+                f"{table[:, :4].tolist()}\n"
+                f"{ltable.reshape(steps, -1)[:, :4].tolist()}\n"
+                f"{ptable.reshape(steps, -1)[:, :4].tolist()}")
+        iters = 5 if tag.startswith(f"{rolled}x") else 20
+        turns = {"loop": [], "new": []}
+        for who in ("loop", "new", "new", "loop"):
+            fn = new if who == "new" else loop
+            turns[who].append((cuda_ms(fn, iters), host_us(fn, iters)))
+        new_dev_ms, new_ops = profiled_all_device(new, iters)
+        loop_dev_ms, loop_ops = profiled_all_device(loop, iters)
+        t = {"images": table.shape[1], "found": int(kf.sum()),
+             "max_abs_err": int((table - ltable.reshape(steps, -1))
+                                .abs().max()),
+             "kernel_ms": profiled_device_ms(new, iters,
+                                             "size_bisect_kernel"),
+             "device_ms": new_dev_ms, "device_ops": new_ops,
+             "event_ms": min(ms for ms, _ in turns["new"]),
+             "host_us": min(us for _, us in turns["new"]),
+             "loop_device_ms": loop_dev_ms, "loop_device_ops": loop_ops,
+             "loop_event_ms": min(ms for ms, _ in turns["loop"]),
+             "loop_host_us": min(us for _, us in turns["loop"]),
+             "turns_event_us": [round(ms * 1e3, 1) for who in
+                                ("loop", "new") for ms, _ in turns[who]],
+             "plain_ms": cuda_ms(plain, 2 if tag.startswith(
+                 f"{rolled}x") else 3)}
+        t.update(bisect_bound(stacked, table))
+        t["share"] = t["bound_ms"] / t["kernel_ms"]
+        t["reread_share"] = t["reread_bound_ms"] / t["kernel_ms"]
+        out[tag] = t
+        log(f"bisect {tag}: K4's bisection == the step loop through K4 == "
+            f"the plain step loop (q {got[0].tolist()[:4]}.., table rows "
+            f"equal) " + " ".join(
+                f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in t.items()))
+        del coefs, stacked
     return out
 
 
@@ -2331,6 +2559,7 @@ def phase_mesh(T, dev, counters, big_path, tmp, n=512, w=500, h=500,
     functions against their unsharded forms at (64, 500, 500); the CLI's
     -v report; a device_trace of one warm 12 MP compress_file naming K1,
     K2, K3a and K3b."""
+    from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
     from fennec_tpu_torch.parallel import batched as pb
     from fennec_tpu_torch.utils.profiling import device_trace
 
@@ -2424,8 +2653,22 @@ def phase_mesh(T, dev, counters, big_path, tmp, n=512, w=500, h=500,
             or e1[1].tobytes() != e2[1].tobytes()
             or scans1 != [e2[3].scan(j) for j in range(64)]):
         raise AssertionError("mesh: batched_search_emit_sharded differs")
-    z1 = pb.batched_size_search(imgs, 20000, 1, 100)
-    z2 = pb.batched_size_search_sharded(mesh, imgs, 20000, 1, 100)
+
+    def counted(run):
+        before = (k3.size_bisect.launches, k3.quantize_count.launches)
+        got = run()
+        return got, (k3.size_bisect.launches - before[0],
+                     k3.quantize_count.launches - before[1])
+
+    z1, n1 = counted(lambda: pb.batched_size_search(imgs, 20000, 1, 100))
+    z2, n2 = counted(lambda: pb.batched_size_search_sharded(
+        mesh, imgs, 20000, 1, 100))
+    launched = [n1, n2]
+    # One launch of K4's bisection per non-empty shard (both shards of 64
+    # images hold 32), none of K4's step.
+    if dev.type == "cuda" and launched != [(1, 0), (2, 0)]:
+        raise AssertionError(f"mesh: K4's bisection and step launched "
+                             f"{launched} times (one device, two shards)")
     if not all(torch.equal(a, b) for a, b in zip(z1, z2)):
         raise AssertionError("mesh: batched_size_search_sharded differs")
     other = torch.clamp(imgs.to(torch.float32) + 9.0, 0, 255)
@@ -2434,7 +2677,8 @@ def phase_mesh(T, dev, counters, big_path, tmp, n=512, w=500, h=500,
         raise AssertionError("mesh: batched_ssim_sharded differs")
     log(f"mesh sharded functions at (64, 500, 500) on {two}: q, found and "
         f"SSIM bit-equal, scan bytes equal (digest {digest(scans1)}), size "
-        f"search (q, found) equal (found {int(z1[1].sum())} of 64)")
+        f"search (q, found) equal (found {int(z1[1].sum())} of 64; K4's "
+        f"bisection launched {launched[0][0]} / {launched[1][0]} times)")
 
     # The CLI's -v report on the 12 MP file.
     env = dict(os.environ, PYTHONPATH=HERE)
@@ -2521,24 +2765,26 @@ def build_all(ssim_window, k3, probe_recon):
 
 def k2_only(T, dev, first_k2) -> int:
     """`--k2`: phases 1 and 2, K2 against its plain version and the first
-    K2 (timed in turns) and the size oracle's check (phase_k4) alone; no
-    main path, so no result line."""
+    K2 (timed in turns) and the size oracle's checks (phase_k4 and
+    phase_bisect) alone; no main path, so no result line."""
     phase_k2(dev, first=first_k2)
     big = T.codecs.decode_image(T.encode_to_bytes(
         photo(4032, 3024, SEED), T.JPEG, 92, device=dev), device=dev)
     phase_k4(T, dev, big)
+    phase_bisect(T, dev, big)
     log("k2 only: every case passed")
     return 0
 
 
 def k3_only(T, dev, first_k3) -> int:
     """`--k3`: phases 1, 2 and 11 alone, at BALANCED's usual qualities,
-    and the size oracle's check (phase_k4); no main path, so no result
-    line."""
+    and the size oracle's checks (phase_k4 and phase_bisect); no main
+    path, so no result line."""
     _err, _times = phase_k3(T, dev, k3_cases(30, 30, 60), first=first_k3)
     big = T.codecs.decode_image(T.encode_to_bytes(
         photo(4032, 3024, SEED), T.JPEG, 92, device=dev), device=dev)
     phase_k4(T, dev, big)
+    phase_bisect(T, dev, big)
     log("k3 only: every case passed")
     return 0
 
@@ -2618,6 +2864,7 @@ def main(only: str = "") -> int:
     from fennec_tpu_torch.ops.ssim import batched_ssim_plain
     from fennec_tpu_torch.ops.ssim_cuda import SOURCE, ssim_window
 
+    count_bisections()
     if only == "digests":  # kernels build at first use
         return digests_only(T, dev)
     first_k3, first_k2 = build_all(ssim_window, k3, k2.probe_recon)
@@ -2740,6 +2987,7 @@ def main(only: str = "") -> int:
         big_img = T.codecs.decode_image(big_jpeg, device=dev)
         time_ts_device_work(dev, big_img)
         k4_times = phase_k4(T, dev, big_img)
+        bisect_times = phase_bisect(T, dev, big_img)
         total_launches += phase_ts_single(T, dev, ssim_window, counters,
                                           big_path, big_img, tmp)
         total_launches += phase_ts_batch(T, dev, ssim_window, counters)
@@ -2784,6 +3032,8 @@ def main(only: str = "") -> int:
         "measured: one card): " + json.dumps(mesh))
     log("A/B summary (warm ms, K3 vs host encoder): " + json.dumps(
         {k: {"k3": v[None], "host": v[False]} for k, v in ab.items()}))
+    log(f"timings torch.profiler recorded nothing of (CUDA-event ms of the "
+        f"whole call instead): {PROFILER_MISSES or 'none'}")
 
     k3t = k3_times[("12mp_420", True)]
     k4t = k4_times["12mp_420"]
@@ -2794,6 +3044,8 @@ def main(only: str = "") -> int:
             ("k3b", "jpeg_deposit", "fennec_tpu/ops/jpeg_emit.py:587",
              "deposit"),
             # The size oracle's step: quantize and count in one launch.
+            # The main path bisects with K4's bisection now; the step is
+            # phase_k4's and phase_bisect's yardstick (0 launches here).
             ("k4", "jpeg_quantize_count",
              "fennec_tpu/ops/jpeg_size.py:138", "oracle")):
         if part == "k4":
@@ -2829,6 +3081,28 @@ def main(only: str = "") -> int:
             "host_us": k3t[f"{part}_host_us"],
             "first_ms": k3t.get(f"{part}_first_ms"),
         })
+    # K4's bisection: the whole size search in one launch.
+    bt = bisect_times["12mp_420"]
+    k3_rows.append({
+        "name": "jpeg_size_bisect", "route": "cuda",
+        "source": os.path.relpath(k3.SOURCE, HERE),
+        # The XLA program size_bisect_device (a fori_loop of 7 steps).
+        "replaces": "fennec_tpu/engine/size_search.py:61",
+        "launches": K3_MAIN["bisect"],
+        # Integer (best_q, found) and table cells against the step loop's,
+        # at every phase_bisect case.
+        "max_abs_err": max(t["max_abs_err"] for t in bisect_times.values()),
+        "shape": [1, 285768, 64],
+        "ms": bt["kernel_ms"], "plain_ms": bt["plain_ms"],
+        "bound_ms": bt["bound_ms"], "bound_by": "bytes",
+        "share": bt["share"], "library_ms": None,
+        "reread_bound_ms": bt["reread_bound_ms"],
+        "event_ms": bt["event_ms"], "host_us": bt["host_us"],
+        "device_ops": bt["device_ops"],
+        # The step loop through K4's step, in turns.
+        "loop_event_ms": bt["loop_event_ms"],
+        "loop_device_ms": bt["loop_device_ms"],
+        "loop_device_ops": bt["loop_device_ops"]})
     t = times[(1, 384, 512)]
     k2t = k2_times["12mp_420_q30"]
     print(json.dumps({"kernels": [{

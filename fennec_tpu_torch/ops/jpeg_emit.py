@@ -47,7 +47,7 @@ from __future__ import annotations
 
 import functools
 import threading
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -312,6 +312,46 @@ def quantize_count_plain(coefs: Sequence[torch.Tensor],
     totals."""
     packed = quantize_packed(coefs, qtables[quality.clamp(0, 100)])
     return block_stats_plain(packed, lay, tables).totals
+
+
+def bisect_steps(count_bits: Callable[[torch.Tensor], torch.Tensor],
+                 target: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                 steps: int):
+    """The size bisection's rule (fennec_tpu/engine/size_search.py:41-53)
+    as a loop of `steps` steps over int64 tensors of one shape: at each
+    step count_bits(mid) gives every image's scan bits at its mid, and an
+    image fits when ceil(bits / 8) <= target.  Returns (best_q int64,
+    found bool, table): the highest quality in [lo, hi] that fits (0,
+    False when none does) and the (steps, ...) int64 bits each step
+    counted, -1 where the image's range was already empty.  K4's
+    bisection replays this rule from its table on the card."""
+    best_q = torch.zeros_like(lo)
+    found = torch.zeros(lo.shape, dtype=torch.bool, device=lo.device)
+    rows = []
+    for _ in range(steps):
+        active = lo <= hi
+        mid = torch.div(lo + hi, 2, rounding_mode="floor")
+        bits = count_bits(mid)
+        ok = active & (torch.div(bits + 7, 8, rounding_mode="floor")
+                       <= target)
+        best_q = torch.where(ok, mid, best_q)
+        found = found | ok
+        lo = torch.where(ok, mid + 1, lo)
+        hi = torch.where(active & ~ok, mid - 1, hi)
+        rows.append(torch.where(active, bits, -1))
+    return best_q, found, torch.stack(rows)
+
+
+def size_bisect_plain(coefs: Sequence[torch.Tensor], qtables: torch.Tensor,
+                      lay: ScanLayout, tables: torch.Tensor,
+                      bounds: torch.Tensor, steps: int):
+    """K4's bisection's function: bisect_steps over K4's step
+    (quantize_count_plain) for (B, N, 64) coefficient blocks and (3, B)
+    int64 bounds (target bytes, lo0, hi0) → (best_q, found, table)."""
+    target, lo, hi = bounds
+    return bisect_steps(
+        lambda q: quantize_count_plain(coefs, qtables, q, lay, tables),
+        target, lo, hi, steps)
 
 
 def deposit_plain(packed: torch.Tensor, lay: ScanLayout,

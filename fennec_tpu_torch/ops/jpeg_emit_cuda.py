@@ -7,9 +7,12 @@ K3a's per-image totals, the size oracle's bit count
 (fennec_tpu/ops/jpeg_size.py component_scan_bits :102, scan_bits_device
 :138).  At first use on a CUDA tensor the source is compiled with nvcc
 for sm_90a into fennec_tpu_torch/_build/ and loaded with ctypes, as K1 is
-(ops/ssim_cuda.py).  Three entry points, each with its wrapper and its
+(ops/ssim_cuda.py).  Four entry points, each with its wrapper and its
 launch count:
 
+  size_bisect (K4)   the size oracle's whole bisection in one launch, the
+                     counterpart of the XLA program size_bisect_device
+                     (fennec_tpu/engine/size_search.py:61);
   quantize_count (K4) the size oracle's step in one launch: K3a's totals
                      from the unquantized float32 coefficients and a
                      (B,) quality on the device, the quantization done
@@ -48,6 +51,7 @@ from .jpeg_emit import (
     block_stats_plain,
     deposit_plain,
     quantize_count_plain,
+    size_bisect_plain,
 )
 from .ssim_cuda import compile_library, is_current
 
@@ -58,6 +62,7 @@ _SO = os.path.join(BUILD_DIR, "libjpeg_emit.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 MAX_BLOCKS = 1 << 31
+MAX_BISECT_STEPS = 8  # the kernel's kMaxSteps
 
 
 class EmitLibrary:
@@ -95,6 +100,9 @@ class EmitLibrary:
                 lib.fennec_jpeg_quantize_count.restype = i
                 lib.fennec_jpeg_quantize_count.argtypes = [
                     p, p, p, i, i, i, p, p, p, p, p, p, p, p]
+                lib.fennec_jpeg_size_bisect.restype = i
+                lib.fennec_jpeg_size_bisect.argtypes = [
+                    p, p, p, i, i, i, p, p, p, p, p, p, i, p, p]
                 lib.fennec_jpeg_deposit.restype = i
                 lib.fennec_jpeg_deposit.argtypes = [
                     p, i, i, p, p, p, i, p, i, p, p, ll, ll, p]
@@ -378,10 +386,76 @@ class QuantizeCountKernel(_Counted):
         return totals
 
 
+def check_bounds(bounds: torch.Tensor, bsz: int, steps: int,
+                 device: torch.device) -> None:
+    """Raise unless bounds is (3, bsz) int64 contiguous on `device` and
+    steps an int in [1, MAX_BISECT_STEPS]."""
+    if (not isinstance(bounds, torch.Tensor) or bounds.dtype != torch.int64
+            or tuple(bounds.shape) != (3, bsz) or not bounds.is_contiguous()
+            or bounds.device != device):
+        raise ValueError(f"fennec: K4's bisection takes (3, {bsz}) int64 "
+                         f"bounds (target, lo0, hi0) on {device}, got "
+                         f"{tuple(getattr(bounds, 'shape', ()))} "
+                         f"{getattr(bounds, 'dtype', type(bounds))} on "
+                         f"{getattr(bounds, 'device', None)}")
+    if not isinstance(steps, int) or not 1 <= steps <= MAX_BISECT_STEPS:
+        raise ValueError(f"fennec: K4's bisection takes 1 to "
+                         f"{MAX_BISECT_STEPS} steps, got {steps!r}")
+
+
+class SizeBisectKernel(_Counted):
+    """K4's bisection: for (y, cb, cr) float32 coefficient blocks of B
+    images and (3, B) int64 bounds on their device (each image's target
+    scan bytes, lo0, hi0), the highest quality in [lo0, hi0] whose
+    ceil(bits / 8) under `tables` fits the target, in `steps` steps:
+    (best_q (B,) int64, found (B,) bool, table (steps, B) int64 of the
+    bits each step counted, -1 where the image's range was already
+    empty).  One launch, no host sync."""
+
+    def __call__(self, coefs: Sequence[torch.Tensor], qtables: torch.Tensor,
+                 lay: ScanLayout, tables: torch.Tensor, bounds: torch.Tensor,
+                 steps: int):
+        check_coefs(coefs, qtables, lay, tables)
+        return self.launch(coefs, qtables, lay, tables, bounds, steps)
+
+    def launch(self, coefs: Sequence[torch.Tensor], qtables: torch.Tensor,
+               lay: ScanLayout, tables: torch.Tensor, bounds: torch.Tensor,
+               steps: int):
+        """The call without check_coefs (it has passed)."""
+        y, cb, cr = coefs
+        dev = y.device
+        bsz = y.shape[0]
+        check_bounds(bounds, bsz, steps, dev)
+        if not _on_card(dev):
+            return size_bisect_plain(coefs, qtables, lay, tables, bounds,
+                                     steps)
+        if dev.index != torch.cuda.current_device():
+            with torch.cuda.device(dev):
+                return self.launch(coefs, qtables, lay, tables, bounds,
+                                   steps)
+        lib = library.load()
+        # One buffer: the barrier words, the table, best_q, found's bytes.
+        table_at, best_at = 1, 1 + steps * bsz
+        out = torch.empty(best_at + bsz + (bsz + 7) // 8, dtype=torch.int64,
+                          device=dev)
+        err = lib.fennec_jpeg_size_bisect(
+            y.data_ptr(), cb.data_ptr(), cr.data_ptr(), bsz, y.shape[1],
+            cb.shape[1], lay.slot_row.data_ptr(), lay.prev_row.data_ptr(),
+            lay.prev_slot.data_ptr(), qtables.data_ptr(), tables.data_ptr(),
+            bounds.data_ptr(), steps, out.data_ptr(), _stream(dev))
+        library.check(err, "K4's bisection")
+        self.count_launch()
+        found = out[best_at + bsz:].view(torch.uint8)[:bsz].view(torch.bool)
+        return (out[best_at:best_at + bsz], found,
+                out[table_at:best_at].view(steps, bsz))
+
+
 # The instances the engines launch and chip_smoke.py counts: emission's,
-# the size oracle's step (engine/size_search.py), and K3a's totals as the
-# oracle's count over packed blocks, counted apart.
+# the size oracle's step (scan_bytes_at) and bisection
+# (engine/size_search.py), and K3a's totals as the oracle's count over
+# packed blocks, counted apart.
 block_stats = BlockStatsKernel()
 oracle_stats = BlockStatsKernel()
 deposit = DepositKernel()
 quantize_count = QuantizeCountKernel()
+size_bisect = SizeBisectKernel()

@@ -372,10 +372,10 @@ def test_k3_optimal_emission_is_two_launches(cuda_device, monkeypatch):
 
 def test_size_oracle_on_card_runs_through_k3a(cuda_device, monkeypatch):
     """scan_bytes_at and size_bisect on CUDA tensors equal the CPU's
-    (plain scan_bits) on the oracle's cases, launch K4 (K3a's totals from
-    the float32 coefficients, one launch a step) under its own count, and
-    never take a plain version, the packed quantize or K3a over packed
-    blocks."""
+    (plain scan_bits) on the oracle's cases, launch K4 under its own
+    counts (scan_bytes_at K4's step, K3a's totals from the float32
+    coefficients; size_bisect K4's bisection, one launch), and never take
+    a plain version, the packed quantize or K3a over packed blocks."""
     from fennec_tpu_torch.codecs.jpeg import forward_dct
     from fennec_tpu_torch.engine import size_search
     from fennec_tpu_torch.ops import jpeg_emit
@@ -406,10 +406,12 @@ def test_size_oracle_on_card_runs_through_k3a(cuda_device, monkeypatch):
     monkeypatch.setattr(jpeg_emit, "quantize_packed", refuse)
     monkeypatch.setattr(k3, "block_stats_plain", refuse)
     monkeypatch.setattr(k3, "quantize_count_plain", refuse)
+    monkeypatch.setattr(k3, "size_bisect_plain", refuse)
     for (c, ph, pw, sub), (w_batch, w_one, w_bisect) in zip(cases, want):
         c = [p.to(cuda_device) for p in c]
         before = (k3.quantize_count.launches, k3.block_stats.launches,
                   k3.oracle_stats.launches)
+        bisections = k3.size_bisect.launches
         got = size_search.scan_bytes_at(c, quals.to(cuda_device), ph, pw,
                                         sub)
         one = size_search.scan_bytes_at([p[2] for p in c],
@@ -422,7 +424,8 @@ def test_size_oracle_on_card_runs_through_k3a(cuda_device, monkeypatch):
                                          device=cuda_device), 1, 100)
         assert q.cpu().tolist() == w_bisect[0].tolist()
         assert found.cpu().tolist() == w_bisect[1].tolist()
-        assert k3.quantize_count.launches == before[0] + 2 + 7
+        assert k3.quantize_count.launches == before[0] + 2
+        assert k3.size_bisect.launches == bisections + 1
         assert (k3.block_stats.launches, k3.oracle_stats.launches) == \
             before[1:]
 
@@ -465,6 +468,76 @@ def test_k4_matches_plain(cuda_device, h, w, sub, bsz):
     packed = jpeg_emit.quantize_packed(coefs, tables[quals])
     assert torch.equal(got, want) and torch.equal(got, again)
     assert torch.equal(got, k3.block_stats(packed, lay, std).totals)
+
+
+@pytest.mark.parametrize("h,w,sub,bsz,lo,hi", [
+    (1, 1, True, 1, 1, 100), (9, 17, False, 3, 1, 100),
+    (400, 600, True, 2, 30, 90), (80, 96, True, 64, 10, 70),
+    (80, 96, False, 5, 70, 20), (1080, 1920, True, 1, 1, 100),
+    (3024, 4032, True, 1, 1, 40)])
+def test_k4_bisection_equals_the_step_loop(cuda_device, h, w, sub, bsz, lo,
+                                           hi):
+    """K4's bisection (one launch) gives the step loop's (best_q, found)
+    and table, through K4's step and through the plain step loop, at
+    per-image targets (some nothing fits, some everything), one image in
+    its 0-d form included; two calls equal."""
+    from fennec_tpu_torch.codecs.jpeg import forward_dct
+    from fennec_tpu_torch.engine import size_search
+    from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
+    from fennec_tpu_torch.ops.jpeg_emit import bisect_steps
+
+    imgs = np.stack([photo(w, h, s) for s in range(bsz)])
+    coefs = forward_dct(torch.from_numpy(imgs).to(cuda_device)
+                        .to(torch.float32), sub)
+    mult = 16 if sub else 8
+    ph, pw = h + (-h) % mult, w + (-w) % mult
+    rng = np.random.default_rng(h + w + bsz)
+    target = torch.from_numpy(rng.integers(0, h * w // 2 + 400, bsz))
+    target[0] = 10 ** 9
+    if bsz > 1:
+        target[1] = 0
+    if bsz == 1:
+        coefs, target = [c[0] for c in coefs], target[0]
+    before = (k3.size_bisect.launches, k3.quantize_count.launches)
+    q, found = size_search.size_bisect(coefs, ph, pw, sub, target, lo, hi)
+    again = size_search.size_bisect(coefs, ph, pw, sub, target, lo, hi)
+    torch.cuda.synchronize()
+    assert (k3.size_bisect.launches, k3.quantize_count.launches) == (
+        before[0] + 2, before[1])
+    assert q.shape == target.shape and found.shape == target.shape
+    loop = size_search.size_bisect_steps(coefs, ph, pw, sub, target, lo, hi)
+    bounds = size_search._bounds(coefs, target, lo, hi)
+    plain = bisect_steps(
+        lambda m: size_search.scan_bits(*size_search.quantize_at(coefs, m),
+                                        ph, pw, sub), *bounds,
+        size_search.MAX_STEPS)
+    kernel = size_search._CardOracle(coefs, ph, pw, sub).bisect(bounds)
+    for want in (loop, plain):
+        assert torch.equal(q, want[0]) and torch.equal(found, want[1])
+        assert all(torch.equal(a, b) for a, b in zip(kernel, want))
+    assert torch.equal(q, again[0]) and torch.equal(found, again[1])
+
+
+def test_k4_bisection_raises_without_its_library(cuda_device, monkeypatch,
+                                                 tmp_path):
+    """No fallback: when the library does not build, size_bisect on CUDA
+    tensors raises; it takes neither the step loop nor a plain version."""
+    from fennec_tpu_torch.engine import size_search
+    from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
+
+    broken = tmp_path / "broken.cu"
+    broken.write_text("#error this source does not build\n")
+    monkeypatch.setattr(k3, "library", k3.EmitLibrary(
+        str(broken), str(tmp_path / "libbroken.so")))
+
+    def refuse(*args, **kw):
+        raise AssertionError("size_bisect fell back")
+
+    monkeypatch.setattr(size_search, "bisect_steps", refuse)
+    monkeypatch.setattr(k3, "size_bisect_plain", refuse)
+    coefs = [torch.zeros(1, n, 64, device=cuda_device) for n in (4, 1, 1)]
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        size_search.size_bisect(coefs, 16, 16, True, 100, 1, 100)
 
 
 def test_k3_never_takes_the_plain_version(cuda_device, monkeypatch):

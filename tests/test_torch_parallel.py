@@ -320,8 +320,8 @@ def test_ssim_sharded_matches_jax():
 
 
 @pytest.mark.parametrize("kernel", [ssim_window, k3.block_stats, k3.deposit,
-                                    k3.quantize_count],
-                         ids=["K1", "K3a", "K3b", "K4"])
+                                    k3.quantize_count, k3.size_bisect],
+                         ids=["K1", "K3a", "K3b", "K4", "K4_bisection"])
 def test_launch_counts_survive_shard_threads(kernel):
     """Shard threads count their launches into one counter: none may be
     lost (K2's count shares K1's lock pattern; the card tests count it
