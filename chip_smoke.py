@@ -10,8 +10,8 @@ versions, and K2 against the first K2); --k3 runs phases 1, 2 and 11
 and the size oracle's checks (K3 against its plain version and, in
 turns, against the first K3; K4's step and bisection);
 --digests prints digests of a few main-path outputs, to compare two
-checkouts on one card; --mesh runs phases 1, 2 and 14 alone.  None of
-these prints the result lines.
+checkouts on one card; --mesh runs phases 1, 2, 14 and 15 alone.  None
+of these prints the result lines.
 
 Phases, each raising on failure:
   1. environment: a CUDA card, its name and power limit, TF32 off;
@@ -145,8 +145,8 @@ Phases, each raising on failure:
      (coefficient path, K3 emission), the 256-image compress_images
      (pixel path) and 64 of the files with max_width=256 (the Lanczos
      route, host encoder), each on [cuda:k, cuda:k] (two shards, each on
-     its own thread and stream) and on cuda:k, in turns (a warm-up round,
-     then 3 rounds alternating which goes first): every output
+     its own stream, in turn on one thread) and on cuda:k, in turns (a
+     warm-up round, then 3 rounds alternating which goes first): every output
      byte-identical, and K1, K2, K3a and K3b, counted from 0 around each
      call, launched 7, 7, 1 and 1 times (7, 7, 0, 0 on the Lanczos route)
      per shard chunk (a chunk's non-empty shards; one device's chunk is
@@ -158,6 +158,22 @@ Phases, each raising on failure:
      file: a `Stages:` report naming the JAX CLI's stages.  One warm 12 MP
      compress_file under utils/profiling.device_trace: the Chrome trace
      must name the kernels of K1, K2, K3a and K3b.
+ 15. the data×spatial mesh on bands of this card (SPATIAL_CASES: a 12 MP
+     portrait over 2 and over 4 bands, a 4000x3008 image whose
+     rectangles straddle three seams over 4, a 64 MP square over 4) at
+     BALANCED: quality_search_spatial_sharded on [cuda:k] * bands against
+     the unsharded search on cuda:k, (q, found) and the blocks equal,
+     SSIM equal or within 1e-5 with the original's luminance pixels that
+     differ counted (each must sit at a float32 box-mean tie), K2
+     launched 7 times per band and K1 7 times per search, counted from 0
+     around the call, and every band's K2 luminance at each of its 7
+     probes bit-equal to its rows of K2 on the whole image and held to
+     K2's plain version on the band's own inputs (each differing pixel
+     at a float32 box-mean tie, |diff| <= 1); CUDA-event ms of both in
+     turns and their peak device memory, with the card's name and power
+     limit; batched_ssim_sharded(spatial=True) on (2, 2160, 3840) over a
+     2x2 mesh against batched_ssim and the plain windowed SSIM, each
+     within 1e-5, K1 launched once per band.
 
 The last lines: the kernel table as JSON (K1's, K2's, K3a's, K3b's and
 K4's step's and bisection's launches summed over the main-path runs of
@@ -2554,7 +2570,7 @@ def phase_mesh(T, dev, counters, big_path, tmp, n=512, w=500, h=500,
                rounds: int = 3):
     """Phase 14: the mesh and the stages.  On one card, data_mesh(None)
     is None; the three batch routes on [cuda:k, cuda:k] (two shards, each
-    on its own stream and thread) against cuda:k, in turns, byte for
+    on its own stream, in turn on one thread) against cuda:k, in turns, byte for
     byte, with their launches per shard chunk; the four *_sharded
     functions against their unsharded forms at (64, 500, 500); the CLI's
     -v report; a device_trace of one warm 12 MP compress_file naming K1,
@@ -2723,6 +2739,253 @@ def phase_mesh(T, dev, counters, big_path, tmp, n=512, w=500, h=500,
     return summary
 
 
+# The data×spatial phase's searches: (tag, width, height, bands).  The
+# 12 MP portrait's and the 64 MP square's seams fall on rectangle edges
+# (4032 / 512 and 8192 / 512 rows a rectangle); 4000 x 3008 goes to 385
+# rows of 7.81, so three of its four bands read a halo of one MCU row.
+SPATIAL_CASES = [("12mp_portrait_2", 3024, 4032, 2),
+                 ("12mp_portrait_4", 3024, 4032, 4),
+                 ("12mp_landscape_straddling_4", 4000, 3008, 4),
+                 ("64mp_4", 8192, 8192, 4)]
+
+
+def unsharded_search(imgs: torch.Tensor, target: float):
+    """The unsharded counterpart of quality_search_spatial_sharded at B =
+    1 on the device: batched_quality_search_quantize's search, the winner
+    quantized by quantize_coefs, nothing copied to the host."""
+    from fennec_tpu_torch.codecs.jpeg import quantize_coefs
+    from fennec_tpu_torch.engine import compress as tcomp
+
+    inp, coefs, (q, s, f) = tcomp._search_chunk(imgs, [target], True)
+    final = inp.tables[torch.where(f, q, 100)][0]
+    return q[0], s[0], f[0], quantize_coefs(tuple(c[0] for c in coefs), final)
+
+
+def spatial_recorded(pb, mesh, img, target):
+    """One sharded search with every band's probe recorded: (result,
+    [(band, quality, K2's luminance)], {band: its SearchInputs})."""
+    from fennec_tpu_torch.engine import compress as tcomp
+
+    calls, inputs = [], {}
+    inner = tcomp.probe_luminance
+
+    def probe(inp, quality):
+        lum = inner(inp, quality)
+        calls.append((inp.band, quality.clone(), lum.clone()))
+        inputs[inp.band] = inp
+        return lum
+
+    pb._compress.probe_luminance = probe
+    try:
+        got = pb.quality_search_spatial_sharded(mesh, img, target)
+    finally:
+        pb._compress.probe_luminance = inner
+    torch.cuda.synchronize()
+    return got, calls, inputs
+
+
+def band_vs_plain(inp, quality: torch.Tensor, lum: torch.Tensor):
+    """K2's luminance `lum` of one band at `quality` against its plain
+    version on the same band inputs, phase_k2's rule: (pixels that
+    differ, of them those at a float32 box-mean tie, max |diff|).  A
+    tie: in some channel the exact box mean of the reconstruction lies
+    within 1e-3 of a half level, where the plain version's float32
+    products may round the other way than K2's integer sum."""
+    from fennec_tpu_torch.engine import compress as tcomp
+    from fennec_tpu_torch.ops.filters import box_weights
+
+    want = tcomp.probe_luminance_plain(inp, quality)
+    differ = (lum != want)[0]
+    err = float((lum - want).abs().max())
+    ties = 0
+    if inp.box_wh is not None and bool(differ.any()):
+        band, dev = inp.band, lum.device
+        ds_w = int(lum.shape[-1])
+        rgb = tcomp._reconstruct_rgb_planes(*inp.cplanes,
+                                            inp.tables[quality], inp.dmat,
+                                            inp.subsample, inp.h, inp.w)
+        wv = torch.from_numpy(box_weights(band.dst_h, band.src_h)[
+            band.d0:band.d1, band.start:band.end]).to(dev)
+        wh = torch.from_numpy(box_weights(ds_w, inp.w)).to(dev)
+        means = torch.matmul(wv, torch.matmul(
+            torch.cat(rgb).to(torch.float64), wh.T))
+        frac = (means % 1.0 - 0.5).abs().amin(dim=0)
+        ties = int((differ & (frac < 1e-3)).sum())
+    return int(differ.sum()), ties, err
+
+
+def exact_box_rgb(img: torch.Tensor) -> torch.Tensor:
+    """float64 box means (dh, dw, 3) of an (H, W, 4) image: the exact
+    values SSIMFast's float32 products round."""
+    from fennec_tpu_torch.ops.filters import box_weights
+    from fennec_tpu_torch.ops.ssim import ssim_fast_dims
+
+    h, w = img.shape[:2]
+    ds_w, ds_h = ssim_fast_dims(w, h)
+    wv = torch.from_numpy(box_weights(ds_h, h)).to(img.device)
+    wh = torch.from_numpy(box_weights(ds_w, w)).to(img.device)
+    rgb = img[..., :3].permute(2, 0, 1).to(torch.float64)
+    return torch.matmul(wv, torch.matmul(rgb, wh.T)).permute(1, 2, 0)
+
+
+def phase_spatial(T, dev, rounds: int = 2):
+    """Phase 15: the data×spatial mesh on bands of this card.  Each case
+    of SPATIAL_CASES at BALANCED's target through
+    quality_search_spatial_sharded on [cuda:k] * bands against the
+    unsharded search on cuda:k: (q, found) equal, the blocks equal, SSIM
+    equal or within 1e-5 with the original's luminance pixels that differ
+    counted and each held to a float32 box-mean tie; K2 launched 7 times
+    per band and K1 7 times per search, counted from 0 around the call;
+    every band's K2 luminance at each of its 7 probes bit-equal to the
+    rows it owns of K2 on the whole image, and held to its plain version
+    on the same band inputs (band_vs_plain: every differing pixel at a
+    float32 box-mean tie, |diff| <= 1).  CUDA-event ms of both in turns
+    and each call's peak device memory, beside the card's name and power
+    limit.  Then batched_ssim_sharded(spatial=True) on (2, 2160, 3840)
+    over a 2 x 2 mesh against batched_ssim (K1 on whole images) and the
+    plain windowed SSIM, each within 1e-5."""
+    from fennec_tpu_torch.engine import compress as tcomp
+    from fennec_tpu_torch.ops.color import luminance
+    from fennec_tpu_torch.ops.probe_recon_cuda import probe_recon
+    from fennec_tpu_torch.ops.ssim import batched_ssim_plain
+    from fennec_tpu_torch.ops.ssim_cuda import ssim_window
+    from fennec_tpu_torch.parallel import batched as pb
+    from fennec_tpu_torch.parallel import mesh as pm
+
+    one = torch.device("cuda", torch.cuda.current_device())
+    target = T.BALANCED.target_ssim()
+    smi = nvidia_smi_line()
+    summary = {}
+    for tag, w, h, n in SPATIAL_CASES:
+        mesh = pm.data_spatial_mesh(n, n, [one] * n)
+        img = torch.from_numpy(photo(w, h, SEED + 1500 + n)).to(one)
+        imgs = img[None].to(torch.float32)
+        want = unsharded_search(imgs, target)
+        for k in (ssim_window, probe_recon):
+            k.launches = 0
+        got = pb.quality_search_spatial_sharded(mesh, img, target)
+        torch.cuda.synchronize()
+        launched = (probe_recon.launches, ssim_window.launches)
+        if dev.type == "cuda" and launched != (7 * n, 7):
+            raise AssertionError(f"spatial {tag}: K2, K1 launched "
+                                 f"{launched}, want {(7 * n, 7)}")
+        got2, calls, band_inputs = spatial_recorded(pb, mesh, img, target)
+        inp, _ = tcomp.prepare_search(imgs, True)
+        unequal = plain_diff = plain_ties = 0
+        plain_err = 0.0
+        for band, quality, lum in calls:
+            whole = tcomp.probe_luminance(inp, quality)
+            unequal += int(not torch.equal(lum[0],
+                                           whole[0, band.d0:band.d1]))
+            n_diff, ties, err = band_vs_plain(band_inputs[band], quality,
+                                              lum)
+            plain_diff += n_diff
+            plain_ties += ties
+            plain_err = max(plain_err, err)
+        if unequal or len(calls) != 7 * n:
+            raise AssertionError(f"spatial {tag}: {unequal} of {len(calls)}"
+                                 f" band probes differ from K2 on the whole "
+                                 f"image")
+        if plain_err > K2_LEVEL_ATOL or plain_diff != plain_ties:
+            raise AssertionError(
+                f"spatial {tag}: band K2 against its plain version: "
+                f"{plain_diff} pixels differ, {plain_ties} of them at a "
+                f"float32 box-mean tie, max |diff| {plain_err} (limit "
+                f"{K2_LEVEL_ATOL})")
+        originals = {b: x.lum_orig for b, x in band_inputs.items()}
+        lum_bands = torch.cat([originals[b] for b in sorted(originals)],
+                              dim=1)
+        differ = (lum_bands != inp.lum_orig)[0]
+        exact = exact_box_rgb(img)
+        frac = (exact % 1.0 - 0.5).abs().amin(dim=-1)
+        ties = int((differ & (frac < 1e-3)).sum())
+        others = int(differ.sum()) - ties
+        blocks = torch.cat(got[3]).to(torch.int16)
+        same_blocks = torch.equal(blocks, torch.cat(want[3]).to(torch.int16))
+        s_diff = abs(float(got[1]) - float(want[1]))
+        ok = (int(got[0]) == int(want[0]) and bool(got[2]) == bool(want[2])
+              and same_blocks and others == 0
+              and (s_diff == 0 or (s_diff <= K1_ATOL and ties > 0))
+              and all(torch.equal(a, b) for a, b in zip(got[:3], got2[:3])))
+        log(f"spatial {tag}: {w}x{h} over {n} bands of {h // n} rows of "
+            f"{one}: q={int(got[0])}/{int(want[0])} found="
+            f"{bool(got[2])}/{bool(want[2])} ssim={float(got[1]):.7f}/"
+            f"{float(want[1]):.7f} blocks_equal={same_blocks} "
+            f"original_luminance_pixels_differing={int(differ.sum())} "
+            f"(at a float32 box-mean tie {ties}, other {others}) "
+            f"band_probes_bit_equal={len(calls) - unequal}/{len(calls)} "
+            f"band_k2_vs_plain pixels_differing={plain_diff} (at a float32 "
+            f"box-mean tie {plain_ties}) max_abs_diff={plain_err:.6f} "
+            f"launches K2={launched[0]} K1={launched[1]} "
+            f"halo_rows={[b.end - b.stop for b in sorted(originals)]}")
+        if not ok:
+            raise AssertionError(f"spatial {tag}: differs from the "
+                                 f"unsharded search")
+        del inp, calls, band_inputs, originals, exact, frac, got2
+        times = {"sharded": [], "unsharded": []}
+        peaks = {}
+        runs = {"sharded": lambda: pb.quality_search_spatial_sharded(
+                    mesh, img, target),
+                "unsharded": lambda: unsharded_search(
+                    img[None].to(torch.float32), target)}
+        for k in range(rounds + 1):  # the first round warms both up
+            order = ("unsharded", "sharded", "sharded", "unsharded")
+            for name in order if k else order[:2]:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(one)
+                base = torch.cuda.memory_allocated(one)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = runs[name]()
+                end.record()
+                torch.cuda.synchronize()
+                del out
+                if k:
+                    times[name].append(start.elapsed_time(end))
+                peaks[name] = max(peaks.get(name, 0),
+                                  torch.cuda.max_memory_allocated(one) - base)
+        summary[tag] = {
+            "sharded_ms": times["sharded"], "unsharded_ms": times["unsharded"],
+            "sharded_peak_mb": peaks["sharded"] / 2**20,
+            "unsharded_peak_mb": peaks["unsharded"] / 2**20}
+        log(f"spatial {tag} timing (CUDA events, whole call, in turns "
+            f"unsharded, sharded, sharded, unsharded; card {smi}): "
+            f"sharded_ms={[round(t, 3) for t in times['sharded']]} "
+            f"unsharded_ms={[round(t, 3) for t in times['unsharded']]} "
+            f"peak_mb sharded={peaks['sharded'] / 2**20:.1f} "
+            f"unsharded={peaks['unsharded'] / 2**20:.1f} (all bands on one "
+            f"card: the split per card is not measured)")
+        del img, imgs, want, got, blocks
+
+    # Spatial SSIM: (2, 2160, 3840) over a 2 x 2 mesh.
+    rng = np.random.default_rng(SEED + 1600)
+    a = torch.from_numpy(np.stack([photo(3840, 2160, SEED + 1601 + i)
+                                   for i in range(2)])).to(one)
+    b = torch.clamp(a.to(torch.float32) + torch.from_numpy(
+        rng.normal(0, 6, a.shape).astype(np.float32)).to(one), 0, 255)
+    mesh = pm.data_spatial_mesh(4, 2, [one] * 4)
+    want = pb.batched_ssim(a, b)
+    plain = batched_ssim_plain(luminance(a.to(torch.float32)),
+                               luminance(b.to(torch.float32)))
+    ssim_window.launches = 0
+    got = pb.batched_ssim_sharded(mesh, a, b, spatial=True)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    err_plain = float((got - plain).abs().max())
+    if ssim_window.launches != 4 or max(err, err_plain) > K1_ATOL:
+        raise AssertionError(f"spatial ssim: |diff| {err} from K1 on whole "
+                             f"images, {err_plain} from the plain windowed "
+                             f"SSIM, K1 launched {ssim_window.launches} "
+                             f"times (want 4)")
+    log(f"spatial ssim (2, 2160, 3840) over a 2 x 2 mesh of {one}: "
+        f"{got.tolist()} vs K1 on whole images {want.tolist()} (max |diff| "
+        f"{err:.3e}) vs the plain windowed SSIM {plain.tolist()} (max "
+        f"|diff| {err_plain:.3e}), K1 launched 4 times (one per band of "
+        f"each data row)")
+    return summary
+
+
 def build_all(ssim_window, k3, probe_recon):
     """Phase 2: every kernel of the port and the host entropy coder
     built from this checkout's sources, all at once; returns the first
@@ -2882,6 +3145,7 @@ def main(only: str = "") -> int:
             with open(big_path, "wb") as f:
                 f.write(big)
             phase_mesh(T, dev, counters, big_path, tmp)
+        log("spatial summary: " + json.dumps(phase_spatial(T, dev)))
         return 0
 
     # 3. K1, then K2, against their plain versions.
@@ -3028,6 +3292,8 @@ def main(only: str = "") -> int:
         with open(big_path, "wb") as f:
             f.write(big_jpeg)
         mesh = phase_mesh(T, dev, counters, big_path, tmp)
+    # 15. The data×spatial mesh over this card.
+    log("spatial summary: " + json.dumps(phase_spatial(T, dev)))
     log("mesh summary (warm img/s, median of 3; cross-card scaling not "
         "measured: one card): " + json.dumps(mesh))
     log("A/B summary (warm ms, K3 vs host encoder): " + json.dumps(

@@ -167,8 +167,6 @@ def run_batch(args) -> int:
     for r in results:
         if r.err is not None:
             print(f"  failed: {r.item.src}: {r.err}", file=sys.stderr)
-        elif args.verbose and r.result is not None:
-            print(f"  {r.item.src}: {r.result}")
     rate = summary.total / elapsed if elapsed > 0 else 0.0
     print(f"{summary} | {elapsed:.1f}s ({rate:.1f} images/sec)")
     return 0 if summary.failed == 0 else 1

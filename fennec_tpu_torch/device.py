@@ -18,7 +18,8 @@ full float32.
 from __future__ import annotations
 
 import os
-from typing import Sequence, Union
+import threading
+from typing import Callable, Dict, Sequence, Tuple, Union
 
 import torch
 
@@ -27,6 +28,27 @@ torch.backends.cudnn.allow_tf32 = False
 
 DeviceLike = Union[None, str, torch.device]
 MeshLike = Union[DeviceLike, Sequence[Union[str, torch.device]]]
+
+
+_constants: Dict[Tuple[str, str], torch.Tensor] = {}
+_constants_lock = threading.Lock()
+
+
+def constant_on(name: str, make: Callable, device) -> torch.Tensor:
+    """make()'s host array (the same at every call) as a tensor on
+    `device`, uploaded once per (name, device) and kept: the small tables
+    every call reads (the DCT matrices, the quality tables), whose copy
+    from pageable host memory would otherwise wait at every call for the
+    work queued on the stream.  Worker threads call it; a concurrent
+    duplicate upload is harmless."""
+    key = (name, str(device))
+    with _constants_lock:
+        got = _constants.get(key)
+    if got is None:
+        got = torch.tensor(make()).to(device)
+        with _constants_lock:
+            got = _constants.setdefault(key, got)
+    return got
 
 
 def require_cuda() -> None:

@@ -37,6 +37,8 @@ from ..ops import dct as dct_ops
 from ..ops.color import clamp_u8, ycbcr_to_rgb
 from ..ops.probe_recon_cuda import probe_recon
 from ..ops.resize import (
+    BoxBand,
+    band_box_device,
     box_rectangles_device,
     box_weights_device,
     separable_resample,
@@ -140,7 +142,8 @@ class SearchInputs:
     the SSIMFast box weights and box_rectangles the same rectangles as
     kernel K2 reads them (ops/resize.box_rectangles), None when no
     downsample is needed; tables: the (101, 2, 64) quality tables; dmat:
-    the 8×8 DCT matrix."""
+    the 8×8 DCT matrix; band: the rows of a row-split image these inputs
+    hold (band_inputs), None for whole images."""
 
     cplanes: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
     lum_orig: torch.Tensor
@@ -152,6 +155,9 @@ class SearchInputs:
     h: int
     w: int
     box_rectangles: Optional[torch.Tensor] = None
+    # One band of a row-split image (band_inputs): h is the rows it reads,
+    # lum_orig and the probes its owned output rows.
+    band: Optional[BoxBand] = None
     # Kernel K2's checked launch state, made at the search's first probe
     # on the card (ops/probe_recon_cuda.ProbeReconKernel.prepare); a copy
     # made with dataclasses.replace starts without it.
@@ -181,16 +187,60 @@ def search_inputs(imgs: torch.Tensor, coefs, subsample: bool
         planes = _box_down_plane(planes, box_wh, box_wv)
     lum_orig = _luminance(planes[:, 0], planes[:, 1], planes[:, 2])
 
+    return SearchInputs(coef_planes(coefs, h, w, subsample),
+                        lum_orig.contiguous(), box_wh, box_wv,
+                        quality_tables_on(dev), _dmat_on(dev), subsample, h,
+                        w, rectangles)
+
+
+def coef_planes(coefs, h: int, w: int, subsample: bool):
+    """Forward-DCT blocks (y, cb, cr) of (B,) h × w images → their
+    coefficient planes (B, ph, pw), (B, ch, cw), (B, ch, cw) on the MCU-
+    padded grids."""
     mult = 16 if subsample else 8
     ph, pw = h + (-h) % mult, w + (-w) % mult
     ch, cw = (ph // 2, pw // 2) if subsample else (ph, pw)
-    cplanes = (dct_ops.from_blocks(coefs[0], ph, pw),
-               dct_ops.from_blocks(coefs[1], ch, cw),
-               dct_ops.from_blocks(coefs[2], ch, cw))
-    tables = quality_tables_on(dev)
-    dmat = torch.from_numpy(dct_ops.dct_matrix().astype(np.float32)).to(dev)
+    return (dct_ops.from_blocks(coefs[0], ph, pw),
+            dct_ops.from_blocks(coefs[1], ch, cw),
+            dct_ops.from_blocks(coefs[2], ch, cw))
+
+
+def _dmat_on(dev: torch.device) -> torch.Tensor:
+    """The 8×8 DCT matrix on `dev`."""
+    return _device.constant_on(
+        "dct_matrix", lambda: dct_ops.dct_matrix().astype(np.float32), dev)
+
+
+def band_inputs(pix: torch.Tensor, band: BoxBand, planes, halo,
+                subsample: bool) -> SearchInputs:
+    """SearchInputs of one band of rows of an image whose rows are split
+    over a spatial mesh (parallel/batched.quality_search_spatial_sharded).
+
+    pix: (1, band.rows, W, 4) float32 pixel rows [start, end) of the
+    image, its own and the halo past them; planes: coef_planes of the
+    forward-DCT blocks of its own rows [start, stop) (whole MCU rows, so
+    they are the whole image's blocks of those rows); halo: the
+    coefficient planes' rows [stop, end), from the next bands, three
+    (1, rows, width) tensors.  The original's luminance and every probe
+    cover the output rows [d0, d1) the band owns: the box mean (or,
+    without a downsample, the pixels) of those rows, from the same
+    float32 products as search_inputs' over the band's source rows."""
+    dev = pix.device
+    w = int(pix.shape[2])
+    ds_w, ds_h = ssim_fast_dims(w, band.src_h)
+    rgb = pix[..., :3].permute(0, 3, 1, 2)
+    box_wh = box_wv = rectangles = None
+    if (ds_w, ds_h) != (w, band.src_h):
+        box_wh, box_wv, rectangles = band_box_device(w, ds_w, band, dev)
+        rgb = _box_down_plane(rgb, box_wh, box_wv)
+    else:
+        rgb = rgb[..., :band.stop - band.start, :]
+    lum_orig = _luminance(rgb[:, 0], rgb[:, 1], rgb[:, 2])
+    cplanes = tuple(torch.cat([p, x], dim=-2) if x.shape[-2] else p
+                    for p, x in zip(planes, halo))
     return SearchInputs(cplanes, lum_orig.contiguous(), box_wh, box_wv,
-                        tables, dmat, subsample, h, w, rectangles)
+                        quality_tables_on(dev), _dmat_on(dev), subsample,
+                        band.rows, w, rectangles, band)
 
 
 def probe_luminance(inp: SearchInputs, quality: torch.Tensor) -> torch.Tensor:
@@ -215,28 +265,37 @@ def probe_luminance_plain(inp: SearchInputs,
 
 def _bisect_device_batch(inp: SearchInputs, targets: torch.Tensor,
                          lo0: torch.Tensor):
+    """Quality bisection of one SearchInputs: bisect with its probes."""
+    return bisect(inp.lum_orig, lambda q: probe_luminance(inp, q), targets,
+                  lo0)
+
+
+def bisect(lum_orig: torch.Tensor, probe, targets: torch.Tensor,
+           lo0: torch.Tensor):
     """Quality bisection, all B images in lockstep: MAX_BISECT_STEPS
-    probes over (B,) tensors with no host sync.  targets (B,) float32,
-    lo0 (B,) int64.  Returns (best_q, best_ssim, found), each (B,), on
-    the device."""
-    ds_h, ds_w = inp.lum_orig.shape[1], inp.lum_orig.shape[2]
+    probes over (B,) tensors with no host sync.  lum_orig (B, dh, dw) the
+    original's SSIMFast luminance, probe(quality) the reconstruction's at
+    (B,) int64 qualities; targets (B,) float32, lo0 (B,) int64.  Every
+    probe is scored with K1 on a CUDA device.  Returns (best_q,
+    best_ssim, found), each (B,), on the device."""
+    ds_h, ds_w = lum_orig.shape[1], lum_orig.shape[2]
     use_windowed = ds_h > WINDOW_SIZE and ds_w > WINDOW_SIZE
     # Exactly-8px dims: the reference's window set is empty and
     # windowedSSIM returns 1.0 (ssim.go:162-164) — every quality accepts.
     constant_one = (min(ds_h, ds_w) == WINDOW_SIZE)
-    use_kernel = inp.lum_orig.is_cuda
+    use_kernel = lum_orig.is_cuda
     if use_windowed and not use_kernel:
-        pre_a = ssim_premaps(inp.lum_orig)
+        pre_a = ssim_premaps(lum_orig)
 
     def score(mid: torch.Tensor) -> torch.Tensor:
-        lum = probe_luminance(inp, mid)
+        lum = probe(mid)
         if use_windowed:
             if use_kernel:
-                return ssim_window(inp.lum_orig, lum)
-            return ssim_map_pre(pre_a, inp.lum_orig, lum).mean(dim=(-2, -1))
+                return ssim_window(lum_orig, lum)
+            return ssim_map_pre(pre_a, lum_orig, lum).mean(dim=(-2, -1))
         if constant_one:
             return torch.ones_like(targets)
-        return pixel_ssim_lum(inp.lum_orig, lum)
+        return pixel_ssim_lum(lum_orig, lum)
 
     bsz = targets.shape[0]
     dev = targets.device

@@ -20,6 +20,7 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 
+from .. import device as _device
 from ..ops import dct as dct_ops
 from ..ops.jpeg_emit import (
     bisect_steps,
@@ -39,18 +40,11 @@ MAX_STEPS = 7  # binary search over [1, 100]
 
 IntLike = Union[int, torch.Tensor]
 
-_tables: dict = {}
-
-
 def quality_tables_on(device: torch.device) -> torch.Tensor:
     """The (101, 2, 64) float32 quality tables on `device` (built once)."""
-    key = str(device)
-    got = _tables.get(key)
-    if got is None:
-        got = torch.from_numpy(
-            dct_ops.all_quality_tables().astype(np.float32)).to(device)
-        _tables[key] = got
-    return got
+    return _device.constant_on(
+        "quality_tables",
+        lambda: dct_ops.all_quality_tables().astype(np.float32), device)
 
 
 def quantize_at(coefs: Sequence[torch.Tensor], quality: torch.Tensor):

@@ -16,6 +16,8 @@ import functools
 import numpy as np
 import torch
 
+from .. import device as _device
+
 # ── Quantization tables (JPEG Annex K) and libjpeg-style quality scaling ────
 
 # Standard luminance / chrominance base tables, natural (row-major) order.
@@ -100,7 +102,7 @@ def dct_kron() -> np.ndarray:
 
 
 def _kron_on(device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.array(dct_kron())).to(device)
+    return _device.constant_on("dct_kron", dct_kron, device)
 
 
 # Every block transform multiplies a row count padded up to a multiple of

@@ -90,7 +90,12 @@ def box_cover(dst_size: int, src_size: int):
     """(lo, hi) int32 arrays of length src_size: source index s lies in
     the rectangles [lo[s], hi[s]) of box_bounds (usually one; none where
     the rectangles leave a gap, several where the source is scaled up)."""
-    s0, s1 = box_bounds(dst_size, src_size)
+    return cover(*box_bounds(dst_size, src_size), src_size)
+
+
+def cover(s0, s1, src_size: int):
+    """box_cover of any rectangles [s0[d], s1[d]) with s0 and s1
+    non-decreasing, over source indices 0 .. src_size - 1."""
     src = np.arange(src_size)
     lo = np.searchsorted(s1, src, side="right")  # rectangles ended by s
     hi = np.searchsorted(s0, src, side="right")  # rectangles begun by s

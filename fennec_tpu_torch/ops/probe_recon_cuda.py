@@ -17,7 +17,13 @@ a probe checks its quality tensor only.  With the SSIMFast downsample,
 box_plan cuts the output into units of whole rectangles (bands of rows by
 strips of columns) whose source pixels the kernel reconstructs in
 chunks; it is plain numpy, cached per geometry, and uploaded once per
-device.
+device.  One band of a row-split image (parallel/batched
+.quality_search_spatial_sharded) is a SearchInputs of its own: its
+coefficient rows and a halo of whole MCU rows past them, its owned
+rectangles in its own rows (ops/resize.band_rectangles) and band_plan's
+units, cached by the band.  The kernel is the same: the box sums are
+integers, so a band's output rows are bit-equal to the same rows of the
+whole image's.
 
 box_mean_exact is the kernel's rounding rule for the box mean, in plain
 torch on integers: what the CPU tests and chip_smoke.py hold the plain
@@ -36,8 +42,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .filters import box_bounds, box_cover
-from .resize import _cached_weights
+from .filters import box_bounds, cover
+from .resize import BoxBand, _cached_weights
 from .ssim_cuda import compile_library, is_current
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -89,15 +95,14 @@ def axis_plan(s0, s1, align: int, chunk: int, span: int,
     return np.array(out, dtype=np.int32).reshape(-1, 4)
 
 
-def chunk_ranges(groups: np.ndarray, dst: int, src: int,
+def chunk_ranges(groups: np.ndarray, s0, s1, src: int,
                  chunk: int) -> np.ndarray:
     """(chunks, 4) int32 records (d0, d1, r0, nr) of one axis, the chunks
     of every group in order: the outputs [d0, d1) of the group whose
-    rectangles meet the chunk's source indices [c0, c0 + chunk) ∩ [0,
-    src) (box_cover), and the source indices [r0, r0 + nr) that those
-    rectangles hold in the chunk; all 0 where none does."""
-    s0, s1 = box_bounds(dst, src)
-    lo, hi = box_cover(dst, src)
+    rectangles [s0, s1) meet the chunk's source indices [c0, c0 + chunk)
+    ∩ [0, src) (filters.cover), and the source indices [r0, r0 + nr) that
+    those rectangles hold in the chunk; all 0 where none does."""
+    lo, hi = cover(s0, s1, src)
     out = []
     for o0, o1, a, n in groups.tolist():
         for i in range(n):
@@ -140,22 +145,40 @@ def box_plan(w: int, h: int, dw: int, dh: int, subsample: bool, bsz: int,
     the plan takes the one that leaves the least work on the busiest SM
     of a card of `sms` SMs running `ctas` CTAs, then on the busiest CTA
     (its chunks run one after another), then the least work."""
-    align, rows = mcu(subsample), chunk_rows(subsample)
+    return unit_plan(box_bounds(dh, h), h, box_bounds(dw, w), w, subsample,
+                     bsz, ctas, sms)
+
+
+@functools.lru_cache(maxsize=256)
+def band_plan(w: int, dw: int, band: BoxBand, subsample: bool, bsz: int,
+              ctas: int, sms: int):
+    """box_plan for one band of a row-split image (ops/resize.box_band):
+    the units of its owned rectangles over the band.rows source rows it
+    reads, cached by the band, not by its shape alone."""
+    return unit_plan(band.bounds(), band.rows, box_bounds(dw, w), w,
+                     subsample, bsz, ctas, sms)
+
+
+def unit_plan(rows, h: int, cols, w: int, subsample: bool, bsz: int,
+              ctas: int, sms: int):
+    """box_plan for the rectangles rows = (y0, y1) over h source rows and
+    cols = (x0, x1) over w source columns."""
+    align, chunk_h = mcu(subsample), chunk_rows(subsample)
     best = None
     for across in (1, 2, 3):
-        strips = axis_plan(*box_bounds(dw, w), align, CHUNK_W,
-                           across * CHUNK_W, MAX_UNIT_COLS)
+        strips = axis_plan(*cols, align, CHUNK_W, across * CHUNK_W,
+                           MAX_UNIT_COLS)
         widest = int((strips[:, 1] - strips[:, 0]).max())
         for depth in range(1, 11):
-            bands = axis_plan(*box_bounds(dh, h), align, rows, depth * rows,
+            bands = axis_plan(*rows, align, chunk_h, depth * chunk_h,
                               min(MAX_CELLS // widest, MAX_UNIT_ROWS))
             chunks = bands[:, 3, None] * strips[None, :, 3]
             cost = (*busiest(chunks, bsz, ctas, sms), bsz * chunks.sum())
             if best is None or cost < best[0]:
                 best = (cost, bands, strips)
     _, bands, strips = best
-    rows_at = chunk_ranges(bands, dh, h, rows)
-    cols_at = chunk_ranges(strips, dw, w, CHUNK_W)
+    rows_at = chunk_ranges(bands, *rows, h, chunk_h)
+    cols_at = chunk_ranges(strips, *cols, w, CHUNK_W)
     groups = np.concatenate([bands, strips])
     counts = np.concatenate([bands[:, 3], strips[:, 3]])
     heads = np.zeros((len(groups), 2, 4), dtype=np.int32)
@@ -197,8 +220,9 @@ def check_inputs(cplanes, quality: Optional[torch.Tensor],
     geometry of an h × w image, 1 <= B <= 65535; quality (B,) int64
     (not looked at when None: a search's probes check their own);
     tables (101, 2, 64) and dmat (8, 8) float32; and, when the output
-    (dh, dw) differs from (h, w), rectangles the int32 array of
-    ops/resize.box_rectangles for it; all contiguous on that device."""
+    (dh, dw) differs from (h, w) or rectangles are given, rectangles the
+    int32 array of ops/resize.box_rectangles (or band_rectangles) for
+    it; all contiguous on that device."""
     if len(cplanes) != 3 or not all(isinstance(p, torch.Tensor)
                                     for p in cplanes):
         raise TypeError("fennec: K2 takes three coefficient planes")
@@ -229,7 +253,7 @@ def check_inputs(cplanes, quality: Optional[torch.Tensor],
               ("dmat", dmat, torch.float32, (8, 8))]
     if quality is not None:
         wanted.append(("quality", quality, torch.int64, (bsz,)))
-    if (dh, dw) != (h, w):
+    if rectangles is not None or (dh, dw) != (h, w):
         wanted.append(("rectangles", rectangles, torch.int32,
                        (2 * (dh + dw + h + w),)))
     for name, t, dtype, shape in wanted:
@@ -322,16 +346,21 @@ class ProbeReconKernel:
         # The one copy from the device of a search: 64 floats that every
         # launch then carries in its parameters.
         dmat = (ctypes.c_float * 64)(*inp.dmat.reshape(-1).tolist())
-        if out_hw == (inp.h, inp.w):
+        if inp.box_rectangles is None:
             return LaunchState(y.device, bsz, out_hw, None,
                                -(-inp.h // rows), -(-inp.w // CHUNK_W), ctas,
                                dmat)
         dh, dw = out_hw
-        host, nbands, nstrips = box_plan(inp.w, inp.h, dw, dh,
-                                         inp.subsample, bsz, ctas, sms)
-        plan = _cached_weights(
-            f"k2_plan/{int(inp.subsample)}/{bsz}/{ctas}/{sms}",
-            lambda *_: (host.copy(),), inp.w, inp.h, dw, dh, y.device)[0]
+        key = f"k2_plan/{int(inp.subsample)}/{bsz}/{ctas}/{sms}"
+        if inp.band is None:
+            host, nbands, nstrips = box_plan(inp.w, inp.h, dw, dh,
+                                             inp.subsample, bsz, ctas, sms)
+        else:  # one band of a row-split image: keyed by the band
+            host, nbands, nstrips = band_plan(inp.w, dw, inp.band,
+                                              inp.subsample, bsz, ctas, sms)
+            key += f"/band{tuple(inp.band)}"
+        plan = _cached_weights(key, lambda *_: (host.copy(),), inp.w, inp.h,
+                               dw, dh, y.device)[0]
         return LaunchState(y.device, bsz, out_hw, plan, nbands, nstrips,
                            ctas, dmat)
 

@@ -19,7 +19,7 @@ from __future__ import annotations
 import collections
 import math
 import threading
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -27,7 +27,13 @@ import torch
 from .. import device as _device
 from ..image import to_nrgba_ref
 from .color import clamp_u8
-from .filters import box_bounds, box_cover, box_weights, lanczos_weights
+from .filters import (
+    box_bounds,
+    box_cover,
+    box_weights,
+    cover,
+    lanczos_weights,
+)
 
 
 def resize_weights(src_w: int, src_h: int, dst_w: int,
@@ -53,6 +59,65 @@ def box_rectangles(src_w: int, src_h: int, dst_w: int,
     rows, cols = box_cover(dst_h, src_h), box_cover(dst_w, src_w)
     return (np.concatenate([*box_bounds(dst_h, src_h),
                             *box_bounds(dst_w, src_w), *rows, *cols]),)
+
+
+class BoxBand(NamedTuple):
+    """A band of source rows [start, stop) of a src_h-row image that is
+    box-downsampled to dst_h rows (dst_h == src_h: none), as one shard of
+    a spatial mesh holds it.  It owns the output rows [d0, d1) whose
+    rectangle starts in it, and reads source rows [start, end): its own
+    and a halo past `stop` as far as its last rectangle's end, rounded up
+    to `align` rows (an MCU) and at most src_h."""
+
+    src_h: int
+    dst_h: int
+    start: int
+    stop: int
+    d0: int
+    d1: int
+    end: int
+
+    @property
+    def rows(self) -> int:
+        """Source rows the band reads."""
+        return self.end - self.start
+
+    def bounds(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(y0, y1) int32 of its owned rectangles, in its own rows."""
+        s0, s1 = box_bounds(self.dst_h, self.src_h)
+        return (s0[self.d0:self.d1] - np.int32(self.start),
+                s1[self.d0:self.d1] - np.int32(self.start))
+
+
+def box_band(src_h: int, dst_h: int, start: int, stop: int,
+             align: int) -> BoxBand:
+    """The BoxBand of source rows [start, stop); `align` divides start
+    and src_h."""
+    s0, s1 = box_bounds(dst_h, src_h)
+    d0, d1 = (int(np.searchsorted(s0, r, side="left")) for r in (start, stop))
+    end = stop
+    if d1 > d0:
+        end = max(stop, min(src_h, -(-int(s1[d1 - 1]) // align) * align))
+    return BoxBand(src_h, dst_h, start, stop, d0, d1, end)
+
+
+def band_rectangles(src_w: int, dst_w: int, band: BoxBand) -> np.ndarray:
+    """box_rectangles for one band's rows: its owned rectangles (y0, y1)
+    in its own rows, the columns' (x0, x1), then which of them hold each
+    of its band.rows source rows and each source column."""
+    y0, y1 = band.bounds()
+    x0, x1 = box_bounds(dst_w, src_w)
+    return np.concatenate([y0, y1, x0, x1, *cover(y0, y1, band.rows),
+                           *box_cover(dst_w, src_w)]).astype(np.int32)
+
+
+def band_box_weights(band: BoxBand) -> np.ndarray:
+    """float32 (d1 - d0, band.rows): the rows of box_resize_weights'
+    vertical matrix that the band owns, over the source rows it reads
+    (every weight of those rows lies there)."""
+    wv = box_weights(band.dst_h, band.src_h)[band.d0:band.d1,
+                                             band.start:band.end]
+    return np.ascontiguousarray(wv, dtype=np.float32)
 
 
 def weights_on(pair, device: torch.device):
@@ -99,6 +164,22 @@ def box_rectangles_device(src_w: int, src_h: int, dst_w: int, dst_h: int,
     """box_rectangles on `device`, cached like the weights."""
     return _cached_weights("box_rectangles", box_rectangles, src_w, src_h,
                            dst_w, dst_h, device)[0]
+
+
+def band_box_device(src_w: int, dst_w: int, band: BoxBand,
+                    device: torch.device):
+    """(wh, wv, rectangles) of one band on `device`: the image's
+    horizontal box weights, band_box_weights and band_rectangles, cached
+    like the weights (the band's by the band)."""
+    wh = _cached_weights(
+        "box_wh", lambda sw, _sh, dw, _dh: (box_weights(dw, sw).astype(
+            np.float32),), src_w, band.src_h, dst_w, band.dst_h, device)[0]
+    wv, rectangles = _cached_weights(
+        f"band{tuple(band)}", lambda *_: (band_box_weights(band),
+                                          band_rectangles(src_w, dst_w,
+                                                          band)),
+        src_w, band.src_h, dst_w, band.dst_h, device)
+    return wh, wv, rectangles
 
 
 def lanczos_weights_device(src_w: int, src_h: int, dst_w: int, dst_h: int,

@@ -26,30 +26,42 @@ blocks.
 
 The data-parallel mesh (JAX :35-90, :1167-1398): data_mesh is the batch
 engines' rule for spreading a node's cards, shard_data_call runs a
-function over a DataMesh (parallel/mesh.py), one thread and one CUDA
-stream per shard, and the *_sharded functions are the batched search,
-search-and-emit, size search and SSIM on a mesh, each equal to its
-unsharded form.  The data×spatial split of one image
-(quality_search_spatial_sharded, :1400) is not ported.
+function over a DataMesh (parallel/mesh.py), one CUDA stream per shard
+and one thread per device (_Shards), and the *_sharded functions are the
+batched search, search-and-emit, size search and SSIM on a mesh, each
+equal to its unsharded form.
+
+The data×spatial mesh (JAX :1370-1454): quality_search_spatial_sharded
+searches one image whose rows are split in bands over a DataSpatialMesh,
+and batched_ssim_sharded(spatial=True) scores a batch with its rows split
+so.  The JAX package runs each as one jit over row-sharded arrays and
+lets XLA insert the halo exchanges and reductions; here every band is a
+shard of _Shards, the runner shard_data_call uses too, that reads a halo of rows from the next bands once, runs K2 (or K1) on its
+rows, and sends what it owns to the mesh's first device, where the
+shards' parts are put together.  Shards are ordered by CUDA events
+between streams, with no host sync inside the search; a device's shards
+run in turn on one thread, each on its own stream.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import device as _device
-from ..codecs.jpeg import forward_dct
+from ..codecs.jpeg import forward_dct, quantize_coefs
 from ..engine import compress as _compress
 from ..engine.compress import (
     batched_quality_search_quantize,
     decode_jpeg_image,
 )
 from ..engine.size_search import size_bisect
+from ..ops import dct as dct_ops
 from ..ops.color import luminance
 from ..ops.jpeg_emit import (
     finalize_scan_host,
@@ -64,10 +76,10 @@ from ..ops.jpeg_emit_cuda import (
     deposit,
 )
 from ..ops.jpeg_size import bits_std_from_hist
-from ..ops.resize import lanczos_resize_device
-from ..ops.ssim import WINDOW_SIZE, ssim_fast_images
+from ..ops.resize import box_band, lanczos_resize_device
+from ..ops.ssim import WINDOW_SIZE, ssim_fast_dims, ssim_fast_images
 from ..ops.ssim_cuda import ssim_window
-from .mesh import DataMesh, shard_rows
+from .mesh import DataMesh, DataSpatialMesh, Mesh, shard_bands, shard_rows
 
 
 def batched_decode_resize_search_quantize(
@@ -337,8 +349,9 @@ def emit_scans(packed: torch.Tensor, h: int, w: int, subsample: bool,
 # The reference's CompressBatch saturates every core with a goroutine
 # worker pool (batch.go:58-128).  The JAX package shards the engines'
 # chunks over all local chips through one Mesh('data') axis; here each
-# shard of a chunk runs on its device in a thread of its own, on a CUDA
-# stream of its own.  Images are independent: no collective is needed.
+# shard of a chunk runs on its device, on a CUDA stream of its own, and
+# each device in a thread of its own.  Images are independent: no
+# collective is needed.
 
 
 def data_mesh(device: _device.MeshLike = None) -> Optional[DataMesh]:
@@ -403,79 +416,156 @@ def _concat(parts: list, dev: torch.device):
                     f"{type(first)}")
 
 
-def _record_on(out, stream) -> None:
-    """Mark every CUDA tensor of a shard's output as used on the caller's
-    stream, so that the allocator does not hand its memory to the shard's
-    stream again before the caller's work on it is done."""
+class _Shards:
+    """The one runner of sharded work, on the data axis (shard_data_call)
+    and the spatial axis alike: shard k on devices[k], each under its
+    device and its own stream (_shard_stream(device, k)) on a card, which
+    first waits for the caller's stream of that device.  A device runs
+    its shards in turn on a thread of its own (on the calling thread when
+    there is one device): launches are asynchronous, and threads for
+    shards of one card only contend for it (on an H100, a 12 MP search
+    over 4 bands of one card took 48-67 ms with a thread per band and
+    17-19 ms on one thread; bench_sources/spatial_variants.py).  Tensors
+    move between shards by `move`, which orders the streams by CUDA
+    events; nothing waits on the host.  A context manager: the threads
+    end with it."""
+
+    def __init__(self, devices: Sequence[torch.device]) -> None:
+        # "cuda" names the current card: an index, so devices compare.
+        self.devices = [torch.device("cuda", torch.cuda.current_device())
+                        if d.type == "cuda" and d.index is None else d
+                        for d in devices]
+        self.streams = [_shard_stream(d, k) if d.type == "cuda" else None
+                        for k, d in enumerate(self.devices)]
+        for d, st in zip(self.devices, self.streams):
+            if st is not None:
+                st.wait_stream(torch.cuda.current_stream(d))
+        cards = len(set(self.devices))
+        self.pool = (ThreadPoolExecutor(cards, thread_name_prefix="fennec-"
+                                        "shard") if cards > 1 else None)
+
+    def __enter__(self) -> "_Shards":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.pool is not None:
+            self.pool.shutdown(wait=True)
+
+    def _call(self, fn, k: int):
+        st = self.streams[k]
+        if st is None:
+            return fn(k)
+        with torch.cuda.device(self.devices[k]), torch.cuda.stream(st):
+            return fn(k)
+
+    def run(self, fn, shards: Optional[Sequence[int]] = None) -> list:
+        """[fn(k) for each shard k (default: all)], each on its shard; once
+        every one has stopped, the first error in shard order is
+        raised."""
+        ks = list(range(len(self.devices))) if shards is None else list(
+            shards)
+        groups: Dict[torch.device, List[int]] = {}
+        for k in ks:
+            groups.setdefault(self.devices[k], []).append(k)
+        done: dict = {}
+
+        def work(group: List[int]) -> None:
+            for k in group:
+                try:
+                    done[k] = (True, self._call(fn, k))
+                except BaseException as exc:  # noqa: BLE001 — raised below
+                    done[k] = (False, exc)
+
+        if self.pool is None or len(groups) == 1:
+            for group in groups.values():
+                work(group)
+        else:
+            wait([self.pool.submit(work, g) for g in groups.values()])
+        for k in ks:
+            if not done[k][0]:
+                raise done[k][1]
+        return [done[k][1] for k in ks]
+
+    def stream_of(self, dev: torch.device, k: Optional[int]):
+        """Shard k's stream, or the caller's stream of `dev` (k None)."""
+        if dev.type != "cuda":
+            return None
+        return self.streams[k] if k is not None else \
+            torch.cuda.current_stream(dev)
+
+    def move(self, x: torch.Tensor, src: Optional[int],
+             dst: Optional[int], dst_dev: Optional[torch.device] = None):
+        """x, made on shard `src`'s stream (None: the caller's), for use
+        on shard `dst`'s stream (None: the caller's, on dst_dev): after
+        the work that made it, copied when the devices differ, and kept
+        from the allocator until that stream is done with it."""
+        dev = self.devices[dst] if dst is not None else dst_dev
+        s_from = self.stream_of(x.device, src)
+        s_to = self.stream_of(dev, dst)
+        if x.device == dev:
+            if s_to is not None and s_to != s_from:
+                s_to.wait_stream(s_from)
+                x.record_stream(s_to)
+            return x
+        if s_from is None:  # one kind of device in a mesh: both on the CPU
+            return x.to(dev)
+        with torch.cuda.stream(s_from), torch.cuda.stream(s_to):
+            return x.to(dev, non_blocking=True)
+
+
+def _moved(out, shards: _Shards, k: int, lead: torch.device):
+    """Shard k's output (a tensor, array or HostScans, or a tuple of
+    them) with its tensors handed to the caller's stream on `lead`
+    (_Shards.move)."""
     if isinstance(out, tuple):
-        for x in out:
-            _record_on(x, stream)
-    elif isinstance(out, torch.Tensor) and out.is_cuda:
-        out.record_stream(stream)
+        return tuple(_moved(x, shards, k, lead) for x in out)
+    if isinstance(out, torch.Tensor):
+        return shards.move(out, k, None, lead)
+    return out
 
 
-def shard_data_call(mesh: DataMesh, fn, *args, replicated: int = 0):
+def _data_axis(mesh: Mesh) -> DataMesh:
+    return mesh.data_axis() if isinstance(mesh, DataSpatialMesh) else mesh
+
+
+def shard_data_call(mesh: Mesh, fn, *args, replicated: int = 0):
     """fn(*args) over the mesh's "data" axis (JAX :59).
 
     Every arg is batch-leading (tensor, numpy array or list) and split by
     shard_rows, except the last `replicated`, which go whole to every
-    shard.  Each non-empty shard runs fn on its device in a thread of its
-    own, under torch.cuda.device and the shard's stream, after that
-    stream has waited for the caller's; tensor and array args are copied
-    to the shard's device first (asynchronously from pinned memory).
-    fn returns a tensor, array or HostScans, or a tuple of them;
-    the shards' outputs come back concatenated in input order (tensors on
-    the mesh's first device), after every shard's stream has finished.
+    shard.  Each non-empty shard runs fn on its device under its stream
+    (_Shards: a thread per device, the shards of one device in turn);
+    tensor and array args are copied to the shard's device first
+    (asynchronously from pinned memory).  fn returns a tensor, array or
+    HostScans, or a tuple of them; the shards' outputs come back
+    concatenated in input order (tensors on the mesh's first device).
+    The call returns once every shard's stream has finished: the batch
+    engines time it, reuse the pinned buffers it read, and classify an
+    asynchronous CUDA error by the chunk that raised it.
 
     A shard that raises does not stop the others: once all have stopped,
     the first error in shard order is raised.  Nothing is retried on
-    another device.  One non-empty shard runs on the calling thread."""
+    another device.  On a DataSpatialMesh the batch goes over its data
+    axis (its first spatial column)."""
+    mesh = _data_axis(mesh)
     nshard = len(args) - replicated
-    ranges = shard_rows(len(args[0]), mesh)
-    jobs = [(k, dev, start, stop) for k, (dev, (start, stop))
-            in enumerate(zip(mesh.devices, ranges)) if stop > start]
-    jobs = jobs or [(0, mesh.devices[0], 0, 0)]
-    callers = {d: torch.cuda.current_stream(d) for d in mesh.distinct()
-               if d.type == "cuda"}
-    outs: list = [None] * len(jobs)
-    errors: List[Optional[BaseException]] = [None] * len(jobs)
-
-    def run(j: int) -> None:
-        k, dev, start, stop = jobs[j]
-
-        def call():
-            part = [_shard_arg(a, start, stop, dev) if i < nshard
-                    else _whole_arg(a, dev) for i, a in enumerate(args)]
-            return fn(*part)
-
-        try:
-            if dev.type != "cuda":
-                outs[j] = call()
-                return
-            stream = _shard_stream(dev, k)
-            with torch.cuda.device(dev), torch.cuda.stream(stream):
-                stream.wait_stream(callers[dev])
-                out = call()
-                _record_on(out, callers[dev])
+    jobs = [(dev, start, stop) for dev, (start, stop)
+            in zip(mesh.devices, shard_rows(len(args[0]), mesh))
+            if stop > start] or [(mesh.devices[0], 0, 0)]
+    with _Shards([dev for dev, _, _ in jobs]) as shards:
+        def call(k: int):
+            _, start, stop = jobs[k]
+            dev, stream = shards.devices[k], shards.streams[k]
+            out = fn(*[_shard_arg(a, start, stop, dev) if i < nshard
+                       else _whole_arg(a, dev) for i, a in enumerate(args)])
+            if stream is not None:
                 stream.synchronize()
-            outs[j] = out
-        except BaseException as exc:  # noqa: BLE001 — raised below
-            errors[j] = exc
+            return out
 
-    if len(jobs) == 1:
-        run(0)
-    else:
-        threads = [threading.Thread(target=run, args=(j,), daemon=True,
-                                    name=f"fennec-shard-{jobs[j][0]}")
-                   for j in range(len(jobs))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-    for exc in errors:
-        if exc is not None:
-            raise exc
-    return _concat(outs, mesh.devices[0])
+        lead = shards.devices[0]
+        outs = [_moved(out, shards, k, lead)
+                for k, out in enumerate(shards.run(call))]
+    return _concat(outs, lead)
 
 
 def _targets_list(targets) -> List[float]:
@@ -548,14 +638,193 @@ def batched_size_search_sharded(mesh: DataMesh, imgs,
                                              hi0), imgs)
 
 
-def batched_ssim_sharded(mesh: DataMesh, imgs_a, imgs_b,
+def batched_ssim_sharded(mesh: Mesh, imgs_a, imgs_b,
                          spatial: bool = False) -> torch.Tensor:
-    """batched_ssim with the batch over the mesh (JAX :1370); the scores
-    on the mesh's first device.  spatial=True (rows split over a
-    "spatial" axis) raises ValueError: the mesh has only "data"."""
-    if spatial:
-        raise ValueError("fennec: the mesh has no 'spatial' axis; the "
-                         "data x spatial split is not ported")
-    return shard_data_call(
-        mesh, lambda a, b: batched_ssim(a.to(torch.float32),
-                                        b.to(torch.float32)), imgs_a, imgs_b)
+    """batched_ssim with the batch over the mesh's "data" axis (JAX
+    :1370); the scores on the mesh's first device.  With spatial=True
+    the rows of every image are split over the "spatial" axis too
+    (ValueError on a mesh without one): each band's shard runs K1 on its
+    rows and the next WINDOW_SIZE (7 that its windows read, and the one
+    row past them that K1's shape implies: h rows give h - 8 window
+    positions), and owns the positions whose top row is in its band; the
+    bands' means, weighted by their positions, are summed in float64 in
+    band order.  A band that owns no position adds nothing."""
+    if not spatial:
+        return shard_data_call(
+            mesh, lambda a, b: batched_ssim(a.to(torch.float32),
+                                            b.to(torch.float32)),
+            imgs_a, imgs_b)
+    if not isinstance(mesh, DataSpatialMesh):
+        raise ValueError("fennec: the mesh has no 'spatial' axis; make one "
+                         "with data_spatial_mesh")
+    a, b = _as_tensor(imgs_a), _as_tensor(imgs_b)
+    bsz, h, w = (int(n) for n in a.shape[:3])
+    lead = mesh.devices[0][0]
+    bands = shard_bands(h, mesh)
+    if bsz == 0 or h <= WINDOW_SIZE or w <= WINDOW_SIZE:
+        return torch.ones((bsz,), dtype=torch.float32, device=lead)
+    positions = [max(0, min(stop, h - WINDOW_SIZE) - start)
+                 for start, stop in bands]
+    jobs = [(row[j], (i, j), start, stop, bands[j][0],
+             min(bands[j][1] + WINDOW_SIZE, h))
+            for i, ((start, stop), row) in enumerate(zip(
+                shard_rows(bsz, mesh.data_axis()), mesh.devices))
+            for j in range(len(bands)) if stop > start and positions[j]]
+    shards = _Shards([job[0] for job in jobs])
+    lead = shards.devices[0]  # job 0: data row 0's first band
+
+    def score(k: int) -> torch.Tensor:
+        _, _, start, stop, r0, r1 = jobs[k]
+        dev = shards.devices[k]
+        band = [x[start:stop, r0:r1].to(dev, non_blocking=True)
+                for x in (a, b)]
+        return batched_ssim(*(x.to(torch.float32) for x in band))
+
+    with shards:
+        means = [shards.move(m, k, None, lead)
+                 for k, m in enumerate(shards.run(score))]
+    out = torch.zeros((bsz,), dtype=torch.float64, device=lead)
+    for (_, (i, j), start, stop, _, _), m in zip(jobs, means):
+        out[start:stop] += m.to(torch.float64) * positions[j]
+    return (out / (h - WINDOW_SIZE)).to(torch.float32)
+
+
+def quality_search_spatial_sharded(mesh: DataSpatialMesh, img, target: float,
+                                   subsample: bool = True):
+    """The SSIM-guided quality search and the winner's quantization for
+    ONE image whose rows are split in bands over the mesh's "spatial"
+    axis (JAX :1400): the path for an image whose working set exceeds
+    one card's memory.
+
+    img: (H, W, 4) (or 3 channels, opaque) of any dtype, on the host or a
+    device; H must split over the spatial axis in multiples of 16 (8
+    without subsample), else ValueError.  Returns (q int64, ssim float32,
+    found bool) as 0-d tensors and the winner's quantized blocks (qy,
+    qcb, qcr), (N, 64) float32 in block-row order, all on the mesh's
+    first device.  With a data axis wider than 1 the JAX program
+    computes the same result on every data row; this runs the first
+    row's devices only.
+
+    Band k holds image rows [start, stop) and reads a halo past them as
+    far as its last owned SSIMFast rectangle reaches, in whole MCU rows
+    (ops/resize.box_band).  Once per search, on its device: its pixel rows
+    and halo come from `img`, its forward DCT (whole MCU rows, so its
+    blocks are the image's), the original's luminance of its owned
+    output rows, and the coefficient rows of the halo from the next
+    bands.  Each of the 7 probes: the quality goes from the first device
+    to every band, each band runs K2 on its rows on its own stream (its
+    plain version on the CPU; a thread per device, _Shards), the owned
+    luminance rows come to the first device, where K1 scores the whole
+    (at most 512 × 512) plane as the unsharded search does and the
+    bisection takes its next step.  Then every band quantizes its blocks,
+    read back from its own rows of its coefficient planes (a band keeps
+    one copy of its coefficients), at the final quality."""
+    if not isinstance(mesh, DataSpatialMesh):
+        raise ValueError("fennec: the mesh has no 'spatial' axis; make one "
+                         "with data_spatial_mesh")
+    n_sp = mesh.shape["spatial"]
+    src = _as_tensor(img)
+    h, w = int(src.shape[0]), int(src.shape[1])
+    mult = 16 if subsample else 8
+    if (h // n_sp) % mult or h % n_sp:
+        raise ValueError(f"fennec: H={h} must shard over spatial={n_sp} in "
+                         f"multiples of {mult}")
+    ds_h = ssim_fast_dims(w, h)[1]
+    bands = [box_band(h, ds_h, start, stop, mult)
+             for start, stop in shard_bands(h, mesh)]
+    with _Shards(mesh.devices[0]) as shards:
+        return _spatial_search(shards, bands, src, target, subsample,
+                               shards.devices[0])
+
+
+def _spatial_search(shards: _Shards, bands, src, target: float,
+                    subsample: bool, lead: torch.device):
+    """quality_search_spatial_sharded's work on band k = shard k."""
+    from ..ops.probe_recon_cuda import probe_recon
+
+    w = int(src.shape[1])
+    div = 2 if subsample else 1
+
+    def prepare(k: int):
+        band, dev = bands[k], shards.devices[k]
+        pix = src[band.start:band.end].to(dev, non_blocking=True)
+        pix = pix.to(torch.float32)[None]
+        if pix.shape[-1] == 3:
+            pix = torch.cat([pix, torch.full_like(pix[..., :1], 255.0)],
+                            dim=-1)
+        coefs = forward_dct(pix[:, :band.stop - band.start], subsample)
+        return pix, _compress.coef_planes(coefs, band.stop - band.start, w,
+                                          subsample)
+
+    prepared = shards.run(prepare)
+
+    def halo(k: int):
+        """Band k's coefficient rows [stop, end), from the bands after
+        it, for its stream: three lists of pieces."""
+        parts = ([], [], [])
+        for j in range(k + 1, len(bands)):
+            a = max(bands[k].stop, bands[j].start)
+            b = min(bands[k].end, bands[j].stop)
+            if b <= a:
+                break
+            for c, plane in enumerate(prepared[j][1]):
+                d = div if c else 1
+                piece = plane[:, (a - bands[j].start) // d:
+                              (b - bands[j].start) // d]
+                parts[c].append(shards.move(piece, j, k))
+        return parts
+
+    halos = [halo(k) for k in range(len(bands))]
+
+    def inputs(k: int):
+        pix, planes = prepared[k]
+        halo_k = [torch.cat(p, dim=-2) if p else p_own[:, :0]
+                  for p, p_own in zip(halos[k], planes)]
+        return _compress.band_inputs(pix, bands[k], planes, halo_k,
+                                     subsample)
+
+    band_in = shards.run(inputs)
+    del prepared, halos  # the pixels
+    owners = [k for k, band in enumerate(bands) if band.d1 > band.d0]
+
+    def check(k: int) -> None:
+        # K2's one check and copy of a search, before the loop and after
+        # every band's work is queued: the copy waits for its stream.
+        dev = shards.devices[k]
+        if dev.type == "cuda":
+            band_in[k].k2_state = probe_recon.prepare(
+                band_in[k], *probe_recon.card(dev, subsample))
+
+    shards.run(check, owners)
+
+    def gather(parts: list) -> torch.Tensor:
+        """The owning bands' (1, rows, dw) parts as one plane on lead."""
+        return torch.cat([shards.move(parts[i], k, None, lead)
+                          for i, k in enumerate(owners)], dim=1)
+
+    lum_orig = gather([band_in[k].lum_orig for k in owners])
+
+    def probe(mid: torch.Tensor) -> torch.Tensor:
+        mids = {k: shards.move(mid, None, k) for k in owners}
+        return gather(shards.run(
+            lambda k: _compress.probe_luminance(band_in[k], mids[k]),
+            owners))
+
+    t, lo0 = _compress._search_targets([target], lead)
+    best_q, best_ssim, found = _compress.bisect(lum_orig, probe, t, lo0)
+
+    final_q = torch.where(found, best_q, 100)
+    finals = [shards.move(final_q, None, k) for k in range(len(bands))]
+
+    def quantize(k: int):
+        # The band's blocks are its own rows of its coefficient planes.
+        rows = bands[k].stop - bands[k].start
+        blocks = tuple(dct_ops.to_blocks(p[0, :rows // (div if c else 1)])
+                       for c, p in enumerate(band_in[k].cplanes))
+        return quantize_coefs(blocks, band_in[k].tables[finals[k]][0])
+
+    blocks = shards.run(quantize)
+    blocks = tuple(torch.cat([shards.move(x, k, None, lead)
+                              for k, x in enumerate(col)])
+                   for col in zip(*blocks))
+    return best_q[0], best_ssim[0], found[0], blocks

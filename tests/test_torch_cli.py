@@ -12,6 +12,7 @@ writes.
 
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -124,6 +125,24 @@ def test_batch_matches_jax(capsys, tmp_path, inputs):
         jpg_j = (tmp_path / "j" / n).read_bytes()
         jpg_t = (tmp_path / "t" / n).read_bytes()
         assert quality_of(jpg_t) == quality_of(jpg_j), n
+
+
+def test_batch_verbose_stdout_matches_jax(capsys, tmp_path, inputs):
+    """--batch -v writes to stdout what the JAX CLI writes: the summary
+    line alone (the per-file ticks go to stderr), equal apart from the
+    timing figures."""
+    flags = ["--batch", "-v", "--format", "jpeg", str(inputs)]
+    (rc_j, o_j), (rc_t, o_t) = run_both(
+        capsys, flags + [str(tmp_path / "j")], flags + [str(tmp_path / "t")])
+    assert rc_j == rc_t == 0
+
+    def untimed(out):
+        return [re.sub(r"\| [0-9.]+s \([0-9.]+ images/sec\)$", "| <time>",
+                       ln) for ln in out.splitlines()]
+
+    assert untimed(o_t.out) == untimed(o_j.out)
+    assert len(untimed(o_t.out)) == 1 and "4/4 succeeded" in o_t.out
+    assert o_t.err.count("/4]") == o_j.err.count("/4]") == 4
 
 
 def test_batch_reports_a_bad_file(capsys, tmp_path, inputs):

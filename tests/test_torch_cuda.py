@@ -849,3 +849,77 @@ def test_shard_threads_build_once_and_count_every_launch(cuda_device,
     got = pb.shard_data_call(pb.data_mesh(["cuda:0", "cuda:0"]), fn, a, b)
     assert len(builds) == 1 and fresh.launches == 20
     assert torch.equal(got, ssim_window(a, b))
+
+
+# ── The data×spatial mesh: K2 on bands of one card ──────────────────────────
+
+
+def spatial_photo(h, w, seed):
+    """Gradients and blocky noise on integer levels, opaque."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    img = np.empty((h, w, 4), np.float32)
+    img[..., 0], img[..., 1] = x * 255.0 / w, y * 255.0 / h
+    img[..., 2] = (x + y) * 255.0 / (w + h)
+    noise = rng.normal(0, 12, (h // 8 + 1, w // 8 + 1, 3))
+    img[..., :3] += noise.repeat(8, 0).repeat(8, 1)[:h, :w]
+    img[..., :3] = np.floor(np.clip(img[..., :3], 0, 255))
+    img[..., 3] = 255.0
+    return img
+
+
+# (H, W, bands): rectangles straddling the seams (1280 x 576, 4000 x
+# 3008), seams on rectangle edges (the 12 MP portrait), bands that own no
+# output row (9728 x 160).
+@pytest.mark.parametrize("h,w,n", [(576, 1280, 4), (3008, 4000, 4),
+                                   (4032, 3024, 2), (160, 9728, 10)])
+def test_band_k2_bit_equal_to_the_whole_image(cuda_device, monkeypatch, h,
+                                              w, n):
+    """quality_search_spatial_sharded on n bands of one card: every
+    band's K2 luminance at each probe is bit-equal to the rows it owns
+    of K2 on the whole image, and the result equals the unsharded
+    search's ((q, found), blocks; SSIM within 1e-5)."""
+    from fennec_tpu_torch.engine import compress as tcomp
+    from fennec_tpu_torch.ops.probe_recon_cuda import probe_recon
+    from fennec_tpu_torch.parallel import batched as pb
+    from fennec_tpu_torch.parallel import mesh as pm
+
+    img = torch.from_numpy(spatial_photo(h, w, h + n)).to(cuda_device)
+    calls = []
+    inner = tcomp.probe_luminance
+
+    def probe(inp, quality):
+        lum = inner(inp, quality)
+        calls.append((inp.band, quality.clone(), lum.clone()))
+        return lum
+
+    monkeypatch.setattr(pb._compress, "probe_luminance", probe)
+    mesh = pm.data_spatial_mesh(n, n, [cuda_device] * n)
+    before = probe_recon.launches
+    q, s, f, blocks = pb.quality_search_spatial_sharded(mesh, img, 0.94)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    owners = len({band for band, _, _ in calls})
+    assert probe_recon.launches - before == 7 * owners == len(calls)
+    inp, _ = tcomp.prepare_search(img[None], True)
+    for band, quality, lum in calls:
+        whole = probe_recon(inp, quality)
+        assert torch.equal(lum[0], whole[0, band.d0:band.d1]), band
+    uq, us, uf, ublocks = tcomp.batched_quality_search_quantize(
+        img[None], [0.94], True)
+    assert (int(q), bool(f)) == (int(uq[0]), bool(uf[0]))
+    assert abs(float(s) - float(us[0])) <= ATOL
+    got = torch.cat(blocks).to(torch.int16).cpu().numpy()
+    np.testing.assert_array_equal(got, ublocks[0])
+
+
+def test_spatial_ssim_matches_batched_ssim(cuda_device):
+    from fennec_tpu_torch.parallel import batched as pb
+    from fennec_tpu_torch.parallel import mesh as pm
+
+    a, b = noise_pair((3, 200, 300), 5, cuda_device)
+    a4, b4 = (torch.stack([x] * 4, dim=-1) for x in (a, b))
+    mesh = pm.data_spatial_mesh(8, 4, [cuda_device] * 8)
+    got = pb.batched_ssim_sharded(mesh, a4, b4, spatial=True)
+    torch.testing.assert_close(got, pb.batched_ssim(a4, b4), atol=ATOL,
+                               rtol=0)

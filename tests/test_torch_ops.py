@@ -27,6 +27,7 @@ from fennec_tpu.ops.resize import smart_resize_dims as jax_smart_resize_dims
 from fennec_tpu_torch.codecs import tables as ttables
 from fennec_tpu_torch.codecs.jpeg import forward_dct
 from fennec_tpu_torch.engine import compress as tcomp
+from fennec_tpu_torch.engine import size_search as tsize
 from fennec_tpu_torch.ops import color as tcolor
 from fennec_tpu_torch.ops import dct as tdct
 from fennec_tpu_torch.ops import filters as tfilters
@@ -58,6 +59,23 @@ class TestTablesExact:
         a, b = getattr(tdct, fn)(), getattr(jdct, fn)()
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
+
+    @pytest.mark.parametrize("on, fn", [
+        (tdct._kron_on, "dct_kron"), (tcomp._dmat_on, "dct_matrix"),
+        (tsize.quality_tables_on, "all_quality_tables")],
+        ids=["dct_kron", "dct_matrix", "quality_tables"])
+    def test_device_constants_are_the_jax_tables_uploaded_once(self, on, fn):
+        """The tables every call reads are JAX's, in float32, made once per
+        device and shared by threads (device.constant_on)."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        dev = torch.device("cpu")
+        with ThreadPoolExecutor(8) as pool:
+            got = list(pool.map(lambda _: on(dev), range(16)))
+        assert all(x is got[0] for x in got) and got[0] is on(dev)
+        assert got[0].dtype == torch.float32
+        np.testing.assert_array_equal(
+            got[0].numpy(), getattr(jdct, fn)().astype(np.float32))
 
     @pytest.mark.parametrize("q", [1, 30, 50, 92, 100])
     def test_scale_quant_table(self, q):

@@ -1,8 +1,9 @@
 """The port's multi-device layer (parallel/mesh, parallel/distributed,
 parallel/batched's mesh functions) on the CPU.
 
-A mesh of CPU devices (["cpu"] * n; each entry a shard of its own, run
-in a thread of its own) stands in for the cards, as the JAX package's
+A mesh of CPU devices (["cpu"] * n, each entry a shard of its own, run in
+turn on one thread; or "cpu:0", "cpu:1", ..., a thread each, where the
+threads are what is tested) stands in for the cards, as the JAX package's
 tests use 8 virtual CPU devices (tests/conftest.py).  Every *_sharded
 function on 1 to 4 shards equals its unsharded form in the port: the
 same qualities, found flags and bytes, SSIM bit for bit.  Against the
@@ -50,6 +51,11 @@ def cpu_mesh(n):
     return tmesh.DataMesh(("cpu",) * n)
 
 
+def card_mesh(n):
+    """n distinct CPU devices standing for n cards: a thread each."""
+    return tmesh.DataMesh(tuple(torch.device("cpu", k) for k in range(n)))
+
+
 @pytest.fixture
 def cards(monkeypatch):
     """Pretend PyTorch sees `n` cards (for the rules that count them)."""
@@ -86,13 +92,16 @@ def test_make_mesh_shapes():
     assert mesh.size == 2 and mesh.axis_names == ("data",)
 
 
-@pytest.mark.parametrize("sizes,names", [((16,), ("data",)),
-                                         ((4, 2), ("data", "spatial")),
-                                         ((2,), ("spatial",))])
-def test_make_mesh_raises(sizes, names):
-    # More devices than exist (JAX mesh.py:19), or a shape not ported.
+@pytest.mark.parametrize("sizes,names,n", [((16,), ("data",), 8),
+                                           ((4, 2), ("data", "spatial"), 7),
+                                           ((2,), ("spatial",), 8)],
+                         ids=["sizes0-names0", "sizes1-names1",
+                              "sizes2-names2"])
+def test_make_mesh_raises(sizes, names, n):
+    # More devices than exist (JAX mesh.py:19), or a shape with no
+    # counterpart: a mesh is ("data",) or ("data", "spatial").
     with pytest.raises(ValueError):
-        tmesh.make_mesh(sizes, names, ["cpu"] * 8)
+        tmesh.make_mesh(sizes, names, ["cpu"] * n)
 
 
 def test_data_mesh_over_the_visible_cards(cards):
@@ -168,20 +177,35 @@ def test_single_image_entry_points_refuse_a_mesh():
 def test_shard_data_call_splits_and_concatenates_in_order():
     seen = []
     lock = threading.Lock()
+    together = threading.Barrier(3, timeout=30)
 
     def fn(rows, labels, extra):
+        together.wait()  # the three devices' shards run at once
         with lock:
             seen.append((threading.current_thread().name, rows.shape[0]))
         return (rows * 2, np.array([int(x) for x in labels]) + extra)
 
     rows = torch.arange(10)
     labels = [str(i) for i in range(10)]
-    got = tpb.shard_data_call(cpu_mesh(3), fn, rows, labels, 100,
+    got = tpb.shard_data_call(card_mesh(3), fn, rows, labels, 100,
                               replicated=1)
     assert torch.equal(got[0], rows * 2)
     np.testing.assert_array_equal(got[1], np.arange(10) + 100)
     assert sorted(n for _, n in seen) == [3, 3, 4]
-    assert len({name for name, _ in seen}) == 3  # a thread per shard
+    assert len({name for name, _ in seen}) == 3  # a thread per device
+
+
+def test_shards_of_one_device_run_in_turn_on_the_calling_thread():
+    """["cpu"] * 3 is one device: its three shards run in shard order on
+    the calling thread (as the shards of one card do), each with its
+    rows."""
+    seen = []
+    got = tpb.shard_data_call(cpu_mesh(3), lambda rows: seen.append(
+        (threading.current_thread().name, rows.tolist())) or rows + 1,
+        torch.arange(7))
+    assert torch.equal(got, torch.arange(7) + 1)
+    assert [rows for _, rows in seen] == [[0, 1, 2], [3, 4], [5, 6]]
+    assert {name for name, _ in seen} == {threading.current_thread().name}
 
 
 def test_one_shard_runs_on_the_calling_thread():
@@ -202,7 +226,7 @@ def test_a_failed_shard_raises_after_every_shard_stopped():
         return rows
 
     with pytest.raises(RuntimeError, match="shard 0 failed"):
-        tpb.shard_data_call(cpu_mesh(3), fn, torch.arange(6))
+        tpb.shard_data_call(card_mesh(3), fn, torch.arange(6))
     assert sorted(finished) == [2, 4]
 
 
@@ -335,7 +359,7 @@ def test_launch_counts_survive_shard_threads(kernel):
                 kernel.count_launch()
             return rows
 
-        tpb.shard_data_call(cpu_mesh(8), fn, torch.arange(8))
+        tpb.shard_data_call(card_mesh(8), fn, torch.arange(8))
     finally:
         sys.setswitchinterval(old)
     assert kernel.launches - start == 16000
