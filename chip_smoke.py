@@ -1,24 +1,25 @@
 """Drive the PyTorch port's main paths once on one CUDA card, and check
 them.
 
-    python3 chip_smoke.py [--k2 | --k3 | --digests | --mesh]
+    python3 chip_smoke.py [--k2 | --k3 | --k5 | --digests | --mesh]
 
 With no argument, every phase below; it needs one card.  --k2 runs
 phases 1 and 2, K2's part of phase 3 and the size oracle's checks of
 phase 10 alone (the two search loops' kernels against their plain
 versions, and K2 against the first K2); --k3 runs phases 1, 2 and 11
 and the size oracle's checks (K3 against its plain version and, in
-turns, against the first K3; K4's step and bisection);
---digests prints digests of a few main-path outputs, to compare two
+turns, against the first K3; K4's step and bisection); --k5 runs
+phases 1, 2 and 16 (K5 against its plain version and the host builder,
+its timings and the emission in turns); --digests prints digests of a few main-path outputs, to compare two
 checkouts on one card; --mesh runs phases 1, 2, 14 and 15 alone.  None
 of these prints the result lines.
 
 Phases, each raising on failure:
   1. environment: a CUDA card, its name and power limit, TF32 off;
-  2. build: kernels K1, K2 and K3 with K4's entries (nvcc, sm_90a), the
-     first K3 and the first K2 (kept under bench_sources/ to be timed
+  2. build: kernels K1, K2, K3 with K4's entries and K5 (nvcc, sm_90a),
+     the first K3 and the first K2 (kept under bench_sources/ to be timed
      against) and the host C++ entropy coder, from the sources in this
-     checkout, all six at once;
+     checkout, all seven at once;
   3. K1 against its plain PyTorch version on the card, at the shapes the
      main paths give it and beyond, the batch engines' (64, 500, 500)
      included, and at ragged shapes for its strips and bands: max |diff|
@@ -49,7 +50,7 @@ Phases, each raising on failure:
      with SSIM scored on its own decode, and K1 must have run at least 7
      times per image.  With the default Options every image is
      Huffman-coded on the card: K3 counted from 0 before each call must
-     have launched for it, K3a once and K3b once per emission (phases
+     have launched for it, K3a, K5 and K3b once each per emission (phases
      6-8 and T2/T3 of 10 the same, per device chunk or encode round; T1
      keeps the host encoder, as the JAX package's per-image target-size
      engine does, and launches only the size oracle's K3a, which is
@@ -147,8 +148,9 @@ Phases, each raising on failure:
      route, host encoder), each on [cuda:k, cuda:k] (two shards, each on
      its own stream, in turn on one thread) and on cuda:k, in turns (a
      warm-up round, then 3 rounds alternating which goes first): every output
-     byte-identical, and K1, K2, K3a and K3b, counted from 0 around each
-     call, launched 7, 7, 1 and 1 times (7, 7, 0, 0 on the Lanczos route)
+     byte-identical, and K1, K2, K3a, K5 and K3b, counted from 0 around
+     each call, launched 7, 7, 1, 1 and 1 times (0 for K3 and K5 on the
+     Lanczos route)
      per shard chunk (a chunk's non-empty shards; one device's chunk is
      one); warm img/s of both, median of 3.  The four *_sharded
      functions at (64, 500, 500) on the two shards against their
@@ -173,10 +175,23 @@ Phases, each raising on failure:
      turns and their peak device memory, with the card's name and power
      limit; batched_ssim_sharded(spatial=True) on (2, 2160, 3840) over a
      2x2 mesh against batched_ssim and the plain windowed SSIM, each
-     within 1e-5, K1 launched once per band.
+     within 1e-5, K1 launched once per band;
+ 16. K5, the device K.2 table build, against its plain version on the
+     same CUDA tensors (tables and header bit for bit) and against the
+     host C++ builder (_optimal_tables and hist_bits: tables, specs and
+     scan bits equal, errors for exactly the flagged images) on the
+     histograms phase 4's warm calls handed K5, on the 12 MP and 1080p
+     photos and a 64 x 500x500 chunk at BALANCED's qualities, and on
+     k5_families (ties, single symbols, empty classes, skew, Fibonacci
+     counts, a code past 32 bits, counts whose merges pass 2^31, a mixed
+     batch of 64); K5's device time, CUDA-event time and host time at
+     B = 1 (12 MP) and B = 64 beside its bound, the serial chain, the
+     plain version and the host builder; and the whole optimal emission
+     (emit_scans) against the host-built flow (host_built_emit) in turns
+     at 12 MP and 64 x 500x500, the bytes equal.
 
-The last lines: the kernel table as JSON (K1's, K2's, K3a's, K3b's and
-K4's step's and bisection's launches summed over the main-path runs of
+The last lines: the kernel table as JSON (K1's, K2's, K3a's, K3b's, K5's
+and K4's step's and bisection's launches summed over the main-path runs of
 phases 4, 6-8 and 10, each counted from 0; K4's step, now the
 bisection's yardstick, launches 0 times there),
 the card's name and power limit as nvidia-smi reports them, and {"ok":
@@ -187,6 +202,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -424,11 +440,12 @@ def host_us(fn, iters: int) -> float:
 
 
 # The launches on the main path (phases 4, 6-8 and 10) of K3 (emission's
-# K3a and K3b), of K4 (the size oracle's bisection, and its step, which
+# K3a and K3b) and K5 (each optimal emission's table build), of K4 (the size oracle's bisection, and its step, which
 # only phase_k4 launches now) and of K2 (the probe reconstruction), each
 # call counted from 0 just before it and read just after; and the engines'
 # size bisections on the card (count_bisections).
-K3_MAIN = {"block_stats": 0, "deposit": 0, "oracle": 0, "bisect": 0}
+K3_MAIN = {"block_stats": 0, "deposit": 0, "oracle": 0, "bisect": 0,
+           "huffbuild": 0}
 K2_MAIN = {"recon": 0}
 BISECTIONS = {"calls": 0}
 
@@ -459,9 +476,12 @@ def count_bisections() -> None:
 
 
 def k3_zero() -> None:
-    """Set K2's, K3's and K4's counts and the bisections to 0."""
+    """Set K2's, K3's, K4's and K5's counts and the bisections to 0."""
     from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
+    from fennec_tpu_torch.ops.huffbuild_cuda import build_tables
     from fennec_tpu_torch.ops.probe_recon_cuda import probe_recon
+
+    build_tables.launches = 0
 
     k3.block_stats.launches = 0
     k3.deposit.launches = 0
@@ -477,34 +497,40 @@ def k3_take(tag: str, dev, emissions: int, bisections: int = 0,
     """The launches since k3_zero, added to the main path's totals.  On a
     CUDA device every JPEG of the call must have been coded by K3: at
     least `emissions` emissions (one per image or device chunk coded),
-    each one K3a and one K3b launch; the size oracle must have bisected
+    each one K3a, one K5 and one K3b launch (every emission of the main
+    path builds optimal tables); the size oracle must have bisected
     at least `bisections` times, each bisection one launch of K4's
     bisection, and launched neither K4's step nor K3a's totals over
     packed blocks; and K2 must have reconstructed at least `probes`
     probes.  emissions=0: the call keeps the host encoder and must launch
     neither K3a nor K3b."""
     from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
+    from fennec_tpu_torch.ops.huffbuild_cuda import build_tables
     from fennec_tpu_torch.ops.probe_recon_cuda import probe_recon
 
     a, b = k3.block_stats.launches, k3.deposit.launches
     o, z = k3.quantize_count.launches, k3.size_bisect.launches
     p = probe_recon.launches
+    k5 = build_tables.launches
     K3_MAIN["block_stats"] += a
     K3_MAIN["deposit"] += b
+    K3_MAIN["huffbuild"] += k5
     K3_MAIN["oracle"] += o
     K3_MAIN["bisect"] += z
     K2_MAIN["recon"] += p
     calls = BISECTIONS["calls"]
-    if dev.type == "cuda" and (a != b or b < emissions or z != calls
+    if dev.type == "cuda" and (a != b or k5 != b or b < emissions
+                               or z != calls
                                or calls < bisections or o
                                or (emissions == 0 and b != 0)
                                or k3.oracle_stats.launches or p < probes):
-        raise AssertionError(f"{tag}: launches K3a={a} K3b={b} K4 "
+        raise AssertionError(f"{tag}: launches K3a={a} K5={k5} K3b={b} K4 "
                              f"bisection={z} for {calls} bisections, K4 "
                              f"step={o} (K3a over packed blocks as the "
                              f"oracle: {k3.oracle_stats.launches}) K2={p}, "
                              f"want {emissions} or more emissions of one K3a"
-                             f" and one K3b, one K4 bisection per bisection "
+                             f", one K5 and one K3b, one K4 bisection per "
+                             f"bisection "
                              f"and >= {bisections} of them, no K4 step, and "
                              f">= {probes} K2 probes")
     return a, b, z
@@ -1227,6 +1253,317 @@ def phase_k3(T, dev, cases, timed: bool = True, first=None, seams=None):
                                True, 50, False)
         worst = max(worst, err)
     return worst, times
+
+
+# ── Phase 16: K5, the device K.2 table build ────────────────────────────────
+
+# K5's bound (csrc/huffbuild.cu): its bytes (each image's 544 histogram
+# counts read once, its tables and header written once, the standard
+# tables read once) or its thread instructions at the issue rate, reckoned
+# from the source for this run's tables: a merge costs each of a warp's
+# 32 lanes about 200 (the keys and compares of 9 symbols, 5 butterfly
+# steps of two 64-bit shuffles and a pair merge, the labels' select, the
+# +1 and the relabel of 9 symbols), a table's tail after the loop about
+# 300.  Beside it the serial chain the source note names: the longest
+# table's merges, each 9 dependent steps, at one step per clock of an
+# H100 SXM's 1.98 GHz, which no width hides.
+K5_INSTR_PER_MERGE = 32 * 200
+K5_INSTR_PER_TABLE = 32 * 300
+K5_CHAIN_STEPS = 9
+SM_CLOCK_HZ = 1.98e9
+
+
+def k5_families():
+    """(tag, (B, 544) int32 histograms) that cross K5's seams, made with
+    numpy: random dense counts, sparse counts full of ties, a single
+    symbol and empty classes (a grey image's chroma), heavy skew, 36
+    Fibonacci counts (lengths past 16: K.3 redistributes), 34 counts
+    that need a code of 34 bits (flagged) among good images, every
+    symbol near 2^24 (merged frequencies past 2^31), and a batch of 64
+    mixing all of them."""
+    rng = np.random.default_rng(SEED + 16)
+
+    def hist(dc, ac):
+        b = dc.shape[0]
+        return np.concatenate([dc.reshape(b, 32), ac.reshape(b, 512)],
+                              1).astype(np.int32)
+
+    def chain(n, step):
+        out = [1, 1]
+        while len(out) < n:
+            out.append(out[-1] + out[-2] + step)
+        return out[:n]
+
+    fams = [("dense", hist(rng.integers(0, 50_000, (8, 2, 16)),
+                           rng.integers(0, 50_000, (8, 2, 256))))]
+    dc = np.zeros((8, 2, 16), np.int64)
+    ac = np.zeros((8, 2, 256), np.int64)
+    for j in range(8):
+        for c in range(2):
+            k = rng.integers(1, 12)
+            dc[j, c, rng.choice(16, k, replace=False)] = rng.integers(1, 10, k)
+            k = rng.integers(1, 80)
+            ac[j, c, rng.choice(256, k, replace=False)] = rng.integers(1, 8, k)
+    fams.append(("sparse_ties", hist(dc, ac)))
+    dc = np.zeros((5, 2, 16), np.int64)
+    ac = np.zeros((5, 2, 256), np.int64)
+    dc[0, 0, 5] = 100
+    ac[1, 1, 0xF0] = 1
+    dc[2] = 1
+    ac[3, 0, :8] = 7
+    dc[4, 0, 3], ac[4, 0, 1] = 9, 4
+    fams.append(("single_and_empty", hist(dc, ac)))
+    dc = np.zeros((2, 2, 16), np.int64)
+    ac = np.zeros((2, 2, 256), np.int64)
+    dc[0, 0] = [min(1 << s, 1 << 28) for s in range(16)]
+    f = 1
+    for s in range(40):
+        ac[0, 0, s] = max(1, f)
+        f = int(f * 1.6) + 1
+        f = 1 if f > 1 << 27 else f
+    dc[1] = 1
+    ac[1, :, ::3] = 2
+    fams.append(("skewed", hist(dc, ac)))
+    dc = np.ones((3, 2, 16), np.int64)
+    ac = rng.integers(1, 100, (3, 2, 256))
+    ac[0, 0] = 0
+    ac[0, 0, :36] = chain(36, 0)
+    ac[1, 0] = 0
+    ac[1, 0, :34] = chain(34, 1)
+    fams.append(("fibonacci_and_past_32", hist(dc, ac)))
+    fams.append(("counts_near_2^24", hist(
+        rng.integers(1 << 23, 1 << 24, (2, 2, 16)),
+        rng.integers(1 << 23, 1 << 24, (2, 2, 256)))))
+    mixed = np.concatenate([h for _, h in fams])
+    fams.append(("batch64_mixed", mixed[rng.integers(0, len(mixed), 64)]))
+    return fams
+
+
+def k5_bound(hist: np.ndarray):
+    """(least ms, "operations" or "bytes", serial-chain ms) of one K5
+    launch on these histograms (see K5_INSTR_PER_MERGE)."""
+    bsz = hist.shape[0]
+    dc = hist[:, :32].reshape(bsz, 2, 16)
+    ac = hist[:, 32:].reshape(bsz, 2, 256)
+    live = np.concatenate([(dc > 0).sum(-1), (ac > 0).sum(-1)], 1)
+    merges = np.maximum(live, 1)  # an empty class codes symbol 0; with
+    # the reserved symbol a table has live + 1 chains: live merges
+    nbytes = bsz * 4 * (544 + 2 * 272 + 208) + 4 * 2 * 272
+    ops = (int(merges.sum()) * K5_INSTR_PER_MERGE
+           + 4 * bsz * K5_INSTR_PER_TABLE)
+    t_ops, t_bytes = ops / INT_ISSUE_PER_S, nbytes / HBM_BYTES_PER_S
+    chain = int(merges.max()) * K5_CHAIN_STEPS / SM_CLOCK_HZ
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", chain * 1e3)
+
+
+def check_k5(tag: str, hist: torch.Tensor) -> int:
+    """K5 on (B, 544) int32 histograms on the card against its plain
+    version on the same tensors (tables and header bit for bit: scan
+    bits, flags, specs) and against the host C++ builder (_optimal_tables
+    and hist_bits: the same tables, specs and bits, and an error for
+    exactly the images K5 flags, which get the standard tables).
+    Returns the largest absolute difference from the plain version."""
+    from fennec_tpu_torch.ops import huffbuild_cuda as k5
+    from fennec_tpu_torch.ops.huffbuild import build_plain
+    from fennec_tpu_torch.ops.jpeg_emit import std_tables_on
+    from fennec_tpu_torch.parallel.batched import (
+        _optimal_tables,
+        hist_bits,
+        specs_from_opt_header,
+        split_opt_header,
+    )
+
+    std = std_tables_on(hist.device)
+    got = k5.build_tables(hist, std)
+    again = k5.build_tables(hist, std)
+    want = build_plain(hist, std)
+    if hist.device.type == "cuda":
+        torch.cuda.synchronize()
+    worst = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                for a, b in ((got.tables, want.tables),
+                             (got.header, want.header)))
+    if not (torch.equal(got.tables, want.tables)
+            and torch.equal(got.header, want.header)
+            and torch.equal(got.header, again.header)):
+        raise AssertionError(f"K5 {tag}: tables/header differ from the "
+                             f"plain version (largest difference {worst}) "
+                             f"or between two calls")
+    h = hist.cpu().numpy().astype(np.int64)
+    dcf, acf = h[:, :32].reshape(-1, 2, 16), h[:, 32:].reshape(-1, 2, 256)
+    specs, tables, errors = _optimal_tables(dcf, acf)
+    bits, flagged, bits16, nvals, vals = split_opt_header(
+        got.header.cpu().numpy())
+    tables = np.where(flagged[:, None, None], std.cpu().numpy(), tables)
+    bad = [j for j in range(h.shape[0]) if not flagged[j]
+           and specs_from_opt_header(bits16, nvals, vals, j) != specs[j]]
+    if (sorted(errors) != np.nonzero(flagged)[0].tolist()
+            or not np.array_equal(got.tables.cpu().numpy(), tables)
+            or not np.array_equal(bits, hist_bits(dcf, acf, tables))
+            or bad):
+        raise AssertionError(f"K5 {tag}: against the host builder: errors "
+                             f"{sorted(errors)} flagged "
+                             f"{np.nonzero(flagged)[0].tolist()}, specs "
+                             f"differ for {bad[:8]}")
+    log(f"k5 {tag} B={h.shape[0]} flagged={int(flagged.sum())} scan_bits="
+        f"{int(bits.sum())}: tables, bits16, vals, nvals, overflow and scan "
+        f"bits bit-identical to the plain version and the host C++ builder")
+    return worst
+
+
+def time_k5(hist: torch.Tensor, iters: int = 50) -> dict:
+    """K5's device ms (torch.profiler rows), CUDA-event ms and host µs per
+    call, its bound and share, the serial chain's ms, the plain version's
+    CUDA-event ms, and the host C++ builder's ms on the same histograms
+    (_optimal_tables and hist_bits on host arrays, the download not
+    counted)."""
+    from fennec_tpu_torch.ops import huffbuild_cuda as k5
+    from fennec_tpu_torch.ops.huffbuild import build_plain
+    from fennec_tpu_torch.ops.jpeg_emit import std_tables_on
+    from fennec_tpu_torch.parallel.batched import _optimal_tables, hist_bits
+
+    std = std_tables_on(hist.device)
+    fn = lambda: k5.build_tables(hist, std)  # noqa: E731
+    t = {"shape": list(hist.shape),
+         "ms": profiled_device_ms(fn, iters, "huff_build_kernel"),
+         "event_ms": cuda_ms(fn, iters), "host_us": host_us(fn, iters),
+         "plain_ms": cuda_ms(lambda: build_plain(hist, std), 3)}
+    h = hist.cpu().numpy().astype(np.int64)
+    dcf, acf = h[:, :32].reshape(-1, 2, 16), h[:, 32:].reshape(-1, 2, 256)
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        hist_bits(dcf, acf, _optimal_tables(dcf, acf)[1])
+    t["host_builder_ms"] = (time.perf_counter() - t0) / reps * 1e3
+    t["bound_ms"], t["bound_by"], t["chain_bound_ms"] = k5_bound(
+        hist.cpu().numpy())
+    t["share"] = t["bound_ms"] / t["ms"]
+    return t
+
+
+def host_built_emit(packed: torch.Tensor, h: int, w: int, sub: bool):
+    """The host-built optimal emission (the flow before K5), composed
+    here: K3a, the histograms down, the C++ K.2 build and hist_bits on
+    the host, emit_custom (one upload of the tables and word bases, K3b),
+    the words down.  Returns a HostScans."""
+    from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
+    from fennec_tpu_torch.ops.jpeg_emit import layout_on, std_tables_on
+    from fennec_tpu_torch.parallel.batched import (
+        HostScans,
+        _optimal_tables,
+        emit_custom,
+        hist_bits,
+        pull_emit_words,
+    )
+
+    mult = 16 if sub else 8
+    lay = layout_on(h + (-h) % mult, w + (-w) % mult, sub, packed.device)
+    hist = k3.block_stats.launch(packed, lay, std_tables_on(packed.device),
+                                 want_hist=True).hist.cpu().numpy()
+    dcf = hist[:, :32].reshape(-1, 2, 16).astype(np.int64)
+    acf = hist[:, 32:].reshape(-1, 2, 256).astype(np.int64)
+    specs, tables, errors = _optimal_tables(dcf, acf)
+    scans = emit_custom(packed, lay, tables, hist_bits(dcf, acf, tables))
+    return HostScans(pull_emit_words(scans), scans.bits, scans.base, specs,
+                     errors)
+
+
+def time_emission_in_turns(tag: str, packed, h: int, w: int, sub: bool,
+                           quality: int, reps: int = 10) -> dict:
+    """The whole optimal emission, emit_scans (K3a, K5, one pull of the
+    header, K3b, the words) against host_built_emit, in turns (host, K5,
+    K5, host): host-clock ms per call (each ends in a pull) and CUDA-event
+    ms per call; every image's bytes equal."""
+    from fennec_tpu_torch.parallel.batched import emit_scans
+
+    runs = {"k5": lambda: emit_scans(packed, h, w, sub, True),
+            "host": lambda: host_built_emit(packed, h, w, sub)}
+    a, b = runs["k5"](), runs["host"]()
+    diff = [j for j in range(packed.shape[0])
+            if a.jpeg(j, w, h, quality, sub) != b.jpeg(j, w, h, quality, sub)]
+    if diff or a.specs != b.specs:
+        raise AssertionError(f"emission {tag}: K5's flow and the host-built "
+                             f"flow differ for images {diff[:8]}")
+    got = {"k5": [], "host": [], "k5_event": [], "host_event": []}
+    for who in ("host", "k5", "k5", "host"):
+        fn = runs[who]
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        got[who].append((time.perf_counter() - t0) / reps * 1e3)
+        got[f"{who}_event"].append(cuda_ms(fn, reps))
+    out = {k: min(v) for k, v in got.items()}
+    out["turns_ms"] = [round(v, 4) for v in got["host"][:1] + got["k5"]
+                       + got["host"][1:]]
+    log(f"emission {tag} B={packed.shape[0]}: bytes equal; K5 flow host "
+        f"{out['k5']:.4f} ms event {out['k5_event']:.4f} ms, host-built "
+        f"flow host {out['host']:.4f} ms event {out['host_event']:.4f} ms "
+        f"(turns host, K5, K5, host: {out['turns_ms']})")
+    return out
+
+
+# The histograms of the main path's emissions (phase 4), recorded at K5's
+# call (record_k5_inputs) to be checked in phase 16.
+K5_INPUTS = {}
+
+
+@contextlib.contextmanager
+def record_k5_inputs(tag: str):
+    """While active, every emission's histograms, as parallel/batched
+    hands them to K5, are kept in K5_INPUTS under `tag` (a copy on the
+    card).  K5's own count is untouched."""
+    from fennec_tpu_torch.parallel import batched
+
+    real = batched.build_tables
+
+    def recorded(hist, std):
+        K5_INPUTS[tag] = hist.clone()
+        return real(hist, std)
+
+    batched.build_tables = recorded
+    try:
+        yield
+    finally:
+        batched.build_tables = real
+
+
+def phase_k5(T, dev, quality) -> tuple:
+    """Phase 16: K5 bit-equal to its plain version and the host C++
+    builder on phase 4's histograms, the 12 MP and 1080p photos and a
+    64 x 500x500 chunk at BALANCED's qualities, and k5_families; K5
+    timed at B = 1 (12 MP) and B = 64 beside its bound, the plain
+    version and the host builder; the whole emission against the
+    host-built flow in turns at 12 MP and 64 x 500x500.  `quality`: the
+    qualities (12 MP, 1080p, 500x500).  Returns (largest difference,
+    {case: K5 times}, {case: emission times})."""
+    from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
+    from fennec_tpu_torch.ops.jpeg_emit import layout_on, std_tables_on
+
+    worst = 0
+    for tag, hist in sorted(K5_INPUTS.items()):
+        worst = max(worst, check_k5(f"phase4_{tag}", hist))
+    stacks = {}
+    for tag, w, h, n, sub, q, seed in k3_cases(*quality)[:3]:
+        packed = quantized_stack([photo(w, h, seed + k) for k in range(n)],
+                                 q, sub, dev)
+        mult = 16 if sub else 8
+        hist = k3.block_stats(packed, layout_on(
+            h + (-h) % mult, w + (-w) % mult, sub, dev),
+            std_tables_on(dev), want_hist=True).hist
+        worst = max(worst, check_k5(tag, hist))
+        stacks[tag] = (packed, w, h, sub, q, hist)
+    for tag, hist in k5_families():
+        worst = max(worst, check_k5(tag, torch.from_numpy(hist).to(dev)))
+    times, emits = {}, {}
+    for tag in ("12mp_420", "500x500x64_420"):
+        packed, w, h, sub, q, hist = stacks[tag]
+        times[tag] = time_k5(hist)
+        log(f"k5 time {tag}: " + " ".join(
+            f"{k}={v:.5f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in times[tag].items()))
+        emits[tag] = time_emission_in_turns(tag, packed, h, w, sub, q)
+    return worst, times, emits
 
 
 # Over every replay of check_result: the probes scored by both routes,
@@ -2502,7 +2839,7 @@ def stage_table(T, dev, path: str, tmp: str, rounds: int = 5):
         q, _s, f = stage("7 probes (K2, K1) and the copy of the result",
                          search)
         quality = int(q) if f else 100
-        scans = stage("quantize and emission (K3a, K3b, pulls)", lambda: (
+        scans = stage("quantize and emission (K3a, K5, K3b, pulls)", lambda: (
             emit_scans(C.quantize_packed(
                 fcoefs, C.quality_tables_on(dev)[quality][None]
             ).contiguous(), h, w, True, opts.optimize_huffman)))
@@ -2544,11 +2881,13 @@ def mesh_run(tag: str, run, counters, dev, shards: int, per_unit):
     of one device is one shard chunk; the kernels launch on a CUDA device
     only)."""
     from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
+    from fennec_tpu_torch.ops.huffbuild_cuda import build_tables
     from fennec_tpu_torch.ops.probe_recon_cuda import probe_recon
     from fennec_tpu_torch.ops.ssim_cuda import ssim_window
 
     kernels = {"K1": ssim_window, "K2": probe_recon,
-               "K3a": k3.block_stats, "K3b": k3.deposit}
+               "K3a": k3.block_stats, "K5": build_tables,
+               "K3b": k3.deposit}
     counters.reset()
     for k in kernels.values():
         k.launches = 0
@@ -2610,13 +2949,13 @@ def phase_mesh(T, dev, counters, big_path, tmp, n=512, w=500, h=500,
 
     routes = [
         ("batch512", batch(paths, T.Options(format=T.JPEG), "m"), n,
-         {"K1": 7, "K2": 7, "K3a": 1, "K3b": 1}, "coefficient"),
+         {"K1": 7, "K2": 7, "K3a": 1, "K5": 1, "K3b": 1}, "coefficient"),
         ("images256", pixel, 256,
-         {"K1": 7, "K2": 7, "K3a": 1, "K3b": 1}, "pixel"),
+         {"K1": 7, "K2": 7, "K3a": 1, "K5": 1, "K3b": 1}, "pixel"),
         # The Lanczos route keeps the host encoder (JAX :598-604).
         ("resize64", batch(paths[:64], T.Options(format=T.JPEG,
                                                   max_width=256), "r"), 64,
-         {"K1": 7, "K2": 7, "K3a": 0, "K3b": 0}, "coefficient"),
+         {"K1": 7, "K2": 7, "K3a": 0, "K5": 0, "K3b": 0}, "coefficient"),
     ]
     summary = {}
     for tag, run, count, per_unit, route in routes:
@@ -2993,29 +3332,33 @@ def build_all(ssim_window, k3, probe_recon):
     from concurrent.futures import ThreadPoolExecutor
 
     from fennec_tpu_torch import native
+    from fennec_tpu_torch.ops import huffbuild_cuda as k5
 
     def timed(build):
         t = time.perf_counter()
         got = build()
         return time.perf_counter() - t, got
 
-    with ThreadPoolExecutor(6) as pool:
+    with ThreadPoolExecutor(7) as pool:
         done = list(pool.map(timed, (
             lambda: ssim_window.build(force=True),
             lambda: k3.library.build(force=True),
             lambda: native.build(force=True), FirstK3,
-            lambda: probe_recon.build(force=True), FirstK2)))
+            lambda: probe_recon.build(force=True), FirstK2,
+            lambda: k5.library.build(force=True))))
     ssim_window.load()
     k3.library.load()
     native.load()
     probe_recon.load()
+    k5.library.load()
     log(f"build k1_nvcc_s={done[0][0]:.3f} k3_nvcc_s={done[1][0]:.3f} "
         f"native_gxx_s={done[2][0]:.3f} first_k3_nvcc_s={done[3][0]:.3f} "
         f"k2_nvcc_s={done[4][0]:.3f} first_k2_nvcc_s={done[5][0]:.3f} "
-        f"(in parallel)")
+        f"k5_nvcc_s={done[6][0]:.3f} (in parallel)")
     log(ssim_window.build_log.strip())
     log(k3.library.build_log.strip())
     log(probe_recon.build_log.strip())
+    log(k5.library.build_log.strip())
     lib = k3.library.load()
     log(f"K3 segment_blocks={k3.library.segment_blocks} resident CTAs "
         f"K3a={lib.fennec_jpeg_resident_ctas(0)} "
@@ -3049,6 +3392,14 @@ def k3_only(T, dev, first_k3) -> int:
     phase_k4(T, dev, big)
     phase_bisect(T, dev, big)
     log("k3 only: every case passed")
+    return 0
+
+
+def k5_only(T, dev) -> int:
+    """`--k5`: phases 1, 2 and 16 alone, at BALANCED's usual qualities; no
+    main path, so no result line."""
+    worst, _times, _emits = phase_k5(T, dev, (30, 30, 60))
+    log(f"k5 only: every case passed (largest difference {worst})")
     return 0
 
 
@@ -3104,6 +3455,7 @@ def digests_only(T, dev) -> int:
 
 
 def main(only: str = "") -> int:
+    started = time.perf_counter()
     # 1. Environment.  The port is imported before anything is printed,
     # so a copy of this script without the repository prints nothing.
     if not torch.cuda.is_available():
@@ -3122,6 +3474,7 @@ def main(only: str = "") -> int:
 
     # 2. Build: the nvcc builds (K1, K2, K3 and the first K3, kept for
     # phase 11's timing in turns) and the g++ build at once.
+    from fennec_tpu_torch.ops import huffbuild_cuda as k5
     from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
     from fennec_tpu_torch.ops import probe_recon_cuda as k2
     from fennec_tpu_torch.ops.ssim import batched_ssim_plain
@@ -3135,6 +3488,8 @@ def main(only: str = "") -> int:
         return k3_only(T, dev, first_k3)
     if only == "k2":
         return k2_only(T, dev, first_k2)
+    if only == "k5":
+        return k5_only(T, dev)
     if only == "mesh":
         from fennec_tpu_torch.engine.batched import counters
 
@@ -3186,7 +3541,8 @@ def main(only: str = "") -> int:
             k3_take(f"{tag} cold", dev, 1, probes=7)
             k3_zero()
             t = time.perf_counter()
-            res = run()  # warm; the result is host bytes, so synced
+            with record_k5_inputs(tag):
+                res = run()  # warm; the result is host bytes, so synced
             warm_ms = (time.perf_counter() - t) * 1e3
             k3_take(f"{tag} warm", dev, 1, probes=7)
             n_images += 2
@@ -3294,12 +3650,19 @@ def main(only: str = "") -> int:
         mesh = phase_mesh(T, dev, counters, big_path, tmp)
     # 15. The data×spatial mesh over this card.
     log("spatial summary: " + json.dumps(phase_spatial(T, dev)))
+    # 16. K5 against its plain version and the host builder.
+    k5_err, k5_times, k5_emits = phase_k5(T, dev, (
+        quality["12mp_balanced"], quality["1080p_balanced"], q500))
+    log("K5 emission summary (ms, K5 flow vs host-built flow in turns): "
+        + json.dumps(k5_emits))
     log("mesh summary (warm img/s, median of 3; cross-card scaling not "
         "measured: one card): " + json.dumps(mesh))
     log("A/B summary (warm ms, K3 vs host encoder): " + json.dumps(
         {k: {"k3": v[None], "host": v[False]} for k, v in ab.items()}))
     log(f"timings torch.profiler recorded nothing of (CUDA-event ms of the "
         f"whole call instead): {PROFILER_MISSES or 'none'}")
+    log(f"all phases took {time.perf_counter() - started:.1f} s, the builds "
+        f"included")
 
     k3t = k3_times[("12mp_420", True)]
     k4t = k4_times["12mp_420"]
@@ -3369,6 +3732,27 @@ def main(only: str = "") -> int:
         "loop_event_ms": bt["loop_event_ms"],
         "loop_device_ms": bt["loop_device_ms"],
         "loop_device_ops": bt["loop_device_ops"]})
+    # K5: the device K.2 table build, once per optimal emission.
+    k5t, k5b = k5_times["12mp_420"], k5_times["500x500x64_420"]
+    k3_rows.append({
+        "name": "huffbuild", "route": "cuda",
+        "source": os.path.relpath(k5.SOURCE, HERE),
+        # An XLA program of the JAX package, not a Pallas kernel.
+        "replaces": "fennec_tpu/ops/huffbuild.py:169",
+        "launches": K3_MAIN["huffbuild"],
+        # Integer tables and header against the plain version's.
+        "max_abs_err": k5_err, "shape": k5t["shape"],
+        "ms": k5t["ms"], "plain_ms": k5t["plain_ms"],
+        "bound_ms": k5t["bound_ms"], "bound_by": k5t["bound_by"],
+        "share": k5t["share"],
+        # No PyTorch call builds Huffman tables.
+        "library_ms": None,
+        "host_us": k5t["host_us"], "event_ms": k5t["event_ms"],
+        "host_builder_ms": k5t["host_builder_ms"],
+        "chain_bound_ms": k5t["chain_bound_ms"],
+        "b64": {k: k5b[k] for k in ("shape", "ms", "event_ms", "host_us",
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "chain_bound_ms", "host_builder_ms")}})
     t = times[(1, 384, 512)]
     k2t = k2_times["12mp_420_q30"]
     print(json.dumps({"kernels": [{
@@ -3423,8 +3807,8 @@ def main(only: str = "") -> int:
 
 
 if __name__ == "__main__":
-    flags = {"--k2": "k2", "--k3": "k3", "--digests": "digests",
-             "--mesh": "mesh"}
+    flags = {"--k2": "k2", "--k3": "k3", "--k5": "k5",
+             "--digests": "digests", "--mesh": "mesh"}
     if len(sys.argv) > 2 or (len(sys.argv) == 2
                              and sys.argv[1] not in flags):
         raise SystemExit(f"usage: python3 chip_smoke.py [{' | '.join(flags)}]")

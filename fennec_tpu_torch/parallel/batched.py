@@ -14,10 +14,20 @@ Device Huffman emission (packed_hist_bits :238, batched_emit_std :458,
 batched_emit_custom :1101, pull_emit_words :1074) over (B, NT, 64) int16
 quantized blocks resident on the device, through kernel K3
 (ops/jpeg_emit_cuda.py) on a CUDA device and its plain version on the
-CPU.  emit_scans runs the whole flow with two launches and two pulls:
-K3a and one small pull (the histograms for optimal tables, or the bit
-count per image for the standard ones), then K3b, which finds its own
-bit offsets, and one pull of exactly ceil(bits / 32) words per image.
+CPU.  emit_scans runs the whole flow with two pulls.  Optimal tables:
+K3a (the histograms), K5 (ops/huffbuild_cuda.py: every image's K.2
+tables, built on the device, the counterpart of the JAX package's fused
+optimal emission, :265-456), one small pull of K5's header (the scan
+bits, the overflow flag and the DHT specs, 832 bytes an image), then K3b
+with the tables K5 left on the device.  Standard tables: K3a, one pull
+of the bit count per image, K3b.  K3b finds its own bit offsets; the
+last pull is exactly ceil(bits / 32) words per image.  The JAX package
+switches its fused route with FENNEC_FUSED_OPT and FENNEC_TS_FUSED,
+because on the TPU it lost to the host build; here there is no switch:
+the tables are the same bit for bit either way, so the device build is
+the one route.  The host-built flow (_optimal_tables, hist_bits,
+emit_custom) stays for an image K5 flags (a code above 32 bits), which
+is redone alone on the host builder and fails with its ValueError.
 
 The JAX package's sparse upload layouts (COO, CSR, dense int8 with an
 exception list, :542-807) exist to cut uploads over a ~42 MB/s link to a
@@ -63,6 +73,8 @@ from ..engine.compress import (
 from ..engine.size_search import size_bisect
 from ..ops import dct as dct_ops
 from ..ops.color import luminance
+from ..ops.huffbuild import specs_from_opt_header, split_opt_header
+from ..ops.huffbuild_cuda import build_tables
 from ..ops.jpeg_emit import (
     finalize_scan_host,
     layout_on,
@@ -317,31 +329,57 @@ def _optimal_tables(dc_freq: np.ndarray, ac_freq: np.ndarray):
     return specs, tables, errors
 
 
+def _redo_flagged(hist: torch.Tensor, flagged: np.ndarray, specs: List,
+                  errors: Dict[int, BaseException]) -> None:
+    """The images K5 flagged (a code above 32 bits) redone alone on the
+    host builder from their histograms, which raises its ValueError into
+    `errors`: the JAX engines' redo rule.  The rest of the batch stands."""
+    rows = np.nonzero(flagged)[0]
+    if rows.size == 0:
+        return
+    got = hist[torch.from_numpy(rows).to(hist.device)].cpu().numpy()
+    for r, j in enumerate(rows):
+        one = got[r:r + 1].astype(np.int64)
+        _s, _t, errs = _optimal_tables(one[:, :32].reshape(1, 2, 16),
+                                       one[:, 32:].reshape(1, 2, 256))
+        specs[j] = None
+        errors[int(j)] = errs.get(0) or RuntimeError(
+            "fennec: the device K.2 build flagged an image whose tables "
+            "the host builder builds")
+
+
 def emit_scans(packed: torch.Tensor, h: int, w: int, subsample: bool,
                optimize: bool) -> HostScans:
     """Huffman-code B quantized h×w images (B, NT, 64) int16 on their
-    device, with per-image optimal tables or the standard ones: the
-    two-stage flow of the JAX engines (engine/batched.py:2054-2160).
-    Optimal: K3a's histograms come down (B × 544 values), the K.2 tables
-    are built on the host in one C call, then K3b emits with them, the
-    buffer sized from the histograms' exact bit count: two launches.
-    Standard: K3a, one bit count per image down, K3b.  Then one pull of
-    the words."""
+    device, with per-image optimal tables or the standard ones.
+    Optimal: K3a's histograms, K5's tables and header, one pull of the
+    header (a batch's word bases go up from its bits), K3b with the
+    tables K5 left on the device: three launches.  Standard: K3a, one bit
+    count per image down, K3b.  Then one pull of the words."""
     std = std_tables_on(packed.device)
     lay = _checked_layout(packed, h, w, subsample, std)
-    if optimize:
-        hist = block_stats.launch(packed, lay, std,
-                                  want_hist=True).hist.cpu().numpy()
-        dcf = hist[:, :32].reshape(-1, 2, 16).astype(np.int64)
-        acf = hist[:, 32:].reshape(-1, 2, 256).astype(np.int64)
-        specs, tables, errors = _optimal_tables(dcf, acf)
-        dev_scans = emit_custom(packed, lay, tables,
-                                hist_bits(dcf, acf, tables))
-    else:
-        specs, errors = None, {}
+    if not optimize:
         dev_scans = emit_std(packed, lay)
-    return HostScans(pull_emit_words(dev_scans), dev_scans.bits,
-                     dev_scans.base, specs, errors)
+        return HostScans(pull_emit_words(dev_scans), dev_scans.bits,
+                         dev_scans.base)
+    dev = packed.device
+    bsz = packed.shape[0]
+    hist = block_stats.launch(packed, lay, std, want_hist=True).hist
+    built = build_tables(hist, std)
+    totals, flagged, bits16, nvals, vals = split_opt_header(
+        built.header.cpu().numpy())
+    base = _word_base(totals)
+    # One image owns the whole buffer; a batch's bases go up.
+    word_base = None if bsz == 1 else torch.from_numpy(base).to(dev)
+    n_words = int(base[-1])
+    check_word_base(word_base, n_words, bsz, dev)
+    words = deposit.launch(packed, lay, built.tables, word_base, n_words)
+    specs = [specs_from_opt_header(bits16, nvals, vals, j)
+             for j in range(bsz)]
+    errors: Dict[int, BaseException] = {}
+    _redo_flagged(hist, flagged, specs, errors)
+    return HostScans(pull_emit_words(DeviceScans(words, totals, base)),
+                     totals, base, specs, errors)
 
 
 # ── Data-parallel mesh ──────────────────────────────────────────────────────

@@ -669,9 +669,8 @@ def test_k2_matches_plain(cuda_device, w, h, bsz, sub):
 
 
 @functools.lru_cache(maxsize=1)
-def first_k2():
-    """chip_smoke.FirstK2: the first K2 (bench_sources/probe_recon_first.cu)
-    built and called as its wrapper called it."""
+def chip_smoke():
+    """The chip_smoke.py module of this checkout."""
     import importlib.util
     import pathlib
 
@@ -679,7 +678,14 @@ def first_k2():
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.FirstK2()
+    return module
+
+
+@functools.lru_cache(maxsize=1)
+def first_k2():
+    """chip_smoke.FirstK2: the first K2 (bench_sources/probe_recon_first.cu)
+    built and called as its wrapper called it."""
+    return chip_smoke().FirstK2()
 
 
 # test_k2_matches_plain's shapes, and a 12 MP photo at two qualities.
@@ -923,3 +929,72 @@ def test_spatial_ssim_matches_batched_ssim(cuda_device):
     got = pb.batched_ssim_sharded(mesh, a4, b4, spatial=True)
     torch.testing.assert_close(got, pb.batched_ssim(a4, b4), atol=ATOL,
                                rtol=0)
+
+
+def test_k5_matches_plain_and_host_builder(cuda_device):
+    """K5 on every family of chip_smoke.k5_families: tables and header bit
+    for bit its plain version's on the same tensors, and the host C++
+    builder's (errors for exactly the flagged images); one launch per
+    call."""
+    from fennec_tpu_torch.ops.huffbuild_cuda import build_tables
+
+    for tag, hist in chip_smoke().k5_families():
+        before = build_tables.launches
+        chip_smoke().check_k5(tag, torch.from_numpy(hist).to(cuda_device))
+        assert build_tables.launches == before + 2
+
+
+def test_k5_never_takes_the_plain_version(cuda_device, monkeypatch):
+    """CUDA tensors launch K5 or raise: an optimal emission on the card
+    builds its tables with one K5 launch, never the plain version."""
+    from fennec_tpu_torch.ops import huffbuild_cuda as k5
+
+    def refuse(*args, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(k5, "build_plain", refuse)
+    before = (k5.build_tables.launches, k5.build_tables.plain_calls)
+    img = photo(120, 90, 3)
+    on_card = T.compress_image(None, img, T.Options(format=T.JPEG),
+                               device=cuda_device)
+    assert (k5.build_tables.launches, k5.build_tables.plain_calls) == (
+        before[0] + 1, before[1])
+    host = T.compress_image(None, img, T.Options(format=T.JPEG,
+                                                 device_entropy=False),
+                            device=cuda_device)
+    assert on_card.compressed_data == host.compressed_data
+
+
+@pytest.mark.parametrize("sub", [True, False], ids=["420", "444"])
+@pytest.mark.parametrize("w,h,bsz", [(500, 500, 8), (17, 9, 3), (1920, 1080,
+                                                                 1)])
+def test_k5_emission_equals_host_built_flow(cuda_device, w, h, bsz, sub):
+    """emit_scans (K3a, K5, K3b) writes the bytes of the host-built flow
+    (K3a, the C++ K.2 build, emit_custom) and the same DHT specs."""
+    from fennec_tpu_torch.parallel.batched import emit_scans
+
+    packed = k3_blocks(h, w, sub, bsz, w + h)[0].to(cuda_device)
+    got = emit_scans(packed, h, w, sub, True)
+    want = chip_smoke().host_built_emit(packed, h, w, sub)
+    assert got.specs == want.specs and not got.errors
+    for j in range(bsz):
+        assert got.jpeg(j, w, h, 50, sub) == want.jpeg(j, w, h, 50, sub)
+
+
+def test_k5_on_a_side_stream(cuda_device):
+    """K5 launches on the current stream: built on a side stream, the
+    tables equal the default stream's."""
+    from fennec_tpu_torch.ops.huffbuild_cuda import build_tables
+    from fennec_tpu_torch.ops.jpeg_emit import std_tables_on
+
+    hist = torch.from_numpy(chip_smoke().k5_families()[-1][1]).to(
+        cuda_device)
+    std = std_tables_on(cuda_device)
+    want = build_tables(hist, std)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        got = build_tables(hist, std)
+    torch.cuda.synchronize()
+    assert torch.equal(got.tables, want.tables)
+    assert torch.equal(got.header, want.header)

@@ -34,6 +34,8 @@ def test_import_leaves_jax_out():
             " fennec_tpu_torch.ops.jpeg_size, fennec_tpu_torch.ops.quantize,"
             " fennec_tpu_torch.ops.jpeg_emit,"
             " fennec_tpu_torch.ops.jpeg_emit_cuda,"
+            " fennec_tpu_torch.ops.huffbuild,"
+            " fennec_tpu_torch.ops.huffbuild_cuda,"
             " fennec_tpu_torch.ops.probe_recon_cuda,"
             " fennec_tpu_torch.ops.effects, fennec_tpu_torch.io,"
             " fennec_tpu_torch.parallel, fennec_tpu_torch.parallel.mesh,"
