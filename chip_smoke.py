@@ -9,17 +9,20 @@ phase 10 alone (the two search loops' kernels against their plain
 versions, and K2 against the first K2); --k3 runs phases 1, 2 and 11
 and the size oracle's checks (K3 against its plain version and, in
 turns, against the first K3; K4's step and bisection); --k5 runs
-phases 1, 2 and 16 (K5 against its plain version and the host builder,
-its timings and the emission in turns); --digests prints digests of a few main-path outputs, to compare two
-checkouts on one card; --mesh runs phases 1, 2, 14 and 15 alone.  None
+phases 1, 2 and 16 (K5 against its plain version, the host builder and
+the first K5, its phase split, its timings in turns with the first K5
+and the emission in turns); --digests prints digests of a few main-path
+outputs, to compare two checkouts on one card; --mesh runs phases 1, 2,
+14 and 15 alone.  None
 of these prints the result lines.
 
 Phases, each raising on failure:
   1. environment: a CUDA card, its name and power limit, TF32 off;
   2. build: kernels K1, K2, K3 with K4's entries and K5 (nvcc, sm_90a),
-     the first K3 and the first K2 (kept under bench_sources/ to be timed
-     against) and the host C++ entropy coder, from the sources in this
-     checkout, all seven at once;
+     the first K3, the first K2 and the first K5 (kept under
+     bench_sources/ to be timed against), the first K5 and K5 again with
+     -DK5_STAMPS, and the host C++ entropy coder, from the sources in
+     this checkout, all ten at once, each K5 build's -Xptxas -v printed;
   3. K1 against its plain PyTorch version on the card, at the shapes the
      main paths give it and beyond, the batch engines' (64, 500, 500)
      included, and at ragged shapes for its strips and bands: max |diff|
@@ -177,18 +180,24 @@ Phases, each raising on failure:
      2x2 mesh against batched_ssim and the plain windowed SSIM, each
      within 1e-5, K1 launched once per band;
  16. K5, the device K.2 table build, against its plain version on the
-     same CUDA tensors (tables and header bit for bit) and against the
-     host C++ builder (_optimal_tables and hist_bits: tables, specs and
-     scan bits equal, errors for exactly the flagged images) on the
-     histograms phase 4's warm calls handed K5, on the 12 MP and 1080p
-     photos and a 64 x 500x500 chunk at BALANCED's qualities, and on
-     k5_families (ties, single symbols, empty classes, skew, Fibonacci
-     counts, a code past 32 bits, counts whose merges pass 2^31, a mixed
-     batch of 64); K5's device time, CUDA-event time and host time at
-     B = 1 (12 MP) and B = 64 beside its bound, the serial chain, the
-     plain version and the host builder; and the whole optimal emission
-     (emit_scans) against the host-built flow (host_built_emit) in turns
-     at 12 MP and 64 x 500x500, the bytes equal.
+     same CUDA tensors (tables and header bit for bit), against the first
+     K5 (FIRST_K5_SOURCE, bit for bit) and against the host C++ builder
+     (_optimal_tables and hist_bits: tables, specs and scan bits equal,
+     errors for exactly the flagged images) on the histograms phase 4's
+     warm calls handed K5, on the 12 MP and 1080p photos and a 64 x
+     500x500 chunk at BALANCED's qualities and at Q95 / Q100 (K5_HIGH),
+     and on k5_families (ties, single symbols, empty classes, skew,
+     Fibonacci counts, a code past 32 bits, counts whose merges pass
+     2^31, a mixed batch of 64, all 162 AC symbols live); both stamped
+     builds' cycles per phase and per merge (k5_split); K5 and the first
+     K5 in turns (device, CUDA-event and host time) at B = 1 and 64 and
+     at high quality (K5_TIMED) beside K5's bound, the serial chain at
+     the measured latency of the walk's steps (K5Build.step_cycles), the
+     plain version and the host builder; the host µs of each build's
+     call and its parts (k5_host_split); the header's pull three ways in
+     turns (header_pull_ab); and the whole optimal
+     emission (emit_scans) against the host-built flow (host_built_emit)
+     in turns at 12 MP and 64 x 500x500, the bytes equal.
 
 The last lines: the kernel table as JSON (K1's, K2's, K3a's, K3b's, K5's
 and K4's step's and bisection's launches summed over the main-path runs of
@@ -1257,19 +1266,33 @@ def phase_k3(T, dev, cases, timed: bool = True, first=None, seams=None):
 
 # ── Phase 16: K5, the device K.2 table build ────────────────────────────────
 
-# K5's bound (csrc/huffbuild.cu): its bytes (each image's 544 histogram
-# counts read once, its tables and header written once, the standard
-# tables read once) or its thread instructions at the issue rate, reckoned
-# from the source for this run's tables: a merge costs each of a warp's
-# 32 lanes about 200 (the keys and compares of 9 symbols, 5 butterfly
-# steps of two 64-bit shuffles and a pair merge, the labels' select, the
-# +1 and the relabel of 9 symbols), a table's tail after the loop about
-# 300.  Beside it the serial chain the source note names: the longest
-# table's merges, each 9 dependent steps, at one step per clock of an
-# H100 SXM's 1.98 GHz, which no width hides.
-K5_INSTR_PER_MERGE = 32 * 200
-K5_INSTR_PER_TABLE = 32 * 300
-K5_CHAIN_STEPS = 9
+# The first K5 (PR 12's design: one warp reduction per K.2 merge), kept to
+# be held bit for bit and timed in turns against the current one.
+FIRST_K5_SOURCE = os.path.join("bench_sources", "huffbuild_first.cu")
+# K5's bound (csrc/huffbuild.cu): the larger of its bytes (each image's
+# 544 histogram counts read once, its tables and header written once, the
+# standard tables read once) at 3.35 TB/s and its thread instructions at
+# the issue rate, counted from the kernel for this run's tables of n live
+# chains: the bitonic network it runs over the 32 E keys that hold n (E
+# the least of 1, 2, 4, 8, 16), P log2 P (log2 P + 1) / 4 compare-
+# exchanges for P = 32 E, each a 64-bit compare and two 64-bit selects
+# (6); the walk, n - 1 merges on one lane (four loads, three 64-bit
+# compares, the selects, the children's store, the sum and its store, the
+# heads: 24); the depths, ceil(log2 D) rounds of pointer doubling over the
+# n - 1 merges (D the deepest merge's depth, at least one round), each
+# merge's step two loads, its ancestor's two, an add, a compare and two
+# stores (8); the rest per table over 32 lanes (loads, compaction, the
+# parents, the sizes, a match per slot, three scans, the codes' searches,
+# the writes: about 400 a lane).  Beside it the serial chain no width
+# hides: the longest table's merges, each at least one link of the walk
+# (a shared-memory load whose index came from the last merge's compare)
+# and one more 64-bit compare and select, at the latencies the stamped
+# build measures in this run (fennec_huff_step_cycles, K5Build.
+# step_cycles) and an H100 SXM's 1.98 GHz.
+K5_INSTR_PER_EXCHANGE = 6
+K5_INSTR_PER_MERGE = 24
+K5_INSTR_PER_DOUBLING = 8
+K5_INSTR_PER_TABLE = 32 * 400
 SM_CLOCK_HZ = 1.98e9
 
 
@@ -1279,8 +1302,9 @@ def k5_families():
     symbol and empty classes (a grey image's chroma), heavy skew, 36
     Fibonacci counts (lengths past 16: K.3 redistributes), 34 counts
     that need a code of 34 bits (flagged) among good images, every
-    symbol near 2^24 (merged frequencies past 2^31), and a batch of 64
-    mixing all of them."""
+    symbol near 2^24 (merged frequencies past 2^31), a batch of 64
+    mixing all of them, and a photo at high quality: all 162 AC symbols
+    of a baseline scan live in every AC table."""
     rng = np.random.default_rng(SEED + 16)
 
     def hist(dc, ac):
@@ -1336,34 +1360,202 @@ def k5_families():
         rng.integers(1 << 23, 1 << 24, (2, 2, 256)))))
     mixed = np.concatenate([h for _, h in fams])
     fams.append(("batch64_mixed", mixed[rng.integers(0, len(mixed), 64)]))
+    # High quality: run r (0-15) and size s (1-10) at counts falling with
+    # both as a photo's do, EOB and ZRL; DC sizes 0-11.
+    dc = np.zeros((4, 2, 16), np.int64)
+    ac = np.zeros((4, 2, 256), np.int64)
+    run, size = np.meshgrid(np.arange(16), np.arange(1, 11), indexing="ij")
+    for j in range(4):
+        for c in range(2):
+            scale = 2e6 / (1 + 3 * c) / (1 + j)
+            f = scale * np.exp(-0.55 * size - 0.35 * run) * rng.uniform(
+                0.7, 1.3, run.shape)
+            ac[j, c, (16 * run + size).ravel()] = np.maximum(
+                1, f.ravel().astype(np.int64))
+            ac[j, c, 0x00] = int(0.2 * scale)
+            ac[j, c, 0xF0] = max(1, int(2e-3 * scale))
+            dc[j, c, :12] = np.maximum(1, (scale / 40 * np.exp(
+                -0.4 * np.abs(np.arange(12) - 4))).astype(np.int64))
+    fams.append(("ac_162_live", hist(dc, ac)))
     return fams
 
 
-def k5_bound(hist: np.ndarray):
-    """(least ms, "operations" or "bytes", serial-chain ms) of one K5
-    launch on these histograms (see K5_INSTR_PER_MERGE)."""
+def live_symbols(hist: np.ndarray) -> list:
+    """The most live symbols of each table [dc-luma, dc-chroma, ac-luma,
+    ac-chroma] over a batch of (B, 544) histograms."""
     bsz = hist.shape[0]
-    dc = hist[:, :32].reshape(bsz, 2, 16)
-    ac = hist[:, 32:].reshape(bsz, 2, 256)
-    live = np.concatenate([(dc > 0).sum(-1), (ac > 0).sum(-1)], 1)
-    merges = np.maximum(live, 1)  # an empty class codes symbol 0; with
-    # the reserved symbol a table has live + 1 chains: live merges
+    dc = (hist[:, :32].reshape(bsz, 2, 16) > 0).sum(-1)
+    ac = (hist[:, 32:].reshape(bsz, 2, 256) > 0).sum(-1)
+    return np.concatenate([dc, ac], 1).max(0).tolist()
+
+
+def k5_bound(hist: np.ndarray, step: dict):
+    """(least ms, "operations" or "bytes", serial-chain ms) of one K5
+    launch on these histograms (see K5_INSTR_PER_EXCHANGE), the chain at
+    `step`'s measured cycles of a link and of a compare."""
+    from fennec_tpu_torch.ops.huffbuild import _merge_codesizes
+
+    bsz = hist.shape[0]
+    freq = np.zeros((bsz, 4, 257), np.int64)
+    freq[:, :2, :16] = hist[:, :32].reshape(bsz, 2, 16)
+    freq[:, 2:, :256] = hist[:, 32:].reshape(bsz, 2, 256)
+    freq[:, :, 0] += freq.sum(axis=2) == 0  # an empty class codes 0
+    freq[:, :, 256] = 1  # the reserved symbol
+    chains = (freq > 0).sum(axis=2).ravel()
+    width = np.maximum(32, 1 << np.ceil(np.log2(chains)).astype(np.int64))
+    lg = np.log2(width).astype(np.int64)
+    exchanges = int((width * lg * (lg + 1) // 4).sum())
+    deepest = _merge_codesizes(torch.from_numpy(
+        freq.reshape(-1, 257))).max(dim=1).values.numpy() - 1
+    rounds = np.maximum(1, np.ceil(np.log2(np.maximum(deepest, 1))))
     nbytes = bsz * 4 * (544 + 2 * 272 + 208) + 4 * 2 * 272
-    ops = (int(merges.sum()) * K5_INSTR_PER_MERGE
+    ops = (K5_INSTR_PER_EXCHANGE * exchanges
+           + K5_INSTR_PER_MERGE * int((chains - 1).sum())
+           + K5_INSTR_PER_DOUBLING * int((rounds * (chains - 1)).sum())
            + 4 * bsz * K5_INSTR_PER_TABLE)
     t_ops, t_bytes = ops / INT_ISSUE_PER_S, nbytes / HBM_BYTES_PER_S
-    chain = int(merges.max()) * K5_CHAIN_STEPS / SM_CLOCK_HZ
+    chain = (int((chains - 1).max()) * (step["link"] + step["compare"])
+             / SM_CLOCK_HZ)
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", chain * 1e3)
 
 
-def check_k5(tag: str, hist: torch.Tensor) -> int:
+class K5Build:
+    """A K5 source built here with nvcc (FIRST_K5_SOURCE; or a source
+    with -DK5_STAMPS, which records clock64() at each phase boundary of
+    every warp and, for the current source, times the walk's dependent
+    steps) and called as PR 12's wrapper called it: the inputs and
+    the standard tables checked on every call, one torch.empty and two
+    views, one launch on the current stream.  The port does not import
+    it."""
+
+    def __init__(self, source: str, tag: str, stamps: bool = False) -> None:
+        import ctypes
+
+        from fennec_tpu_torch.ops import huffbuild_cuda as k5
+        from fennec_tpu_torch.ops.ssim_cuda import compile_library
+
+        so = os.path.join(k5.BUILD_DIR, f"libhuffbuild_{tag}.so")
+        self.build_log = compile_library(
+            os.path.join(HERE, source), so,
+            list(k5.NVCC_FLAGS) + (["-DK5_STAMPS"] if stamps else []))
+        lib = ctypes.CDLL(so)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.fennec_huff_build.restype = i
+        lib.fennec_huff_build.argtypes = [p, i, p, p, p, p]
+        self.names = []
+        if stamps:
+            lib.fennec_huff_stamps.restype = i
+            lib.fennec_huff_stamps.argtypes = [p]
+            lib.fennec_huff_stamp_names.restype = ctypes.c_char_p
+            self.names = lib.fennec_huff_stamp_names().decode().split(",")
+        self.lib = lib
+        self.tag = tag
+
+    def check(self, hist: torch.Tensor, std: torch.Tensor) -> None:
+        """The inputs and the standard tables, every call."""
+        from fennec_tpu_torch.ops.huffbuild_cuda import check_hist
+
+        check_hist(hist, std)
+        if hist.device.index != torch.cuda.current_device():
+            raise ValueError(f"K5 {self.tag}: histograms on {hist.device}, "
+                             f"not the current device")
+
+    @staticmethod
+    def outputs(hist: torch.Tensor) -> tuple:
+        """(tables, header): one torch.empty, two slices and views."""
+        from fennec_tpu_torch.ops.huffbuild import OPT_HDR
+        from fennec_tpu_torch.ops.jpeg_emit import TABLE
+
+        bsz = hist.shape[0]
+        out = torch.empty(bsz * (2 * TABLE + OPT_HDR), dtype=torch.int32,
+                          device=hist.device)
+        return (out[:bsz * 2 * TABLE].view(bsz, 2, TABLE),
+                out[bsz * 2 * TABLE:].view(bsz, OPT_HDR))
+
+    def __call__(self, hist: torch.Tensor, std: torch.Tensor):
+        from fennec_tpu_torch.ops.huffbuild import Built
+
+        self.check(hist, std)
+        dev = hist.device
+        bsz = hist.shape[0]
+        tables, header = self.outputs(hist)
+        err = self.lib.fennec_huff_build(
+            hist.data_ptr(), bsz, std.data_ptr(), tables.data_ptr(),
+            header.data_ptr(), torch._C._cuda_getCurrentRawStream(dev.index))
+        if err:
+            raise RuntimeError(f"K5 {self.tag}: CUDA error {err}")
+        return Built(tables, header)
+
+    def step_cycles(self, steps: int = 4096) -> dict:
+        """A stamped build's latency of the walk's dependent steps, in
+        cycles on one lane (the second of two runs): "link", a shared-
+        memory load of a key whose index came from the last link's 64-bit
+        compare; "compare", a 64-bit compare and select on the last one's
+        result."""
+        import ctypes
+
+        fn = self.lib.fennec_huff_step_cycles
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        out = np.zeros(4, np.int64)
+        for _ in range(2):
+            err = fn(out.ctypes.data, steps)
+            if err:
+                raise RuntimeError(f"K5 {self.tag}: step cycles: CUDA "
+                                   f"error {err}")
+        return {"link": int(out[0]), "compare": int(out[1])}
+
+    def stamps(self) -> np.ndarray:
+        """(64, 4, 12) int64: the last launch's clock64() per image (the
+        first 64), warp and phase boundary (`names`), the warp's merge
+        count in the last slot."""
+        torch.cuda.synchronize()
+        out = np.zeros((64, 4, 12), np.int64)
+        err = self.lib.fennec_huff_stamps(out.ctypes.data)
+        if err:
+            raise RuntimeError(f"K5 {self.tag}: stamps: CUDA error {err}")
+        return out
+
+
+def k5_split(build: K5Build, hist: torch.Tensor) -> dict:
+    """Where one launch of a stamped K5 build spends its cycles, on these
+    histograms (the second of two launches): each phase's clock64()
+    cycles, the mean over the first 64 images of the DC warps' and of
+    the AC warps'; an image's cycles from its first warp's start to its
+    last warp's end (mean and max); the most merges of a table; and the
+    cycles per merge of the merge phase (median over the tables of at
+    least 16 merges, else of any)."""
+    from fennec_tpu_torch.ops.jpeg_emit import std_tables_on
+
+    std = std_tables_on(hist.device)
+    build(hist, std)
+    build(hist, std)
+    st = build.stamps()[:min(64, hist.shape[0])]
+    n = len(build.names)
+    cyc = np.diff(st[..., :n], axis=-1)  # (B, 4, n - 1)
+    merges = st[..., -1]
+    out = {"phases": build.names[1:],
+           "dc_cycles": cyc[:, :2].mean(axis=(0, 1)).round(1).tolist(),
+           "ac_cycles": cyc[:, 2:].mean(axis=(0, 1)).round(1).tolist()}
+    whole = st[..., n - 1].max(1) - st[..., 0].min(1)
+    out["image_cycles"] = float(whole.mean())
+    out["image_cycles_max"] = int(whole.max())
+    out["merges_max"] = int(merges.max())
+    walk = cyc[..., build.names.index("merges") - 1]
+    big = merges >= 16 if (merges >= 16).any() else merges >= 1
+    out["cycles_per_merge"] = float(np.median(walk[big] / merges[big]))
+    return out
+
+
+def check_k5(tag: str, hist: torch.Tensor, first=None) -> int:
     """K5 on (B, 544) int32 histograms on the card against its plain
     version on the same tensors (tables and header bit for bit: scan
-    bits, flags, specs) and against the host C++ builder (_optimal_tables
-    and hist_bits: the same tables, specs and bits, and an error for
-    exactly the images K5 flags, which get the standard tables).
-    Returns the largest absolute difference from the plain version."""
+    bits, flags, specs), against the first K5 (`first`, a K5Build; bit
+    for bit) and against the host C++ builder (_optimal_tables and
+    hist_bits: the same tables, specs and bits, and an error for exactly
+    the images K5 flags, which get the standard tables).  Returns the
+    largest absolute difference from the plain version."""
     from fennec_tpu_torch.ops import huffbuild_cuda as k5
     from fennec_tpu_torch.ops.huffbuild import build_plain
     from fennec_tpu_torch.ops.jpeg_emit import std_tables_on
@@ -1378,6 +1570,7 @@ def check_k5(tag: str, hist: torch.Tensor) -> int:
     got = k5.build_tables(hist, std)
     again = k5.build_tables(hist, std)
     want = build_plain(hist, std)
+    old = first(hist, std) if first is not None else want
     if hist.device.type == "cuda":
         torch.cuda.synchronize()
     worst = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
@@ -1389,6 +1582,10 @@ def check_k5(tag: str, hist: torch.Tensor) -> int:
         raise AssertionError(f"K5 {tag}: tables/header differ from the "
                              f"plain version (largest difference {worst}) "
                              f"or between two calls")
+    if not (torch.equal(got.tables, old.tables)
+            and torch.equal(got.header, old.header)):
+        raise AssertionError(f"K5 {tag}: tables/header differ from the "
+                             f"first K5's")
     h = hist.cpu().numpy().astype(np.int64)
     dcf, acf = h[:, :32].reshape(-1, 2, 16), h[:, 32:].reshape(-1, 2, 256)
     specs, tables, errors = _optimal_tables(dcf, acf)
@@ -1405,40 +1602,134 @@ def check_k5(tag: str, hist: torch.Tensor) -> int:
                              f"{sorted(errors)} flagged "
                              f"{np.nonzero(flagged)[0].tolist()}, specs "
                              f"differ for {bad[:8]}")
-    log(f"k5 {tag} B={h.shape[0]} flagged={int(flagged.sum())} scan_bits="
-        f"{int(bits.sum())}: tables, bits16, vals, nvals, overflow and scan "
-        f"bits bit-identical to the plain version and the host C++ builder")
+    log(f"k5 {tag} B={h.shape[0]} live={live_symbols(h)} flagged="
+        f"{int(flagged.sum())} scan_bits={int(bits.sum())}: tables, bits16, "
+        f"vals, nvals, overflow and scan bits bit-identical to the plain "
+        f"version, the host C++ builder"
+        f"{' and the first K5' if first is not None else ''}")
     return worst
 
 
-def time_k5(hist: torch.Tensor, iters: int = 50) -> dict:
-    """K5's device ms (torch.profiler rows), CUDA-event ms and host µs per
-    call, its bound and share, the serial chain's ms, the plain version's
-    CUDA-event ms, and the host C++ builder's ms on the same histograms
-    (_optimal_tables and hist_bits on host arrays, the download not
-    counted)."""
+def time_k5(hist: torch.Tensor, first, step: dict, walk_cycles: float,
+            iters: int = 50) -> dict:
+    """K5 and the first K5 (a K5Build) on the same histograms in turns
+    (first, K5, K5, first): each turn's device ms (torch.profiler rows),
+    CUDA-event ms and host µs per call, the least of each over its two
+    turns, and the turns; K5's bound and share, and its serial chain at
+    `step` (K5Build.step_cycles); beside them `walk_cycles`, the stamped
+    build's cycles a merge of the shipped walk (k5_split), a diagnostic,
+    not a bound; the plain version's CUDA-event ms; the host C++ builder's ms on the same
+    histograms (_optimal_tables and hist_bits on host arrays, the
+    download not counted)."""
     from fennec_tpu_torch.ops import huffbuild_cuda as k5
     from fennec_tpu_torch.ops.huffbuild import build_plain
     from fennec_tpu_torch.ops.jpeg_emit import std_tables_on
     from fennec_tpu_torch.parallel.batched import _optimal_tables, hist_bits
 
     std = std_tables_on(hist.device)
-    fn = lambda: k5.build_tables(hist, std)  # noqa: E731
-    t = {"shape": list(hist.shape),
-         "ms": profiled_device_ms(fn, iters, "huff_build_kernel"),
-         "event_ms": cuda_ms(fn, iters), "host_us": host_us(fn, iters),
-         "plain_ms": cuda_ms(lambda: build_plain(hist, std), 3)}
-    h = hist.cpu().numpy().astype(np.int64)
+    runs = {"k5": lambda: k5.build_tables(hist, std),
+            "first": lambda: first(hist, std)}
+    turns = {"k5": [], "first": []}
+    for who in ("first", "k5", "k5", "first"):
+        fn = runs[who]
+        turns[who].append((profiled_device_ms(fn, iters, "huff_build_kernel"),
+                           cuda_ms(fn, iters), host_us(fn, iters)))
+    h = hist.cpu().numpy()
+    t = {"shape": list(hist.shape), "live": live_symbols(h)}
+    for who, pre in (("k5", ""), ("first", "first_")):
+        dev_ms, ev_ms, h_us = zip(*turns[who])
+        t[pre + "ms"] = min(dev_ms)
+        t[pre + "event_ms"] = min(ev_ms)
+        t[pre + "host_us"] = min(h_us)
+    t["turns"] = {who: [[round(x, 6) for x in turn] for turn in v]
+                  for who, v in turns.items()}
+    t["plain_ms"] = cuda_ms(lambda: build_plain(hist, std), 3)
+    h = h.astype(np.int64)
     dcf, acf = h[:, :32].reshape(-1, 2, 16), h[:, 32:].reshape(-1, 2, 256)
     reps = 20
     t0 = time.perf_counter()
     for _ in range(reps):
         hist_bits(dcf, acf, _optimal_tables(dcf, acf)[1])
     t["host_builder_ms"] = (time.perf_counter() - t0) / reps * 1e3
-    t["bound_ms"], t["bound_by"], t["chain_bound_ms"] = k5_bound(
-        hist.cpu().numpy())
+    t["bound_ms"], t["bound_by"], t["chain_ms"] = k5_bound(
+        hist.cpu().numpy(), step)
+    t["link_cycles"], t["compare_cycles"] = step["link"], step["compare"]
+    t["walk_cycles_per_merge"] = walk_cycles
     t["share"] = t["bound_ms"] / t["ms"]
     return t
+
+
+def k5_host_split(hist: torch.Tensor, first, iters: int = 300) -> dict:
+    """Host µs of each part of a K5 call, each part timed alone over
+    `iters` calls, for the port's wrapper (ops/huffbuild_cuda.build_tables)
+    and for the first K5's (`first`, a K5Build, called as PR 12's wrapper
+    called it): its input check, its outputs' allocation and its ctypes
+    launch on ready buffers, then the whole call; and, shared by both,
+    torch.cuda.current_device() and the stream lookup."""
+    from fennec_tpu_torch.ops import huffbuild_cuda as k5
+    from fennec_tpu_torch.ops.jpeg_emit import std_tables_on
+    from fennec_tpu_torch.ops.jpeg_emit_cuda import _stream
+
+    dev = hist.device
+    std = std_tables_on(dev)
+    bsz = hist.shape[0]
+    stream = _stream(dev)
+    parts = {"current_device": torch.cuda.current_device,
+             "stream": lambda: _stream(dev)}
+    for pre, build, lib in (("", k5.build_tables, k5.library.load()),
+                            ("first_", first, first.lib)):
+        tables, header = build.outputs(hist)
+        parts.update({
+            pre + "check": lambda build=build: build.check(hist, std),
+            pre + "outputs": lambda build=build: build.outputs(hist),
+            pre + "launch": lambda lib=lib, t=tables, h=header: (
+                lib.fennec_huff_build(hist.data_ptr(), bsz, std.data_ptr(),
+                                      t.data_ptr(), h.data_ptr(), stream)),
+            pre + "call": lambda build=build: build(hist, std)})
+    got = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        got[name] = (time.perf_counter() - t) / iters * 1e6
+        torch.cuda.synchronize()
+    return got
+
+
+def header_pull_ab(hist: torch.Tensor, reps: int = 200) -> dict:
+    """The emission's pull of K5's header three ways, in turns (pageable,
+    cached, fresh, fresh, cached, pageable): pageable, header.cpu().numpy()
+    as PR 12's emit_scans made it; cached, ops/huffbuild_cuda.pull_header
+    (a pinned buffer the thread keeps for its last row count, copied
+    out); fresh, a new
+    pinned tensor per call (PyTorch's caching host allocator) copied into.
+    Host µs per pull, each turn's and the least of each; the arrays
+    equal."""
+    from fennec_tpu_torch.ops import huffbuild_cuda as k5
+    from fennec_tpu_torch.ops.jpeg_emit import std_tables_on
+
+    header = k5.build_tables(hist, std_tables_on(hist.device)).header
+    runs = {"pageable": lambda: header.cpu().numpy(),
+            "cached": lambda: k5.pull_header(header),
+            "fresh": lambda: torch.empty(
+                header.shape, dtype=torch.int32,
+                pin_memory=True).copy_(header).numpy()}
+    want = runs["pageable"]()
+    if not all(np.array_equal(want, fn()) for fn in runs.values()):
+        raise AssertionError("the header's pulls differ")
+    turns = {who: [] for who in runs}
+    for who in ("pageable", "cached", "fresh", "fresh", "cached",
+                "pageable"):
+        fn = runs[who]
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        turns[who].append(round((time.perf_counter() - t) / reps * 1e6, 3))
+    return {"turns_us": turns, **{k: min(v) for k, v in turns.items()}}
 
 
 def host_built_emit(packed: torch.Tensor, h: int, w: int, sub: bool):
@@ -1528,42 +1819,79 @@ def record_k5_inputs(tag: str):
         batched.build_tables = real
 
 
-def phase_k5(T, dev, quality) -> tuple:
-    """Phase 16: K5 bit-equal to its plain version and the host C++
-    builder on phase 4's histograms, the 12 MP and 1080p photos and a
-    64 x 500x500 chunk at BALANCED's qualities, and k5_families; K5
-    timed at B = 1 (12 MP) and B = 64 beside its bound, the plain
-    version and the host builder; the whole emission against the
-    host-built flow in turns at 12 MP and 64 x 500x500.  `quality`: the
-    qualities (12 MP, 1080p, 500x500).  Returns (largest difference,
-    {case: K5 times}, {case: emission times})."""
+# Phase 16's cases beyond phase 11's shapes, at high quality (many live
+# AC symbols, so many merges): the 12 MP photo at Q95 and Q100 and a
+# 64-image 500x500 chunk at Q95.
+K5_HIGH = [("12mp_420_q95", 4032, 3024, 1, True, 95, SEED),
+           ("12mp_420_q100", 4032, 3024, 1, True, 100, SEED),
+           ("500x500x64_420_q95", 500, 500, 64, True, 95, SEED + 100)]
+# The cases timed in turns against the first K5: (a) B = 1 at BALANCED,
+# (b) B = 64 at BALANCED, (c) high quality.
+K5_TIMED = ["12mp_420", "500x500x64_420", "12mp_420_q95", "12mp_420_q100",
+            "500x500x64_420_q95", "ac_162_live"]
+
+
+def phase_k5(T, dev, quality, first, stamped) -> tuple:
+    """Phase 16: K5 bit-equal to its plain version, the first K5 (`first`,
+    a K5Build) and the host C++ builder on phase 4's histograms, the 12
+    MP and 1080p photos and a 64 x 500x500 chunk at BALANCED's qualities
+    and at high quality (K5_HIGH), and k5_families; each stamped build of
+    `stamped` ({name: K5Build}) split by phase on K5_TIMED's cases; K5
+    timed in turns with the first K5 on those cases beside its bound, the
+    plain version and the host builder; the host µs of a call's parts;
+    the header's pull three ways; the whole emission
+    against the host-built flow in turns at 12 MP and 64 x 500x500.
+    `quality`: BALANCED's qualities (12 MP, 1080p, 500x500).  Returns
+    (largest difference, {case: K5 times}, {case: emission times},
+    {"build case": split})."""
     from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
     from fennec_tpu_torch.ops.jpeg_emit import layout_on, std_tables_on
 
     worst = 0
     for tag, hist in sorted(K5_INPUTS.items()):
-        worst = max(worst, check_k5(f"phase4_{tag}", hist))
-    stacks = {}
-    for tag, w, h, n, sub, q, seed in k3_cases(*quality)[:3]:
-        packed = quantized_stack([photo(w, h, seed + k) for k in range(n)],
-                                 q, sub, dev)
+        worst = max(worst, check_k5(f"phase4_{tag}", hist, first))
+    hists, stacks, images = {}, {}, {}
+    for tag, w, h, n, sub, q, seed in k3_cases(*quality)[:3] + K5_HIGH:
+        if (w, h, n, seed) not in images:
+            images[(w, h, n, seed)] = [photo(w, h, seed + k)
+                                       for k in range(n)]
+        packed = quantized_stack(images[(w, h, n, seed)], q, sub, dev)
         mult = 16 if sub else 8
         hist = k3.block_stats(packed, layout_on(
             h + (-h) % mult, w + (-w) % mult, sub, dev),
             std_tables_on(dev), want_hist=True).hist
-        worst = max(worst, check_k5(tag, hist))
-        stacks[tag] = (packed, w, h, sub, q, hist)
+        worst = max(worst, check_k5(tag, hist, first))
+        hists[tag] = hist
+        stacks[tag] = (packed, w, h, sub, q)
+    del images
     for tag, hist in k5_families():
-        worst = max(worst, check_k5(tag, torch.from_numpy(hist).to(dev)))
+        hists[tag] = torch.from_numpy(hist).to(dev)
+        worst = max(worst, check_k5(tag, hists[tag], first))
+    splits = {}
+    for tag in K5_TIMED:
+        for who, build in stamped.items():
+            split = splits[f"{who} {tag}"] = k5_split(build, hists[tag])
+            log(f"k5 split {who} {tag}: " + json.dumps(split))
+    step = stamped["k5"].step_cycles()
+    log(f"k5 step cycles (one lane): link {step['link']} (a shared-memory "
+        f"load of a 64-bit key indexed by the last compare), compare "
+        f"{step['compare']} (a 64-bit compare and select)")
     times, emits = {}, {}
-    for tag in ("12mp_420", "500x500x64_420"):
-        packed, w, h, sub, q, hist = stacks[tag]
-        times[tag] = time_k5(hist)
+    for tag in K5_TIMED:
+        times[tag] = time_k5(hists[tag], first, step,
+                             splits[f"k5 {tag}"]["cycles_per_merge"])
         log(f"k5 time {tag}: " + " ".join(
             f"{k}={v:.5f}" if isinstance(v, float) else f"{k}={v}"
             for k, v in times[tag].items()))
+    for tag in ("12mp_420", "500x500x64_420"):
+        log(f"k5 host split {tag} (us per call): " + json.dumps(
+            {k: round(v, 3) for k, v in k5_host_split(hists[tag],
+                                                      first).items()}))
+        log(f"k5 header pull {tag} (us): "
+            + json.dumps(header_pull_ab(hists[tag])))
+        packed, w, h, sub, q = stacks[tag]
         emits[tag] = time_emission_in_turns(tag, packed, h, w, sub, q)
-    return worst, times, emits
+    return worst, times, emits, splits
 
 
 # Over every replay of check_result: the probes scored by both routes,
@@ -3328,7 +3656,8 @@ def phase_spatial(T, dev, rounds: int = 2):
 def build_all(ssim_window, k3, probe_recon):
     """Phase 2: every kernel of the port and the host entropy coder
     built from this checkout's sources, all at once; returns the first
-    K3's and the first K2's harnesses."""
+    K3's, the first K2's and the first K5's harnesses, and the stamped K5
+    builds ({"first": ..., "k5": ...})."""
     from concurrent.futures import ThreadPoolExecutor
 
     from fennec_tpu_torch import native
@@ -3339,13 +3668,17 @@ def build_all(ssim_window, k3, probe_recon):
         got = build()
         return time.perf_counter() - t, got
 
-    with ThreadPoolExecutor(7) as pool:
+    with ThreadPoolExecutor(10) as pool:
         done = list(pool.map(timed, (
             lambda: ssim_window.build(force=True),
             lambda: k3.library.build(force=True),
             lambda: native.build(force=True), FirstK3,
             lambda: probe_recon.build(force=True), FirstK2,
-            lambda: k5.library.build(force=True))))
+            lambda: k5.library.build(force=True),
+            lambda: K5Build(FIRST_K5_SOURCE, "first"),
+            lambda: K5Build(FIRST_K5_SOURCE, "first_stamped", True),
+            lambda: K5Build(os.path.relpath(k5.SOURCE, HERE), "stamped",
+                            True))))
     ssim_window.load()
     k3.library.load()
     native.load()
@@ -3354,11 +3687,17 @@ def build_all(ssim_window, k3, probe_recon):
     log(f"build k1_nvcc_s={done[0][0]:.3f} k3_nvcc_s={done[1][0]:.3f} "
         f"native_gxx_s={done[2][0]:.3f} first_k3_nvcc_s={done[3][0]:.3f} "
         f"k2_nvcc_s={done[4][0]:.3f} first_k2_nvcc_s={done[5][0]:.3f} "
-        f"k5_nvcc_s={done[6][0]:.3f} (in parallel)")
+        f"k5_nvcc_s={done[6][0]:.3f} first_k5_nvcc_s={done[7][0]:.3f} "
+        f"stamped_k5_nvcc_s={done[8][0]:.3f}, {done[9][0]:.3f} (in "
+        f"parallel)")
     log(ssim_window.build_log.strip())
     log(k3.library.build_log.strip())
     log(probe_recon.build_log.strip())
-    log(k5.library.build_log.strip())
+    for tag, text in (("K5", k5.library.build_log),
+                      ("first K5", done[7][1].build_log),
+                      ("first K5 -DK5_STAMPS", done[8][1].build_log),
+                      ("K5 -DK5_STAMPS", done[9][1].build_log)):
+        log(f"{tag} nvcc -Xptxas -v: {text.strip()}")
     lib = k3.library.load()
     log(f"K3 segment_blocks={k3.library.segment_blocks} resident CTAs "
         f"K3a={lib.fennec_jpeg_resident_ctas(0)} "
@@ -3366,7 +3705,8 @@ def build_all(ssim_window, k3, probe_recon):
     dev = torch.device("cuda", torch.cuda.current_device())
     log(f"K2 resident CTAs, SMs: 4:2:0 {probe_recon.card(dev, True)} "
         f"4:4:4 {probe_recon.card(dev, False)}")
-    return done[3][1], done[5][1]
+    return (done[3][1], done[5][1], done[7][1],
+            {"first": done[8][1], "k5": done[9][1]})
 
 
 def k2_only(T, dev, first_k2) -> int:
@@ -3395,10 +3735,10 @@ def k3_only(T, dev, first_k3) -> int:
     return 0
 
 
-def k5_only(T, dev) -> int:
+def k5_only(T, dev, first_k5, stamped) -> int:
     """`--k5`: phases 1, 2 and 16 alone, at BALANCED's usual qualities; no
     main path, so no result line."""
-    worst, _times, _emits = phase_k5(T, dev, (30, 30, 60))
+    worst, *_ = phase_k5(T, dev, (30, 30, 60), first_k5, stamped)
     log(f"k5 only: every case passed (largest difference {worst})")
     return 0
 
@@ -3483,13 +3823,14 @@ def main(only: str = "") -> int:
     count_bisections()
     if only == "digests":  # kernels build at first use
         return digests_only(T, dev)
-    first_k3, first_k2 = build_all(ssim_window, k3, k2.probe_recon)
+    first_k3, first_k2, first_k5, stamped = build_all(ssim_window, k3,
+                                                      k2.probe_recon)
     if only == "k3":
         return k3_only(T, dev, first_k3)
     if only == "k2":
         return k2_only(T, dev, first_k2)
     if only == "k5":
-        return k5_only(T, dev)
+        return k5_only(T, dev, first_k5, stamped)
     if only == "mesh":
         from fennec_tpu_torch.engine.batched import counters
 
@@ -3650,9 +3991,10 @@ def main(only: str = "") -> int:
         mesh = phase_mesh(T, dev, counters, big_path, tmp)
     # 15. The data×spatial mesh over this card.
     log("spatial summary: " + json.dumps(phase_spatial(T, dev)))
-    # 16. K5 against its plain version and the host builder.
-    k5_err, k5_times, k5_emits = phase_k5(T, dev, (
-        quality["12mp_balanced"], quality["1080p_balanced"], q500))
+    # 16. K5 against its plain version, the host builder and the first K5.
+    k5_err, k5_times, k5_emits, _splits = phase_k5(T, dev, (
+        quality["12mp_balanced"], quality["1080p_balanced"], q500),
+        first_k5, stamped)
     log("K5 emission summary (ms, K5 flow vs host-built flow in turns): "
         + json.dumps(k5_emits))
     log("mesh summary (warm img/s, median of 3; cross-card scaling not "
@@ -3749,10 +4091,15 @@ def main(only: str = "") -> int:
         "library_ms": None,
         "host_us": k5t["host_us"], "event_ms": k5t["event_ms"],
         "host_builder_ms": k5t["host_builder_ms"],
-        "chain_bound_ms": k5t["chain_bound_ms"],
-        "b64": {k: k5b[k] for k in ("shape", "ms", "event_ms", "host_us",
-                                    "plain_ms", "bound_ms", "bound_by",
-                                    "chain_bound_ms", "host_builder_ms")}})
+        "chain_ms": k5t["chain_ms"],
+        # The first K5 (bench_sources/huffbuild_first.cu), in turns.
+        "first_ms": k5t["first_ms"], "first_event_ms": k5t["first_event_ms"],
+        "first_host_us": k5t["first_host_us"],
+        # B = 64 at BALANCED, and the cases at high quality.
+        **{case: {k: k5_times[case][k] for k in (
+            "shape", "live", "ms", "event_ms", "host_us", "first_ms",
+            "first_event_ms", "first_host_us", "bound_ms", "bound_by",
+            "chain_ms", "share")} for case in K5_TIMED[1:]}})
     t = times[(1, 384, 512)]
     k2t = k2_times["12mp_420_q30"]
     print(json.dumps({"kernels": [{

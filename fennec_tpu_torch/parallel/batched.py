@@ -74,7 +74,7 @@ from ..engine.size_search import size_bisect
 from ..ops import dct as dct_ops
 from ..ops.color import luminance
 from ..ops.huffbuild import specs_from_opt_header, split_opt_header
-from ..ops.huffbuild_cuda import build_tables
+from ..ops.huffbuild_cuda import build_tables, pull_header
 from ..ops.jpeg_emit import (
     finalize_scan_host,
     layout_on,
@@ -367,7 +367,7 @@ def emit_scans(packed: torch.Tensor, h: int, w: int, subsample: bool,
     hist = block_stats.launch(packed, lay, std, want_hist=True).hist
     built = build_tables(hist, std)
     totals, flagged, bits16, nvals, vals = split_opt_header(
-        built.header.cpu().numpy())
+        pull_header(built.header))
     base = _word_base(totals)
     # One image owns the whole buffer; a batch's bases go up.
     word_base = None if bsz == 1 else torch.from_numpy(base).to(dev)

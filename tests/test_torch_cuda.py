@@ -981,13 +981,14 @@ def test_k5_emission_equals_host_built_flow(cuda_device, w, h, bsz, sub):
         assert got.jpeg(j, w, h, 50, sub) == want.jpeg(j, w, h, 50, sub)
 
 
-def test_k5_on_a_side_stream(cuda_device):
+@pytest.mark.parametrize("fam", ["batch64_mixed", "ac_162_live"])
+def test_k5_on_a_side_stream(cuda_device, fam):
     """K5 launches on the current stream: built on a side stream, the
     tables equal the default stream's."""
     from fennec_tpu_torch.ops.huffbuild_cuda import build_tables
     from fennec_tpu_torch.ops.jpeg_emit import std_tables_on
 
-    hist = torch.from_numpy(chip_smoke().k5_families()[-1][1]).to(
+    hist = torch.from_numpy(dict(chip_smoke().k5_families())[fam]).to(
         cuda_device)
     std = std_tables_on(cuda_device)
     want = build_tables(hist, std)

@@ -18,13 +18,28 @@ histograms from K3a's plain version:
 - emit_scans(optimize=True) writes the C++ encoder's bytes, an image
   whose code passes 32 bits fails alone with the builder's ValueError,
   and each optimal emission takes one plain build.
+
+And a model in plain Python of the kernel's K.2 (csrc/huffbuild.cu):
+the live keys compacted in symbol order and sorted once, a two-queue walk
+(leaves, merged keys in creation order) recording each node's parent
+merge, each leaf's depth from its parent chain.  Its code sizes equal the
+lockstep loop's (ops/huffbuild._merge_codesizes) and JAX's on every family
+of chip_smoke.k5_families, and the lockstep loop's on hypothesis' tables
+(ties from counts 0-3, single symbols, empty classes, counts near 2^24);
+the merged keys it makes ascend, which is what makes the walk exact.
 """
+
+import importlib.util
+import pathlib
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from conftest import make_noise_image, make_test_image
+from fennec_tpu.ops.huffbuild import _merge_codesizes as jax_codesizes
 from fennec_tpu.ops.huffbuild import build_tables_device as jax_build
 from fennec_tpu_torch.codecs import huffopt as thuffopt
 from fennec_tpu_torch.codecs.jpeg import encode_quantized
@@ -318,3 +333,157 @@ def test_real_overflow_is_flagged_by_k5_plain():
     assert flagged.tolist() == [False, True]
     np.testing.assert_array_equal(built.tables[1].numpy(),
                                   std_tables_packed()[0])
+
+
+# ── The kernel's K.2: one sort and a two-queue walk ─────────────────────────
+
+_END = (1 << 64) - 1  # above every key
+
+
+def walk_codesizes(freq) -> list:
+    """K5's K.2 for one table, in plain Python: freq (257,) counts, the
+    reserved symbol (1) at 256.  Returns the code sizes (257,), 0 for a
+    symbol never coded."""
+    keys = [(int(f) << 9) | (511 - s) for s, f in enumerate(freq) if f > 0]
+    n = len(keys)
+    leaf = sorted(keys)
+    assert len(set(leaf)) == n  # distinct: a rank sort is exact
+    lq = leaf + [_END, _END]  # queue L and two reads past its end
+    mq = [_END] * (n + 1)  # queue M: merged keys in creation order
+    up = [0] * (2 * n - 1)  # each node's parent merge
+    li = mi = 0
+    for k in range(n - 1):
+        l0, l1, m0, m1 = lq[li], lq[li + 1], mq[mi], mq[mi + 1]
+        a_leaf = l0 < m0
+        a = l0 if a_leaf else m0
+        x, y = (l1, m0) if a_leaf else (l0, m1)
+        b_leaf = x < y
+        b = x if b_leaf else y
+        up[li if a_leaf else n + mi] = k
+        up[li + a_leaf if b_leaf else n + mi + (not a_leaf)] = k
+        mq[k] = a + (b & ~511)
+        # The merged keys ascend, so queue M stays sorted.
+        assert k == 0 or mq[k] > mq[k - 1]
+        li += a_leaf + b_leaf
+        mi += 2 - a_leaf - b_leaf
+    sizes = [0] * 257
+    root = n - 2
+    for i in range(n):
+        node, depth = up[i], 1
+        while node != root:
+            node, depth = up[n + node], depth + 1
+        sizes[511 - (leaf[i] & 511)] = depth
+    return sizes
+
+
+def _freq(hist: np.ndarray) -> np.ndarray:
+    """(B * 4, 257) int64 K.2 inputs of (B, 544) histograms, tables
+    [dc-luma, dc-chroma, ac-luma, ac-chroma]: an empty class codes
+    symbol 0, the reserved symbol at 256 (ops/huffbuild.py)."""
+    b = hist.shape[0]
+    freq = np.zeros((b, 4, 257), np.int64)
+    freq[:, :2, :16] = hist[:, :32].reshape(b, 2, 16)
+    freq[:, 2:, :256] = hist[:, 32:].reshape(b, 2, 256)
+    freq[:, :, 0] += freq.sum(axis=2) == 0
+    freq[:, :, 256] = 1
+    return freq.reshape(b * 4, 257)
+
+
+def _walk(freq: np.ndarray) -> np.ndarray:
+    return np.array([walk_codesizes(row) for row in freq], np.int64)
+
+
+def _chip_smoke():
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+K5_FAMILIES = dict(_chip_smoke().k5_families())
+
+
+@pytest.mark.parametrize("fam", list(K5_FAMILIES))
+def test_walk_matches_lockstep(fam):
+    """The two-queue walk gives the lockstep loop's code sizes on every
+    family of chip_smoke.k5_families (the 162-live high-quality one
+    included)."""
+    freq = _freq(K5_FAMILIES[fam])
+    want = thb._merge_codesizes(torch.from_numpy(freq)).numpy()
+    np.testing.assert_array_equal(_walk(freq), want)
+
+
+def _jax_rows(fam):
+    """The family's images JAX's int32 K.2 can take: every table's count
+    below 2^31 (counts_near_2^24 passes it, so the batch mixing it loses
+    those rows; the port's int64 loop holds them above)."""
+    hist = K5_FAMILIES[fam]
+    return hist[_freq(hist).reshape(-1, 4, 257).sum(axis=2).max(axis=1)
+                < 1 << 31]
+
+
+JAX_FAMILIES = [f for f in K5_FAMILIES if len(_jax_rows(f))]
+
+
+@pytest.fixture(scope="module")
+def jax_k5():
+    """JAX _merge_codesizes and build_tables_device over every JAX family's
+    rows, in one call each."""
+    rows = {f: _jax_rows(f) for f in JAX_FAMILIES}
+    hist = np.concatenate(list(rows.values()))
+    sizes = np.asarray(jax_codesizes(_freq(hist).astype(np.int32)))
+    outs = [np.asarray(x) for x in jax_build(
+        hist[:, :32].reshape(-1, 2, 16), hist[:, 32:].reshape(-1, 2, 256))]
+    got, at = {}, 0
+    for f, r in rows.items():
+        b = len(r)
+        got[f] = (sizes[4 * at:4 * (at + b)], [x[at:at + b] for x in outs])
+        at += b
+    return got
+
+
+@pytest.mark.parametrize("fam", JAX_FAMILIES)
+def test_walk_matches_jax(jax_k5, fam, monkeypatch):
+    """The walk's code sizes equal JAX's K.2 loop's, and through the
+    port's tail they give JAX build_tables_device's tables, specs and
+    flags."""
+    hist = _jax_rows(fam)
+    sizes, want = jax_k5[fam]
+    np.testing.assert_array_equal(_walk(_freq(hist)), sizes)
+    monkeypatch.setattr(thb, "_merge_codesizes", lambda f: torch.from_numpy(
+        _walk(f.numpy())))
+    got = _port(hist[:, :32].reshape(-1, 2, 16).astype(np.int64),
+                hist[:, 32:].reshape(-1, 2, 256).astype(np.int64))
+    keep = ~want[4]
+    np.testing.assert_array_equal(got[4], want[4])
+    for name, g, w in zip(("tables", "bits16", "vals", "nvals"), got, want):
+        np.testing.assert_array_equal(g[keep], w[keep], err_msg=name)
+
+
+@st.composite
+def _tables(draw):
+    """A (257,) K.2 input: a DC or AC table of counts 0-3 (ties), one
+    symbol, none (an empty class codes symbol 0), or counts near 2^24."""
+    nsym = draw(st.sampled_from([16, 256]))
+    kind = draw(st.sampled_from(["ties", "single", "empty", "near_2^24"]))
+    freq = np.zeros(257, np.int64)
+    if kind == "ties":
+        freq[:nsym] = draw(st.lists(st.integers(0, 3), min_size=nsym,
+                                    max_size=nsym))
+    elif kind == "single":
+        freq[draw(st.integers(0, nsym - 1))] = draw(st.integers(1, 1 << 30))
+    elif kind == "near_2^24":
+        freq[:nsym] = draw(st.lists(st.sampled_from(
+            [0, (1 << 24) - 1, 1 << 24, (1 << 24) + 1]), min_size=nsym,
+            max_size=nsym))
+    freq[0] += freq.sum() == 0
+    freq[256] = 1
+    return freq
+
+
+@settings(max_examples=50, deadline=None)
+@given(_tables())
+def test_walk_matches_lockstep_drawn(freq):
+    want = thb._merge_codesizes(torch.from_numpy(freq[None])).numpy()[0]
+    assert walk_codesizes(freq) == want.tolist()
