@@ -1,7 +1,7 @@
 """Drive the PyTorch port's main paths once on one CUDA card, and check
 them.
 
-    python3 chip_smoke.py [--k2 | --k3 | --k5 | --digests | --mesh]
+    python3 chip_smoke.py [--k2 | --k3 | --k5 | --digests | --mesh | --wire]
 
 With no argument, every phase below; it needs one card.  --k2 runs
 phases 1 and 2, K2's part of phase 3 and the size oracle's checks of
@@ -13,16 +13,17 @@ phases 1, 2 and 16 (K5 against its plain version, the host builder and
 the first K5, its phase split, its timings in turns with the first K5
 and the emission in turns); --digests prints digests of a few main-path
 outputs, to compare two checkouts on one card; --mesh runs phases 1, 2,
-14 and 15 alone.  None
+14 and 15 alone; --wire runs phases 1, 2 and 17 alone.  None
 of these prints the result lines.
 
 Phases, each raising on failure:
   1. environment: a CUDA card, its name and power limit, TF32 off;
-  2. build: kernels K1, K2, K3 with K4's entries and K5 (nvcc, sm_90a),
-     the first K3, the first K2 and the first K5 (kept under
+  2. build: kernels K1, K2, K3 with K4's entries, K5 and K6 (nvcc,
+     sm_90a), the first K3, the first K2 and the first K5 (kept under
      bench_sources/ to be timed against), the first K5 and K5 again with
      -DK5_STAMPS, and the host C++ entropy coder, from the sources in
-     this checkout, all ten at once, each K5 build's -Xptxas -v printed;
+     this checkout, all eleven at once, each K5 and K6 build's -Xptxas -v
+     printed;
   3. K1 against its plain PyTorch version on the card, at the shapes the
      main paths give it and beyond, the batch engines' (64, 500, 500)
      included, and at ragged shapes for its strips and bands: max |diff|
@@ -74,7 +75,11 @@ Phases, each raising on failure:
      times per chunk; every 32nd item against per-image compress_bytes on
      the card (same quality, SSIM within 1e-5, size within 16 bytes,
      decoded pixels within 3 levels); every 64th item's decisions
-     replayed with the plain scorer;
+     replayed with the plain scorer.  The photos go up as COO; then 64
+     files of noise at Q100 with default options (the census sends them
+     as dense int8, against per-image compress_bytes) and 64 photos with
+     FENNEC_UPLOAD=csr (bytes equal to the COO run's), so that the main
+     path launches K6 on every layout;
   7. compress_images over 256 decoded 500x500 images (32 distinct x 8):
      each must give the bytes compress_image gives its source;
   8. compress_batch over 16 files of 4032x3024: the chunk size the engine
@@ -197,12 +202,35 @@ Phases, each raising on failure:
      call and its parts (k5_host_split); the header's pull three ways in
      turns (header_pull_ab); and the whole optimal
      emission (emit_scans) against the host-built flow (host_built_emit)
-     in turns at 12 MP and 64 x 500x500, the bytes equal.
+     in turns at 12 MP and 64 x 500x500, the bytes equal;
+ 17. the upload routes (--wire alone).  K6, the coefficient-wire unpack,
+     against its plain version on the same CUDA tensors and against the
+     C++ decoder's int16 blocks, bit for bit, on each layout (COO, dense
+     int8, CSR, as wire_sections builds them the engine's way) at the
+     64 x 500x500 chunk, 16 x 12 MP, 8 noise files at Q100 and ragged
+     17x9 and 513x700; K6's device time (torch.profiler, every kernel of
+     the call, split by kernel), CUDA-event time, host time, bound
+     (bytes: the live wire read and 128 bytes a block written) and share,
+     and the plain version's time, at the first two.  The search's
+     outputs from int16 blocks decoded here and from each layout through
+     K6, equal (wire_search_agrees).  The 512-file batch through the
+     int16 upload (int16_uploads) and COO in turns, three runs each, then
+     dense int8 and CSR (FENNEC_UPLOAD) once: img/s, prep and device
+     seconds of every run, uploaded bytes per chunk, the device's idle
+     share (torch.profiler), the upload event of every chunk, K6 launched
+     once per chunk (never for int16), the four byte-identical and every
+     32nd item held to per-image compress_bytes; 64 files with
+     max_width: int16 uploads, no K6.  Phase 17's launches count apart
+     from the main path's.  Then 256 images through compress_images on the rgb
+     and the yuv420 wire (FENNEC_PIXEL_WIRE): img/s, uploaded bytes, the
+     qualities that moved and the largest |dSSIM|; every yuv420 output
+     meets its target or is the Q100 fallback.
 
 The last lines: the kernel table as JSON (K1's, K2's, K3a's, K3b's, K5's
 and K4's step's and bisection's launches summed over the main-path runs of
 phases 4, 6-8 and 10, each counted from 0; K4's step, now the
-bisection's yardstick, launches 0 times there),
+bisection's yardstick, launches 0 times there; K6's per layout over those
+runs and phase 17's),
 the card's name and power limit as nvidia-smi reports them, and {"ok":
 true, "device": {...}}.  Images are made from numpy seeds; nothing is
 fetched.  Without a CUDA card the script fails before printing any
@@ -212,9 +240,11 @@ result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -455,6 +485,30 @@ def host_us(fn, iters: int) -> float:
 # size bisections on the card (count_bisections).
 K3_MAIN = {"block_stats": 0, "deposit": 0, "oracle": 0, "bisect": 0,
            "huffbuild": 0}
+# K6's launches by layout: on the main path (phases 4, 6-8 and 10), and
+# in phase 17 (its routes forced in turns and the pixel wires), apart.
+K6_MAIN = {"coo": 0, "i8": 0, "csr": 0}
+K6_WIRE = {"coo": 0, "i8": 0, "csr": 0}
+
+
+def k6_wrappers():
+    """{layout: K6's wrapper} (fennec_tpu_torch/ops/coef_wire_cuda.py)."""
+    from fennec_tpu_torch.ops import coef_wire_cuda as k6
+
+    return {"coo": k6.unpack_coo, "i8": k6.unpack_i8, "csr": k6.unpack_csr}
+
+
+class K6Launches:
+    """The three K6 wrappers' launches as one count, set to 0 together."""
+
+    @property
+    def launches(self) -> int:
+        return sum(k.launches for k in k6_wrappers().values())
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        for k in k6_wrappers().values():
+            k.launches = value
 K2_MAIN = {"recon": 0}
 BISECTIONS = {"calls": 0}
 
@@ -485,12 +539,14 @@ def count_bisections() -> None:
 
 
 def k3_zero() -> None:
-    """Set K2's, K3's, K4's and K5's counts and the bisections to 0."""
+    """Set K2's, K3's, K4's, K5's and K6's counts and the bisections to
+    0."""
     from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
     from fennec_tpu_torch.ops.huffbuild_cuda import build_tables
     from fennec_tpu_torch.ops.probe_recon_cuda import probe_recon
 
     build_tables.launches = 0
+    K6Launches().launches = 0
 
     k3.block_stats.launches = 0
     k3.deposit.launches = 0
@@ -502,8 +558,9 @@ def k3_zero() -> None:
 
 
 def k3_take(tag: str, dev, emissions: int, bisections: int = 0,
-            probes: int = 0):
-    """The launches since k3_zero, added to the main path's totals.  On a
+            probes: int = 0, main: bool = True):
+    """The launches since k3_zero, added to the main path's totals (main=
+    False: K6's to phase 17's, and none of the others anywhere).  On a
     CUDA device every JPEG of the call must have been coded by K3: at
     least `emissions` emissions (one per image or device chunk coded),
     each one K3a, one K5 and one K3b launch (every emission of the main
@@ -521,12 +578,15 @@ def k3_take(tag: str, dev, emissions: int, bisections: int = 0,
     o, z = k3.quantize_count.launches, k3.size_bisect.launches
     p = probe_recon.launches
     k5 = build_tables.launches
-    K3_MAIN["block_stats"] += a
-    K3_MAIN["deposit"] += b
-    K3_MAIN["huffbuild"] += k5
-    K3_MAIN["oracle"] += o
-    K3_MAIN["bisect"] += z
-    K2_MAIN["recon"] += p
+    if main:
+        K3_MAIN["block_stats"] += a
+        K3_MAIN["deposit"] += b
+        K3_MAIN["huffbuild"] += k5
+        K3_MAIN["oracle"] += o
+        K3_MAIN["bisect"] += z
+        K2_MAIN["recon"] += p
+    for layout, k in k6_wrappers().items():
+        (K6_MAIN if main else K6_WIRE)[layout] += k.launches
     calls = BISECTIONS["calls"]
     if dev.type == "cuda" and (a != b or k5 != b or b < emissions
                                or z != calls
@@ -2019,11 +2079,13 @@ def exif_orientation_segment(orient: int) -> bytes:
     return b"\xFF\xE1" + struct.pack(">H", len(payload) + 2) + payload
 
 
-def run_batch(T, ssim_window, counters, items, dev, tag: str):
+def run_batch(T, ssim_window, counters, items, dev, tag: str,
+              main: bool = True):
     """One compress_batch pass with the counts set to 0 just before it:
     every item through the coefficient route and, on a CUDA device, K1
-    at least 7 times per device chunk and K3 coding every chunk.  Returns (results, wall ms, K1
-    launches, engine counters)."""
+    at least 7 times per device chunk and K3 coding every chunk.  Its
+    launches count to the main path's totals unless main=False (phase
+    17).  Returns (results, wall ms, K1 launches, engine counters)."""
     counters.reset()
     ssim_window.launches = 0
     k3_zero()
@@ -2034,7 +2096,7 @@ def run_batch(T, ssim_window, counters, items, dev, tag: str):
     launches = ssim_window.launches
     snap = counters.snapshot()
     k3a, k3b, _ = k3_take(tag, dev, len(snap["chunk_items"]),
-                          probes=7 * len(snap["chunk_items"]))
+                          probes=7 * len(snap["chunk_items"]), main=main)
     log(f"{tag}: K3 launches K3a={k3a} K3b={k3b} for "
         f"{len(snap['chunk_items'])} chunks")
     bad = [(r.item.src, r.err) for r in res if r.err is not None]
@@ -2046,7 +2108,23 @@ def run_batch(T, ssim_window, counters, items, dev, tag: str):
     if dev.type == "cuda" and launches < 7 * len(snap["chunk_items"]):
         raise AssertionError(f"{tag}: K1 ran {launches} times for "
                              f"{len(snap['chunk_items'])} chunks")
+    check_k6_per_chunk(tag, dev, snap)
     return res, wall_ms, launches, snap
+
+
+def check_k6_per_chunk(tag: str, dev, snap, shards: int = 1) -> None:
+    """K6 launched once per shard of every compact-layout chunk of the
+    call just run (read since k3_zero) and never for an int16 chunk:
+    events upload_coo / upload_i8 / upload_csr count those chunks."""
+    got = {k: w.launches for k, w in k6_wrappers().items()}
+    ev = snap["events"]
+    want = {k: ev.get(f"upload_{k}", 0) for k in got}
+    if dev.type == "cuda" and sum(want.values()) and shards == 1 \
+            and got != want:
+        raise AssertionError(f"{tag}: K6 launches {got}, want one per chunk "
+                             f"of each layout {want}")
+    if dev.type == "cuda" and not sum(want.values()) and sum(got.values()):
+        raise AssertionError(f"{tag}: K6 launched {got} for int16 chunks")
 
 
 def log_batch(tag: str, n: int, wall_ms: float, launches: int, snap,
@@ -2062,9 +2140,11 @@ def log_batch(tag: str, n: int, wall_ms: float, launches: int, snap,
         f"encode_summed={st.get('encode', 0):.3f}")
 
 
-def profile_device(fn, tag: str) -> None:
+def profile_device(fn, tag: str):
     """Device busy time of one fn() call from torch.profiler's CUDA
-    events, beside its wall time; the eight busiest kernels."""
+    events, beside its wall time; the eight busiest kernels.  Returns the
+    device's idle share of the wall time (None when nothing was
+    recorded)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -2082,11 +2162,12 @@ def profile_device(fn, tag: str) -> None:
     busy_ms = sum(device_us(e) for e in events) / 1e3
     if busy_ms <= 0:
         log(f"{tag} profile: no device time recorded (not measured)")
-        return
+        return None
     log(f"{tag} profile: wall_ms={wall_ms:.1f} device_busy_ms="
         f"{busy_ms:.1f} idle_share={1 - busy_ms / wall_ms:.3f}")
     for e in sorted(events, key=device_us, reverse=True)[:8]:
         log(f"  {device_us(e) / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
+    return 1 - busy_ms / wall_ms
 
 
 def reset_peak(dev) -> None:
@@ -2155,6 +2236,58 @@ def phase_batch_files(T, dev, ssim_window, counters, tmp, n=512, w=500,
                      f"batch512 item {i}", src_img=src)
     log(f"batch512: items 0,32,..,480 agree with per-image compress_bytes;"
         f" items 0,64,..,448 pass the plain-scorer replay")
+    return total + phase_batch_layouts(T, dev, ssim_window, counters, tmp,
+                                       paths, res, w, h)
+
+
+def phase_batch_layouts(T, dev, ssim_window, counters, tmp, paths, res512,
+                        w=500, h=500, n=64):
+    """Phase 6, the two upload layouts photos do not take by default: n
+    files of noise at Q100 with default options (the census sends them
+    as dense int8: their values overflow COO's exceptions) and the first
+    n photos with FENNEC_UPLOAD=csr (the opt-in CSR route).  The noise
+    agrees with per-image compress_bytes, the CSR run's bytes equal the
+    default route's (res512).  Returns K1's launches."""
+    n = min(n, len(paths))
+    rng = np.random.default_rng(SEED + 600)
+    src = os.path.join(tmp, "noise500")
+    os.makedirs(src)
+    noise_paths, noise_datas = [], []
+    for i in range(n):
+        noise_datas.append(T.encode_to_bytes(rng.integers(
+            0, 256, (h, w, 3), dtype=np.uint8), T.JPEG, 100, device=dev))
+        noise_paths.append(os.path.join(src, f"noise{i:02d}.jpg"))
+        with open(noise_paths[-1], "wb") as f:
+            f.write(noise_datas[-1])
+    total = 0
+    outs = []
+    for tag, env, srcs, event in (
+            ("noise64", {}, noise_paths, "upload_i8"),
+            ("csr64", {"FENNEC_UPLOAD": "csr"}, paths[:n], "upload_csr")):
+        items = [T.BatchItem(src=p, dst=os.path.join(tmp, f"{tag}_{i}.jpg"))
+                 for i, p in enumerate(srcs)]
+        with env_set(env):
+            got, wall_ms, launches, snap = run_batch(
+                T, ssim_window, counters, items, dev, f"batch {tag}")
+        if snap["events"] != {event: len(snap["chunk_items"])}:
+            raise AssertionError(f"batch {tag}: events {snap['events']}, "
+                                 f"want {event} for every chunk")
+        log_batch(f"batch {tag} {env or 'default options'}", n, wall_ms,
+                  launches, snap, got, T)
+        total += launches
+        outs.append(got)
+    opts = T.Options(format=T.JPEG)
+    for i in range(0, n, 16):
+        want = T.compress_bytes(None, noise_datas[i], opts, device=dev)
+        check_contract(T, outs[0][i].result, want, dev, f"noise64 item {i}")
+    differ = [i for i in range(n) if outs[1][i].result.compressed_data
+              != res512[i].result.compressed_data]
+    if differ:
+        raise AssertionError(f"batch csr64: items {differ[:5]} differ from "
+                             f"the default route's")
+    log(f"batch noise64: items 0,16,32,48 agree with per-image "
+        f"compress_bytes; batch csr64: {n} outputs byte-identical to the "
+        f"default route's")
     return total
 
 
@@ -3203,7 +3336,8 @@ def mesh_units(snap, shards: int) -> int:
 
 
 def mesh_run(tag: str, run, counters, dev, shards: int, per_unit):
-    """One engine call with K1's, K2's and K3's counts set to 0 just
+    """One engine call with K1's, K2's, K3's, K5's and K6's counts set to
+    0 just
     before it and read just after: (outputs, wall s, launches).  Each
     kernel must have launched per_unit[k] times per shard chunk (a chunk
     of one device is one shard chunk; the kernels launch on a CUDA device
@@ -3215,7 +3349,7 @@ def mesh_run(tag: str, run, counters, dev, shards: int, per_unit):
 
     kernels = {"K1": ssim_window, "K2": probe_recon,
                "K3a": k3.block_stats, "K5": build_tables,
-               "K3b": k3.deposit}
+               "K3b": k3.deposit, "K6": K6Launches()}
     counters.reset()
     for k in kernels.values():
         k.launches = 0
@@ -3277,13 +3411,15 @@ def phase_mesh(T, dev, counters, big_path, tmp, n=512, w=500, h=500,
 
     routes = [
         ("batch512", batch(paths, T.Options(format=T.JPEG), "m"), n,
-         {"K1": 7, "K2": 7, "K3a": 1, "K5": 1, "K3b": 1}, "coefficient"),
+         {"K1": 7, "K2": 7, "K3a": 1, "K5": 1, "K3b": 1, "K6": 1},
+         "coefficient"),
         ("images256", pixel, 256,
-         {"K1": 7, "K2": 7, "K3a": 1, "K5": 1, "K3b": 1}, "pixel"),
+         {"K1": 7, "K2": 7, "K3a": 1, "K5": 1, "K3b": 1, "K6": 0}, "pixel"),
         # The Lanczos route keeps the host encoder (JAX :598-604).
         ("resize64", batch(paths[:64], T.Options(format=T.JPEG,
                                                   max_width=256), "r"), 64,
-         {"K1": 7, "K2": 7, "K3a": 0, "K5": 0, "K3b": 0}, "coefficient"),
+         {"K1": 7, "K2": 7, "K3a": 0, "K5": 0, "K3b": 0, "K6": 0},
+         "coefficient"),
     ]
     summary = {}
     for tag, run, count, per_unit, route in routes:
@@ -3653,6 +3789,444 @@ def phase_spatial(T, dev, rounds: int = 2):
     return summary
 
 
+# ── Phase 17: the upload routes and K6 ─────────────────────────────────────
+
+# K6's source lines it replaces, by layout: the XLA programs of the JAX
+# package that rebuild a chunk's blocks from its upload.
+K6_REPLACES = {"coo": "fennec_tpu/parallel/batched.py:570",
+               "i8": "fennec_tpu/parallel/batched.py:542",
+               "csr": "fennec_tpu/parallel/batched.py:732"}
+K6_KERNEL = {"coo": "coo_kernel", "i8": "i8_kernel", "csr": "csr_kernel"}
+# The batch routes phase 17 forces, with the environment that forces each
+# and the upload event its chunks must carry.
+WIRE_ROUTES = (("coo", {}, "upload_coo"),
+               ("dense", {"FENNEC_UPLOAD": "dense"}, "upload_i8"),
+               ("csr", {"FENNEC_UPLOAD": "csr"}, "upload_csr"))
+
+
+@contextlib.contextmanager
+def env_set(values: dict):
+    """os.environ with `values` set (None: removed), restored after."""
+    keys = ("FENNEC_UPLOAD", "FENNEC_COO", "FENNEC_PIXEL_WIRE", *values)
+    saved = {k: os.environ.get(k) for k in keys}
+    for k in keys:
+        os.environ.pop(k, None)
+    os.environ.update({k: v for k, v in values.items() if v is not None})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def int16_uploads(on: bool = True):
+    """While on, the coefficient engine uploads every chunk as int16
+    blocks, as it does a resized chunk (and as every chunk went up before
+    the compact routes): the yardstick phase 17 times them against.  It
+    patches the engine's private _CoefWire; phase 17 checks that every
+    chunk's event says upload_int16, so a patch that stops taking effect
+    fails there, and wire_search_agrees holds the layouts to int16
+    blocks without it."""
+    from fennec_tpu_torch.engine import batched as tb
+
+    real = tb._CoefWire.__init__
+
+    def init(self, *args, **kwargs):
+        real(self, *args, **kwargs)
+        self.resize = True
+
+    if on:
+        tb._CoefWire.__init__ = init
+    try:
+        yield
+    finally:
+        tb._CoefWire.__init__ = real
+
+
+def wire_exceptions(parts):
+    """Per-image (offsets, values) → (exc_off (B, E) int32, exc_val (B, E)
+    int16, exc_n (B,) int32) host tensors."""
+    e = max((p[0].size for p in parts), default=0)
+    off = np.zeros((len(parts), e), np.int32)
+    val = np.zeros((len(parts), e), np.int16)
+    n = np.zeros(len(parts), np.int32)
+    for j, (ei, ev) in enumerate(parts):
+        n[j] = ei.size
+        off[j, :ei.size] = ei
+        val[j, :ei.size] = ev
+    return [torch.from_numpy(x) for x in (off, val, n)]
+
+
+def wire_sections(datas, dev):
+    """The three upload layouts of files of one geometry, on `dev`, built
+    as the engine builds them (engine/batched._CoefWire): COO at the
+    census's R (the pairs past it demoted to exceptions), dense int8 cut
+    at the largest zigzag extent K (exceptions remapped to NT x K), CSR
+    from the census decode.  Returns ({layout: sections}, NT, R, K)."""
+    from fennec_tpu_torch.codecs import jpeg as cj
+    from fennec_tpu_torch.engine.batched import COO_RCAP, _census_r
+
+    specs = cj._build_decode_specs(cj.parse_jpeg(datas[0]))[4]
+    nt = sum(sp.bw * sp.bh for sp in specs)
+    b = len(datas)
+    dcp = np.zeros((b, nt), np.int8)
+    posp = np.zeros((b, nt, COO_RCAP), np.uint8)
+    valp = np.zeros((b, nt, COO_RCAP), np.int8)
+    full = np.zeros((b, nt, 64), np.int8)
+    coo_parts, i8_parts, maxks = [], [], []
+    hist = np.zeros(65, np.int64)
+    for j, d in enumerate(datas):
+        got = cj.decode_jpeg_to_coefs_coo(d, dcp[j], posp[j], valp[j],
+                                          max_exc=1 << 24)
+        got8 = cj.decode_jpeg_to_coefs_i8(d, full[j], max_exc=1 << 24)
+        if got is None or got8 is None:
+            raise AssertionError("wire: a file rejects the compact decoders")
+        coo_parts.append((got[1], got[2]))
+        hist += got[3]
+        i8_parts.append((got8[1], got8[2]))
+        maxks.append(got8[3])
+    r = _census_r(hist, b, nt)[0]
+    k = max(maxks)
+    coo = []
+    for j, (ei, ev) in enumerate(coo_parts):
+        blk, slot = np.nonzero(posp[j, :, r:])
+        coo.append((np.concatenate([ei, (blk * 64 + posp[j, blk, slot + r])
+                                    .astype(np.int32)]),
+                    np.concatenate([ev, valp[j, blk, slot + r]
+                                    .astype(np.int16)])))
+    occ = posp != 0
+    counts = occ.sum(axis=2).astype(np.uint8)
+    per_img = counts.sum(axis=1, dtype=np.int64)
+    spos = np.zeros((b, int(per_img.max())), np.uint8)
+    sval = np.zeros(spos.shape, np.int8)
+    for j in range(b):
+        spos[j, :per_img[j]] = posp[j][occ[j]]
+        sval[j, :per_img[j]] = valp[j][occ[j]]
+    host = {
+        "coo": [torch.from_numpy(dcp),
+                torch.from_numpy(np.ascontiguousarray(posp[:, :, :r])),
+                torch.from_numpy(np.ascontiguousarray(valp[:, :, :r])),
+                *wire_exceptions(coo)],
+        "i8": [torch.from_numpy(np.ascontiguousarray(full[:, :, :k])),
+               *wire_exceptions([((ei // 64) * k + ei % 64, ev)
+                                 for ei, ev in i8_parts])],
+        "csr": [torch.from_numpy(dcp), torch.from_numpy(counts),
+                torch.from_numpy(spos), torch.from_numpy(sval),
+                *wire_exceptions(coo_parts)],
+    }
+    return ({layout: [x.to(dev) for x in secs]
+             for layout, secs in host.items()}, nt, r, k)
+
+
+def wire_search_agrees(T, datas, sections, dev) -> None:
+    """The search's outputs (quality, SSIM, found, quantized blocks) from
+    these files' int16 blocks, decoded here by decode_jpeg_to_coefs, and
+    from each compact layout's sections through K6 (batched_wire_search_
+    quantize): all equal."""
+    from fennec_tpu_torch.codecs.jpeg import decode_jpeg_to_coefs
+    from fennec_tpu_torch.engine.batched import qualify_jpeg_bytes
+    from fennec_tpu_torch.parallel.batched import \
+        batched_wire_search_quantize
+
+    w, h, in_sub = qualify_jpeg_bytes(datas[0])
+    blocks = []
+    qtabs = np.zeros((len(datas), 2, 64), np.int32)
+    for j, d in enumerate(datas):
+        hdr, coefs = decode_jpeg_to_coefs(d)
+        blocks.append(np.concatenate(coefs))
+        for c in (0, 1):
+            qtabs[j, c] = hdr.qtables[hdr.comps[c]["tq"]]
+    opts = T.Options(format=T.JPEG)
+    args = (torch.from_numpy(qtabs).to(dev), h, w, in_sub,
+            bool(opts.subsample), [opts.quality.target_ssim()] * len(datas))
+    want = batched_wire_search_quantize(
+        "int16", (torch.from_numpy(np.stack(blocks)).to(dev),), *args)
+    for layout, secs in sections.items():
+        got = batched_wire_search_quantize(layout, secs, *args)
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"wire {layout}: the search's outputs "
+                                 f"differ from the int16 blocks'")
+    log(f"wire: the search over {len(datas)} files gives the same "
+        f"qualities, SSIM and blocks from int16 blocks and from "
+        f"{', '.join(sections)}")
+
+
+def k6_plain():
+    """{layout: K6's plain version} (fennec_tpu_torch/ops/coef_wire.py)."""
+    from fennec_tpu_torch.ops import coef_wire
+
+    return {"coo": coef_wire.coo_to_natural, "i8": coef_wire.i8_to_natural,
+            "csr": coef_wire.csr_to_natural}
+
+
+def check_k6(tag: str, datas, dev, want=None):
+    """K6 on every layout of these files against its plain version on the
+    same CUDA tensors, bit for bit, and against the C++ decoder's int16
+    blocks (`want`, decoded here when None).  Returns the layouts'
+    sections, NT, R and K."""
+    from fennec_tpu_torch.codecs.jpeg import decode_jpeg_to_coefs
+
+    sections, nt, r, k = wire_sections(datas, dev)
+    if want is None:
+        want = np.stack([np.concatenate(decode_jpeg_to_coefs(d)[1])
+                         for d in datas])
+    want_dev = torch.from_numpy(want).to(dev)
+    for layout, secs in sections.items():
+        got = k6_wrappers()[layout](*secs)
+        plain = k6_plain()[layout](*secs)
+        again = k6_wrappers()[layout](*secs)
+        if not (torch.equal(got, plain) and torch.equal(got, want_dev)
+                and torch.equal(got, again)):
+            bad = int((got != plain).sum()) + int((got != want_dev).sum())
+            raise AssertionError(f"K6 {tag} {layout}: {bad} of {got.numel()}"
+                                 f" values differ from the plain version or"
+                                 f" the decoder")
+    e = {lay: int(secs[-3].shape[1]) for lay, secs in sections.items()}
+    log(f"K6 {tag}: ({len(datas)}, {nt}) R={r} K={k} exception rows {e}: "
+        f"coo, i8, csr bit-equal to the plain version and the decoder")
+    return sections, nt, r, k
+
+
+def kernel_name(key: str) -> str:
+    """A profiler row's kernel name without its namespace and arguments."""
+    m = re.search(r"(\w+)\(", key)
+    return m.group(1) if m else key[:40]
+
+
+def k6_bound(layout: str, secs, nt: int) -> float:
+    """K6's least ms: the bytes it must read and write at the card's
+    memory rate (its work is a few integer operations a value: bytes
+    bound it).  Read: the dense sections whole, each image's exception
+    count and its live exception rows (6 bytes each; the (B, E) rows'
+    padding past exc_n is never read), and for CSR the live pairs (2
+    bytes each; the (B, M) streams' padding past each image's pairs is
+    never read); written: 128 bytes a block."""
+    exc_n = secs[-1]
+    dense = secs[:2] if layout == "csr" else secs[:-3]
+    pairs = int(secs[1].sum(dtype=torch.int64)) if layout == "csr" else 0
+    nbytes = sum(x.numel() * x.element_size() for x in dense)
+    nbytes += exc_n.numel() * 4 + int(exc_n.sum()) * 6 + pairs * 2
+    nbytes += secs[0].shape[0] * nt * 128
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def time_k6(tag: str, sections, nt: int, iters: int = 50) -> dict:
+    """K6's device ms per call (torch.profiler: every CUDA row of the call
+    over its rebuild kernel's launches), CUDA-event ms, host µs, bound and
+    share, and the plain version's CUDA-event ms, per layout."""
+    out = {}
+    for layout, secs in sections.items():
+        fn = functools.partial(k6_wrappers()[layout], *secs)
+        plain = functools.partial(k6_plain()[layout], *secs)
+        rows, _ = profiled_rows(fn, iters, K6_KERNEL[layout])
+        if rows is None:
+            dev_ms, ops, split = cuda_ms(fn, iters), None, None
+        else:
+            calls = sum(e.count for e in rows if K6_KERNEL[layout] in e.key)
+            dev_ms = sum(device_us(e) for e in rows) / calls / 1e3
+            ops = sum(e.count for e in rows) / calls
+            # Device µs per call of each kernel of the call.
+            split = {kernel_name(e.key): device_us(e) / calls for e in rows}
+        bound = k6_bound(layout, secs, nt)
+        out[layout] = {
+            "shape": [int(secs[0].shape[0]), nt], "ms": dev_ms,
+            "device_ops": ops, "kernel_us": split,
+            "exception_rows": int(secs[-1].sum()),
+            "event_ms": cuda_ms(fn, iters),
+            "host_us": host_us(fn, iters), "plain_ms": cuda_ms(plain, 3),
+            "bound_ms": bound, "bound_by": "bytes", "share": bound / dev_ms,
+            "wire_bytes": sum(x.numel() * x.element_size() for x in secs)}
+        log(f"K6 timing {tag} {layout}: " + json.dumps(out[layout]))
+    return out
+
+
+def phase_wire(T, dev, ssim_window, counters, tmp, n=512, w=500, h=500,
+               big_wh=(4032, 3024), n_big=16, n_pixel=256):
+    """Phase 17: K6 against its plain version on every layout at the
+    batch path's shapes, its timings, the 512-file batch through each
+    route (int16 and COO in turns), and the pixel path's two wires.  Returns ({case: {layout:
+    timings}}, the largest difference (0)).  The sizes are parameters so
+    that the phase rehearses on the CPU (no timings there)."""
+    started = time.perf_counter()
+    timed = dev.type == "cuda"
+    # K6 at the 64 x 500x500 chunk, 16 x 12 MP, noise at Q100 and ragged
+    # geometries; timed at the first two.
+    paths, datas = write_files500(T, dev, os.path.join(tmp, "wire500"), n,
+                                  w, h)
+    times = {}
+    secs, nt, *_ = check_k6(f"{w}x{h}x64", datas[:64], dev)
+    if timed:
+        times["500x500x64"] = time_k6("500x500x64", secs, nt)
+    wire_search_agrees(T, datas[:64], secs, dev)
+    del secs
+    base = photo(*big_wh, SEED + 500)
+    big = [T.encode_to_bytes(np.roll(base, (61 * i, 97 * i), axis=(0, 1)),
+                             T.JPEG, 92, device=dev) for i in range(n_big)]
+    del base
+    secs, nt, *_ = check_k6(f"{big_wh[0]}x{big_wh[1]}x{n_big}", big, dev)
+    if timed:
+        times["12mp_x16"] = time_k6("12mp_x16", secs, nt, iters=20)
+    del secs, big
+    rng = np.random.default_rng(SEED + 1700)
+    noise = [T.encode_to_bytes(rng.integers(0, 256, (h, w, 4),
+                                            dtype=np.uint8), T.JPEG, 100,
+                               device=dev) for _ in range(8)]
+    check_k6("noise_q100_x8", noise, dev)
+    for rw, rh in ((17, 9), (513, 700)):
+        ragged = [T.encode_to_bytes(photo(rw, rh, SEED + rw + s), T.JPEG, 95,
+                                    device=dev) for s in range(3)]
+        check_k6(f"{rw}x{rh}_x3", ragged, dev)
+    if timed:
+        torch.cuda.empty_cache()
+    log(f"wire: K6 checked and timed in "
+        f"{time.perf_counter() - started:.1f} s")
+
+    # The 512-file batch: the int16 upload (the yardstick) and COO (the
+    # default) in turns, three runs each, then dense int8 and CSR once;
+    # each route's last run profiled.  The four byte-identical, every 32nd
+    # item held to per-image compress_bytes.
+    batch_started = time.perf_counter()
+    order = ("int16", "coo", "coo", "int16", "int16", "coo", "dense", "csr")
+    route_of = {route: (env, event) for route, env, event in WIRE_ROUTES}
+    route_of["int16"] = ({}, "upload_int16")
+    summary = {route: {"runs": []} for route in route_of}
+    outs = {}
+    for k, route in enumerate(order):
+        env, event = route_of[route]
+        last = k == max(i for i, r in enumerate(order) if r == route)
+        items = [T.BatchItem(src=p, dst=os.path.join(
+            tmp, f"w{route}{k}_{i}.jpg")) for i, p in enumerate(paths)]
+        with env_set(env), int16_uploads(route == "int16"):
+            res, wall_ms, launches, snap = run_batch(
+                T, ssim_window, counters, items, dev, f"wire {route} run {k}",
+                main=False)
+            idle = (profile_device(lambda: T.compress_batch(
+                None, items, T.BatchOptions(
+                    fused=True, default_opts=T.Options(format=T.JPEG)),
+                device=dev), f"wire {route}") if timed and last else None)
+        chunks = len(snap["chunk_items"])
+        if snap["events"] != {event: chunks}:
+            raise AssertionError(f"wire {route}: events {snap['events']}, "
+                                 f"want {event} for each of {chunks} chunks")
+        log_batch(f"wire {route} run {k}", n, wall_ms, launches, snap, res, T)
+        st = snap["stage_seconds"]
+        summary[route]["runs"].append({
+            "run": k, "img_per_s": n / (wall_ms / 1e3),
+            "prep_s": st.get("prep", 0.0), "device_s": st.get("device", 0.0),
+            "encode_summed_s": st.get("encode", 0.0)})
+        blobs = []
+        for r in res:
+            with open(r.item.dst, "rb") as f:
+                blobs.append(f.read())
+        if outs.setdefault(route, blobs) != blobs:
+            raise AssertionError(f"wire {route}: outputs differ between runs")
+        if last:
+            summary[route].update(
+                uploaded_bytes_per_chunk=snap["uploaded_bytes"] / chunks,
+                device_idle_share=idle, chunks=chunks, digest=digest(blobs))
+    for route in ("coo", "dense", "csr"):
+        if outs[route] != outs["int16"]:
+            diff = sum(a != b for a, b in zip(outs[route], outs["int16"]))
+            raise AssertionError(f"wire {route}: {diff} outputs differ from "
+                                 f"the int16 route's")
+    opts = T.Options(format=T.JPEG)
+    identical = 0
+    for i in range(0, n, 32):  # res: the CSR run's, equal to the others
+        want = T.compress_bytes(None, datas[i], opts, device=dev)
+        check_contract(T, res[i].result, want, dev, f"wire item {i}")
+        identical += want.compressed_data == outs["coo"][i]
+    summary["per_image_bytes_identical"] = \
+        f"{identical} of {len(range(0, n, 32))}"
+    # A resized chunk keeps the int16 blocks: no K6.
+    items = [T.BatchItem(src=p, dst=os.path.join(tmp, f"wr{i}.jpg"))
+             for i, p in enumerate(paths[:64])]
+    counters.reset()
+    k3_zero()
+    bad = [r.err for r in T.compress_batch(None, items, T.BatchOptions(
+        fused=True, default_opts=T.Options(format=T.JPEG,
+                                           max_width=w // 2)),
+        device=dev) if r.err is not None]
+    snap = counters.snapshot()
+    if bad or snap["events"] != {"upload_int16": len(snap["chunk_items"])} \
+            or K6Launches().launches:
+        raise AssertionError(f"wire resize: errors {bad[:3]}, events "
+                             f"{snap['events']}, K6 launches "
+                             f"{K6Launches().launches}")
+    log(f"wire: the four routes byte-identical, items 0,32,..,480 agree "
+        f"with per-image compress_bytes; the resized batch uploads int16 "
+        f"blocks and launches no K6 ({time.perf_counter() - batch_started:.1f}"
+        f" s)")
+    pixel_started = time.perf_counter()
+
+    # The pixel path's two wires over 256 images (32 distinct x 8).
+    distinct = [photo(w, h, SEED + 300 + k) for k in range(32)]
+    images = [distinct[i % 32] for i in range(n_pixel)]
+    pixel = {}
+    target = T.Options().quality.target_ssim()
+    # Coded on the device (the card's default; the CPU rehearses it too).
+    popts = T.Options(format=T.JPEG, device_entropy=True)
+    for wire in ("rgb", "yuv420"):
+        with env_set({"FENNEC_PIXEL_WIRE": wire}):
+            for tag in ("cold", "warm"):
+                counters.reset()
+                ssim_window.launches = 0
+                k3_zero()
+                t = time.perf_counter()
+                got = T.compress_images(None, images, popts, device=dev)
+                wall_ms = (time.perf_counter() - t) * 1e3
+                snap = counters.snapshot()
+                k3_take(f"wire images256 {wire} {tag}", dev,
+                        len(snap["chunk_items"]),
+                        probes=7 * len(snap["chunk_items"]), main=False)
+                if snap["events"] != {f"upload_{wire}":
+                                      len(snap["chunk_items"])}:
+                    raise AssertionError(f"wire {wire}: events "
+                                         f"{snap['events']}")
+        pixel[wire] = got
+        summary[f"images256_{wire}"] = {
+            "img_per_s": n_pixel / (wall_ms / 1e3),
+            "uploaded_bytes": snap["uploaded_bytes"],
+            "prep_s": snap["stage_seconds"].get("prep", 0.0)}
+    changed = sum(a.jpeg_quality != b.jpeg_quality
+                  for a, b in zip(pixel["rgb"], pixel["yuv420"]))
+    deltas = np.array([b.jpeg_quality - a.jpeg_quality
+                       for a, b in zip(pixel["rgb"], pixel["yuv420"])])
+    moves = {int(d): int((deltas == d).sum()) for d in np.unique(deltas)}
+    dssim = max(abs(a.ssim - b.ssim)
+                for a, b in zip(pixel["rgb"], pixel["yuv420"]))
+    missed = [i for i, r in enumerate(pixel["yuv420"])
+              if r.ssim < target and (r.jpeg_quality, r.ssim) != (100, 1.0)]
+    if missed:
+        raise AssertionError(f"wire yuv420: items {missed[:5]} miss their "
+                             f"target {target}")
+    summary["images256_yuv420"].update(changed_qualities=changed,
+                                       quality_moves=moves,
+                                       max_abs_dssim=dssim)
+    log(f"wire images256: yuv420 against rgb: {changed} of {n_pixel} "
+        f"qualities changed (yuv420 - rgb: count {moves}), max |dSSIM| "
+        f"{dssim:.3e}; every yuv420 output meets its target or is the Q100 "
+        f"fallback")
+    log(f"wire: the pixel wires took {time.perf_counter() - pixel_started:.1f}"
+        f" s")
+    log("wire summary: " + json.dumps(summary))
+    log(f"wire: phase 17 took {time.perf_counter() - started:.1f} s")
+    return times, 0
+
+
+def wire_only(T, dev, ssim_window) -> int:
+    """`--wire`: phases 1, 2 and 17 alone; no main path, so no result
+    line."""
+    from fennec_tpu_torch.engine.batched import counters
+
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_wire(T, dev, ssim_window, counters, tmp)
+    log(f"wire only: every case passed; K6 launches {K6_WIRE}")
+    return 0
+
+
 def build_all(ssim_window, k3, probe_recon):
     """Phase 2: every kernel of the port and the host entropy coder
     built from this checkout's sources, all at once; returns the first
@@ -3661,6 +4235,7 @@ def build_all(ssim_window, k3, probe_recon):
     from concurrent.futures import ThreadPoolExecutor
 
     from fennec_tpu_torch import native
+    from fennec_tpu_torch.ops import coef_wire_cuda as k6
     from fennec_tpu_torch.ops import huffbuild_cuda as k5
 
     def timed(build):
@@ -3668,7 +4243,7 @@ def build_all(ssim_window, k3, probe_recon):
         got = build()
         return time.perf_counter() - t, got
 
-    with ThreadPoolExecutor(10) as pool:
+    with ThreadPoolExecutor(11) as pool:
         done = list(pool.map(timed, (
             lambda: ssim_window.build(force=True),
             lambda: k3.library.build(force=True),
@@ -3678,25 +4253,28 @@ def build_all(ssim_window, k3, probe_recon):
             lambda: K5Build(FIRST_K5_SOURCE, "first"),
             lambda: K5Build(FIRST_K5_SOURCE, "first_stamped", True),
             lambda: K5Build(os.path.relpath(k5.SOURCE, HERE), "stamped",
-                            True))))
+                            True),
+            lambda: k6.library.build(force=True))))
     ssim_window.load()
     k3.library.load()
     native.load()
     probe_recon.load()
     k5.library.load()
+    k6.library.load()
     log(f"build k1_nvcc_s={done[0][0]:.3f} k3_nvcc_s={done[1][0]:.3f} "
         f"native_gxx_s={done[2][0]:.3f} first_k3_nvcc_s={done[3][0]:.3f} "
         f"k2_nvcc_s={done[4][0]:.3f} first_k2_nvcc_s={done[5][0]:.3f} "
         f"k5_nvcc_s={done[6][0]:.3f} first_k5_nvcc_s={done[7][0]:.3f} "
-        f"stamped_k5_nvcc_s={done[8][0]:.3f}, {done[9][0]:.3f} (in "
-        f"parallel)")
+        f"stamped_k5_nvcc_s={done[8][0]:.3f}, {done[9][0]:.3f} "
+        f"k6_nvcc_s={done[10][0]:.3f} (in parallel)")
     log(ssim_window.build_log.strip())
     log(k3.library.build_log.strip())
     log(probe_recon.build_log.strip())
     for tag, text in (("K5", k5.library.build_log),
                       ("first K5", done[7][1].build_log),
                       ("first K5 -DK5_STAMPS", done[8][1].build_log),
-                      ("K5 -DK5_STAMPS", done[9][1].build_log)):
+                      ("K5 -DK5_STAMPS", done[9][1].build_log),
+                      ("K6", k6.library.build_log)):
         log(f"{tag} nvcc -Xptxas -v: {text.strip()}")
     lib = k3.library.load()
     log(f"K3 segment_blocks={k3.library.segment_blocks} resident CTAs "
@@ -3814,6 +4392,7 @@ def main(only: str = "") -> int:
 
     # 2. Build: the nvcc builds (K1, K2, K3 and the first K3, kept for
     # phase 11's timing in turns) and the g++ build at once.
+    from fennec_tpu_torch.ops import coef_wire_cuda as k6
     from fennec_tpu_torch.ops import huffbuild_cuda as k5
     from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
     from fennec_tpu_torch.ops import probe_recon_cuda as k2
@@ -3831,6 +4410,8 @@ def main(only: str = "") -> int:
         return k2_only(T, dev, first_k2)
     if only == "k5":
         return k5_only(T, dev, first_k5, stamped)
+    if only == "wire":
+        return wire_only(T, dev, ssim_window)
     if only == "mesh":
         from fennec_tpu_torch.engine.batched import counters
 
@@ -3958,7 +4539,11 @@ def main(only: str = "") -> int:
                                          big_path)
         phase_ts_card_vs_cpu(T, dev, big_img)
     log(f"main path launches (phases 4, 6-8, 10): K3 and K4 {K3_MAIN}, "
-        f"K2 {K2_MAIN}")
+        f"K2 {K2_MAIN}, K6 {K6_MAIN}")
+    if not all(K6_MAIN.values()):
+        raise AssertionError(f"the main path launched K6 {K6_MAIN}: every "
+                             f"layout must run (photos as COO, noise as "
+                             f"dense int8, FENNEC_UPLOAD=csr as CSR)")
     log(f"replays of the bisection with the plain scorer: "
         f"{REPLAY['probes']} probes, largest |SSIM difference| between K2 "
         f"+ K1 and the plain scorer {REPLAY['max_ssim_diff']:.3e}, "
@@ -3995,6 +4580,10 @@ def main(only: str = "") -> int:
     k5_err, k5_times, k5_emits, _splits = phase_k5(T, dev, (
         quality["12mp_balanced"], quality["1080p_balanced"], q500),
         first_k5, stamped)
+    # 17. The upload routes: K6 against its plain version, the batch
+    # through each route, the pixel path's two wires.
+    with tempfile.TemporaryDirectory() as tmp:
+        k6_times, k6_err = phase_wire(T, dev, ssim_window, counters, tmp)
     log("K5 emission summary (ms, K5 flow vs host-built flow in turns): "
         + json.dumps(k5_emits))
     log("mesh summary (warm img/s, median of 3; cross-card scaling not "
@@ -4100,6 +4689,32 @@ def main(only: str = "") -> int:
             "shape", "live", "ms", "event_ms", "host_us", "first_ms",
             "first_event_ms", "first_host_us", "bound_ms", "bound_by",
             "chain_ms", "share")} for case in K5_TIMED[1:]}})
+    # K6: one row per layout, timed at the 64 x 500x500 chunk (12 MP x 16
+    # beside it); launches from the main path, phase 17's beside them.
+    k6_main_runs = {
+        "coo": "default options: the 500x500 and 12 MP photo batches",
+        "i8": "default options: 64 files of noise at Q100",
+        "csr": "FENNEC_UPLOAD=csr (opt-in): 64 of the 500x500 photos"}
+    for layout in ("coo", "i8", "csr"):
+        kt, kb = k6_times["500x500x64"][layout], k6_times["12mp_x16"][layout]
+        k3_rows.append({
+            "name": f"coef_wire_{layout}", "route": "cuda",
+            "source": os.path.relpath(k6.SOURCE, HERE),
+            # An XLA program of the JAX package, not a Pallas kernel.
+            "replaces": K6_REPLACES[layout],
+            "launches": K6_MAIN[layout],
+            "main_path_runs": k6_main_runs[layout],
+            "phase17_launches": K6_WIRE[layout],
+            # Integer blocks against the plain version's and the decoder's.
+            "max_abs_err": k6_err, "shape": kt["shape"],
+            "ms": kt["ms"], "plain_ms": kt["plain_ms"],
+            "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"],
+            "share": kt["share"],
+            # No one PyTorch call rebuilds the blocks (several do).
+            "library_ms": None,
+            "event_ms": kt["event_ms"], "host_us": kt["host_us"],
+            "device_ops": kt["device_ops"], "wire_bytes": kt["wire_bytes"],
+            "12mp_x16": kb})
     t = times[(1, 384, 512)]
     k2t = k2_times["12mp_420_q30"]
     print(json.dumps({"kernels": [{
@@ -4155,7 +4770,7 @@ def main(only: str = "") -> int:
 
 if __name__ == "__main__":
     flags = {"--k2": "k2", "--k3": "k3", "--k5": "k5",
-             "--digests": "digests", "--mesh": "mesh"}
+             "--digests": "digests", "--mesh": "mesh", "--wire": "wire"}
     if len(sys.argv) > 2 or (len(sys.argv) == 2
                              and sys.argv[1] not in flags):
         raise SystemExit(f"usage: python3 chip_smoke.py [{' | '.join(flags)}]")

@@ -389,6 +389,70 @@ def decode_jpeg_to_coefs(data: bytes):
     return hdr, coefs
 
 
+def _single_scan_specs(data: bytes, nt: int):
+    """(header, decode specs) of a single-scan baseline JPEG whose block
+    grid has `nt` blocks, or (header, None) for a multi-scan file.  A
+    grid of another size raises ValueError."""
+    hdr = parse_jpeg(data)
+    if len(hdr.scan_comps) != hdr.ncomp:
+        return hdr, None
+    specs = _build_decode_specs(hdr)[4]
+    got = sum(s.bw * s.bh for s in specs)
+    if got != nt:
+        raise ValueError(f"fennec: JPEG block grid of {got} blocks, the "
+                         f"buffer holds {nt}")
+    return hdr, specs
+
+
+def decode_jpeg_to_coefs_i8(data: bytes, out: np.ndarray,
+                            max_exc: int = 16384):
+    """Decode a single-scan baseline JPEG straight into `out`, (NT, 64)
+    int8 blocks in ZIGZAG order, with |v| > 127 as an exception list of
+    image-local offsets into the NT * 64 layout (JAX
+    codecs/jpeg.py:470; an offset into a whole chunk would pass int32 at
+    about 24 MP x 64 images).  One C++ pass.
+
+    Returns (hdr, exc_idx int32, exc_val int16, largest nonzero zigzag
+    extent), or None when this route does not apply: a multi-scan file,
+    or data the C++ decoder rejects (corrupt, or more than max_exc
+    exceptions).  The caller then decodes with decode_jpeg_to_coefs,
+    which raises the precise error."""
+    hdr, specs = _single_scan_specs(data, out.shape[0])
+    if specs is None:
+        return None
+    try:
+        exc_idx, exc_val, maxk = native.jpeg_decode_scan_i8(
+            data, hdr.scan_offset, specs, hdr.restart_interval, out, max_exc)
+    except native.ScanRejected:
+        return None
+    return hdr, exc_idx, exc_val, maxk
+
+
+def decode_jpeg_to_coefs_coo(data: bytes, out_dc: np.ndarray,
+                             out_pos: np.ndarray, out_val: np.ndarray,
+                             max_exc: int = 16384):
+    """Decode a single-scan baseline JPEG straight into the sparse COO
+    layout (JAX codecs/jpeg.py:495): out_dc (NT,) int8, out_pos / out_val
+    (NT, R) uint8 / int8, each block's AC nonzeros as (zigzag position,
+    value) pairs, position 0 padding; |v| > 127 and the pairs past R ride
+    the exception list as image-local offsets into the NT * 64 zigzag
+    layout.  One C++ pass.
+
+    Returns (hdr, exc_idx, exc_val, cnt_hist, largest nonzero zigzag
+    extent), or None when this route does not apply (as
+    decode_jpeg_to_coefs_i8); the caller takes the dense route."""
+    hdr, specs = _single_scan_specs(data, out_dc.shape[0])
+    if specs is None:
+        return None
+    try:
+        got = native.jpeg_decode_scan_coo(data, hdr.scan_offset, specs,
+                                          hdr.restart_interval, out_dc,
+                                          out_pos, out_val, max_exc)
+    except native.ScanRejected:
+        return None
+    return (hdr, *got)
+
+
 def _decode_multiscan_to_coefs(data: bytes, hdr: JpegHeader,
                                mcus_x: int, mcus_y: int,
                                hmax: int, vmax: int):

@@ -8,9 +8,32 @@ Counterpart of fennec_tpu/engine/batched.py.  Two entry points:
                                quantization run on the device);
   compress_jpeg_bytes_batched  JPEG files of one geometry → Results (the
                                coefficient path: the host C++ decoder's
-                               int16 blocks go up; the device
-                               reconstructs, optionally resizes, searches
-                               and quantizes; pixels never reach the host).
+                               blocks go up in a compact layout; the device
+                               rebuilds them (kernel K6), reconstructs,
+                               optionally resizes, searches and quantizes;
+                               pixels never reach the host).
+
+Upload routes (JAX :92-105, :893-1268, :2177-2243).  An unresized
+coefficient chunk goes up as sparse COO (the DC plane and R (zigzag
+position, int8 value) pairs a block, R from the chunk's census over
+2, 4, 6, 8, 12, 16), as dense int8 blocks cut after the chunk's largest
+zigzag extent when COO would cost at least 0.85 of that or when a file
+rejects the COO decoder, or as CSR (each block's exact pairs) on request;
+each layout carries the values it cannot hold as exceptions (_CoefWire,
+ops/coef_wire.py).  After a COO chunk the next ones decode straight into
+their pinned upload tensors at the last census's R.  A resized chunk
+uploads int16 blocks, as the JAX package's resize path does.
+FENNEC_UPLOAD=dense|csr forces that layout (FENNEC_COO=0, the JAX
+package's spelling, forces dense); both serve A/B timing (ROADMAP).
+The pixel path uploads RGB(A) stacks; FENNEC_PIXEL_WIRE=yuv420 sends an
+opaque 4:2:0 chunk coded on the device as YCbCr 4:2:0 planes converted on
+the host (half the bytes).  That wire rounds the planes to u8 and takes
+the original's luminance from the rounded Y plane, so its output can
+differ from compress_image's (PARITY.md:120-130): the port's default is
+"rgb", where the JAX package's is "yuv420" (its host sat behind a slow
+link).  `counters` events name each chunk's route:
+upload_coo, upload_i8, upload_csr, upload_int16, upload_rgb,
+upload_yuv420.
 
 Both run one stage pipeline (_Pipeline), where the JAX package has two
 copies (_run_a / _run_b):
@@ -81,9 +104,10 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from .. import native
 from ..codecs.jpeg import encode_quantized
 from ..image import analyze_format, is_opaque, to_nrgba, validate_image
-from ..parallel.batched import shard_data_call
+from ..parallel.batched import batched_search_yuv420, shard_data_call
 from ..parallel.mesh import DataMesh
 from ..ops.resize import (
     lanczos_weights_device,
@@ -128,7 +152,9 @@ class EngineCounters:
     strategy, "ts_encode" and "ts_png" for its host JPEG encode rounds
     and PNG deflates, which overlap the strategies' seconds) and event
     counts (the target-size engines' "ts_waves",
-    "ts_probes", "ts_memo_hits" and "ts_s3_rounds")."""
+    "ts_probes", "ts_memo_hits" and "ts_s3_rounds"; a chunk's upload
+    route, "upload_coo", "upload_i8", "upload_csr", "upload_int16",
+    "upload_rgb" or "upload_yuv420")."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -463,7 +489,10 @@ def compress_images_batched(ctx: Optional[Context],
 
     Equivalent to [compress_image(ctx, im, opts) for im in images]: the
     chunks upload the RGB (RGBA where an image has alpha) pixels the
-    single-image path uploads, so each image's bytes are the same.
+    single-image path uploads, so each image's bytes are the same;
+    FENNEC_PIXEL_WIRE=yuv420 sends an opaque chunk coded on the device
+    with 4:2:0 output as YCbCr 4:2:0 planes instead (see the module
+    docstring; its u8 planes can move a result).
     on_chunk streams [(index, Result)] groups as they become final,
     on_error (index, error) pairs; FusedChunkError follows the work when
     any item failed.  workers sizes the host encode pool (0 = auto).
@@ -510,19 +539,38 @@ def compress_images_batched(ctx: Optional[Context],
     pipe = _Pipeline(ctx, mesh, results, "pixel", workers, on_chunk,
                      on_error)
 
+    yuv420 = (os.environ.get("FENNEC_PIXEL_WIRE", "rgb") == "yuv420"
+              and subsample and emit)
+
     def prep(ids):
         h, w = prepped[ids[0]].shape[:2]
         nch = 3 if all(is_opaque(prepped[i]) for i in ids) else 4
-        stack = _host_empty((len(ids), h, w, nch), torch.uint8, dev)
+        kind = "yuv420" if yuv420 and nch == 3 else "rgb"
+        if kind == "yuv420":
+            # One C++ pass per image from its NRGBA array straight into
+            # its pinned wire row (JAX _make_stack, :2177-2243).
+            stack = _host_empty((len(ids), native.yuv420_wire_size(h, w)),
+                                torch.uint8, dev)
+        else:
+            stack = _host_empty((len(ids), h, w, nch), torch.uint8, dev)
         host = stack.numpy()
 
         def fill(j: int) -> None:
-            host[j] = prepped[ids[j]][..., :nch]
+            if kind == "yuv420":
+                native.rgba_to_yuv420_into(
+                    np.ascontiguousarray(prepped[ids[j]]), host[j])
+            else:
+                host[j] = prepped[ids[j]][..., :nch]
 
         list(pipe.pool.map(fill, range(len(ids))))
-        return stack, [target] * len(ids)
+        counters.add_event(f"upload_{kind}")
+        return [(kind, h, w)] * len(ids), stack, [target] * len(ids)
 
-    def run_device(stack, targets):
+    def run_device(kinds, stack, targets):
+        kind, h, w = kinds[0]
+        if kind == "yuv420":
+            return batched_search_yuv420(stack, targets, h, w, emit,
+                                         opts.optimize_huffman)
         return batched_quality_search_quantize(stack.to(torch.float32),
                                                targets, subsample, emit,
                                                opts.optimize_huffman)
@@ -533,6 +581,28 @@ def compress_images_batched(ctx: Optional[Context],
 
     pipe.run(chunks, prep, run_device, encode)
     return results
+
+
+def _yuv420_wire_host(stack: np.ndarray, h: int, w: int) -> np.ndarray:
+    """(B, H, W, 3) uint8 RGB → (B, ph·pw + 2·(ph/2)·(pw/2)) uint8 YCbCr
+    4:2:0 wire rows, in numpy (JAX :195's conversion): forward_dct's
+    colour convert, edge pad to 16 and 2×2 chroma mean, rounded to u8.
+    The engine fills its wire with native.rgba_to_yuv420_into, which
+    agrees with this to 1 LSB (16.16 fixed point)."""
+    ph, pw = h + (-h) % 16, w + (-w) % 16
+    rgb = stack.astype(np.float32)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = 128.0 - 0.168735892 * r - 0.331264108 * g + 0.5 * b
+    cr = 128.0 + 0.5 * r - 0.418687589 * g - 0.081312411 * b
+    if (ph, pw) != (h, w):
+        pads = ((0, 0), (0, ph - h), (0, pw - w))
+        y, cb, cr = (np.pad(p, pads, mode="edge") for p in (y, cb, cr))
+    bsz = stack.shape[0]
+    cb = cb.reshape(bsz, ph // 2, 2, pw // 2, 2).mean(axis=(2, 4))
+    cr = cr.reshape(bsz, ph // 2, 2, pw // 2, 2).mean(axis=(2, 4))
+    return np.concatenate([np.clip(np.rint(p), 0, 255).reshape(bsz, -1)
+                           for p in (y, cb, cr)], axis=1).astype(np.uint8)
 
 
 def _prepare(ctx: Optional[Context], images: List[np.ndarray],
@@ -690,6 +760,286 @@ def qualify_jpeg_bytes(data: bytes):
     return (hdr.width, hdr.height, in_sub)
 
 
+COO_RS = (2, 4, 6, 8, 12, 16)  # the COO slot widths a census picks from
+COO_RCAP = COO_RS[-1]  # the census decode's slots; more are exceptions
+DENSE_SHARE = 0.85  # COO at this share of the dense int8 bytes or more: dense
+
+
+def _census_r(hist: np.ndarray, bsz: int, nt: int) -> Tuple[int, int]:
+    """(R, COO bytes) of the slot width in COO_RS that uploads the fewest
+    bytes for a chunk whose census is hist[k] = blocks with k AC nonzeros
+    within int8 (JAX _best_coo_r, :1119): each block's DC and R pairs, and
+    6 bytes (offset and value) for every pair past R."""
+    ks = np.arange(hist.size)
+    best = None
+    for r in COO_RS:
+        over = int((ks - r).clip(0).dot(hist))
+        cost = bsz * nt * (1 + 2 * r) + 6 * over
+        if best is None or cost < best[1]:
+            best = (r, cost)
+    return best
+
+
+class _CoefWire:
+    """The host half of the coefficient path's upload routes: prep(ids)
+    decodes a chunk's files into pinned upload tensors and returns the
+    pipeline's payload ([kind] * B, the kind's sections, qtabs, targets),
+    kind "coo", "i8" or "csr" (ops/coef_wire.py's layouts; exceptions
+    (B, E) rows with a count per image, so a chunk halves and shards by
+    its rows) or "int16".  A file that fails to decode fails alone (zero
+    blocks, unit tables); its row still rides the chunk and is never
+    encoded."""
+
+    def __init__(self, pipe: "_Pipeline", datas: Sequence[bytes], nt: int,
+                 geometry: str, target: float, dev: torch.device,
+                 resize: bool) -> None:
+        self.pipe = pipe
+        self.datas = datas
+        self.nt = nt
+        self.geometry = geometry
+        self.target = target
+        self.dev = dev
+        self.resize = resize
+        self.force = os.environ.get("FENNEC_UPLOAD", "")
+        if self.force not in ("", "dense", "csr"):
+            raise ValueError(f"fennec: FENNEC_UPLOAD={self.force!r}; "
+                             f"expected dense or csr")
+        if os.environ.get("FENNEC_COO", "1") == "0":
+            self.force = "dense"  # the JAX package's spelling; it wins
+        # At most one exception a block before a file takes the dense
+        # fallback (the JAX package allows 16 384 a file).
+        self.max_exc = max(16384, nt)
+        self.sticky_r = 0  # the last census's R, once a chunk went as COO
+
+    def prep(self, ids: List[int]) -> tuple:
+        if self.resize:
+            kind, wire, qts = "int16", *self._int16(ids)
+        elif self.force == "dense":
+            kind, wire, qts = "i8", *self._dense(ids)
+        else:
+            got = self._sticky(ids) if self.sticky_r else None
+            kind, wire, qts = got if got is not None else self._census(ids)
+        counters.add_event(f"upload_{kind}")
+        return ([kind] * len(ids), *wire, qts, [self.target] * len(ids))
+
+    # ── helpers ──
+
+    def _empty(self, shape, dtype) -> Tuple[torch.Tensor, np.ndarray]:
+        t = _host_empty(shape, dtype, self.dev)
+        return t, t.numpy()
+
+    def _grid_error(self, got) -> ValueError:
+        return ValueError(f"fennec: JPEG block grid {got} does not match its "
+                          f"{self.geometry} header")
+
+    def _tables(self, q: np.ndarray, j: int, hdr) -> None:
+        q[j, 0] = hdr.qtables[hdr.comps[0]["tq"]]
+        q[j, 1] = hdr.qtables[hdr.comps[1]["tq"]]
+
+    def _failed(self, ids, j: int, q: np.ndarray, exc: BaseException) -> None:
+        q[j] = 1
+        self.pipe.fail(ids[j], exc)
+
+    def _exceptions(self, parts) -> Tuple[torch.Tensor, ...]:
+        """Per-image (offsets, values) → pinned exc_off (B, E) int32,
+        exc_val (B, E) int16 and exc_n (B,) int32, E the most of any
+        image."""
+        bsz = len(parts)
+        e = max((p[0].size for p in parts), default=0)
+        off, off_h = self._empty((bsz, e), torch.int32)
+        val, val_h = self._empty((bsz, e), torch.int16)
+        n, n_h = self._empty((bsz,), torch.int32)
+        off_h[:] = 0
+        val_h[:] = 0
+        for j, (ei, ev) in enumerate(parts):
+            n_h[j] = ei.size
+            off_h[j, :ei.size] = ei
+            val_h[j, :ei.size] = ev
+        return off, val, n
+
+    def _map(self, fn, ids) -> None:
+        list(self.pipe.pool.map(fn, range(len(ids))))
+
+    # ── the routes ──
+
+    def _int16(self, ids):
+        """(B, NT, 64) int16 natural-order blocks: the resize route."""
+        from ..codecs.jpeg import decode_jpeg_to_coefs
+
+        blocks, b_host = self._empty((len(ids), self.nt, 64), torch.int16)
+        qtabs, q_host = self._empty((len(ids), 2, 64), torch.int32)
+
+        def one(j: int) -> None:
+            try:
+                hdr, coefs = decode_jpeg_to_coefs(self.datas[ids[j]])
+                flat = np.concatenate(coefs)
+                if flat.shape != (self.nt, 64):
+                    raise self._grid_error(flat.shape)
+                b_host[j] = flat
+                self._tables(q_host, j, hdr)
+            except Exception as exc:  # noqa: BLE001 — per-item error
+                b_host[j] = 0
+                self._failed(ids, j, q_host, exc)
+
+        self._map(one, ids)
+        return (blocks,), qtabs
+
+    def _dense(self, ids):
+        """Dense int8 (JAX _prep_chunk_dense, :928): each file decoded in
+        one C++ pass into zigzag int8 blocks with its exceptions, or, when
+        that decoder rejects it, decoded to int16 and split by the C++
+        int8 packer; then cut after the chunk's largest nonzero zigzag
+        extent K, the exceptions remapped to the NT × K layout."""
+        from ..codecs.jpeg import decode_jpeg_to_coefs, decode_jpeg_to_coefs_i8
+        from ..ops.dct import ZIGZAG
+
+        bsz, nt = len(ids), self.nt
+        full = np.zeros((bsz, nt, 64), np.int8)
+        qtabs, q_host = self._empty((bsz, 2, 64), torch.int32)
+        parts: List = [(np.zeros(0, np.int32), np.zeros(0, np.int16))] * bsz
+        maxks = [1] * bsz
+
+        def one(j: int) -> None:
+            data = self.datas[ids[j]]
+            try:
+                r = decode_jpeg_to_coefs_i8(data, full[j], self.max_exc)
+                if r is None:
+                    hdr, coefs = decode_jpeg_to_coefs(data)
+                    zz = np.concatenate(coefs)
+                    if zz.shape != (nt, 64):
+                        raise self._grid_error(zz.shape)
+                    zz = zz[:, ZIGZAG]
+                    ei, ev = native.int16_to_int8_exc(zz, full[j])
+                    live = np.nonzero(np.any(zz != 0, axis=0))[0]
+                    mk = int(live[-1]) + 1 if live.size else 1
+                else:
+                    hdr, ei, ev, mk = r
+                self._tables(q_host, j, hdr)
+                parts[j] = (ei, ev)
+                maxks[j] = mk
+            except Exception as exc:  # noqa: BLE001 — per-item error
+                full[j] = 0
+                self._failed(ids, j, q_host, exc)
+
+        self._map(one, ids)
+        k = max(maxks)
+        i8, i8_host = self._empty((bsz, nt, k), torch.int8)
+        i8_host[:] = full[:, :, :k]
+        parts = [((ei // 64) * k + ei % 64, ev) for ei, ev in parts]
+        return (i8, *self._exceptions(parts)), qtabs
+
+    def _decode_coo(self, ids, dc, pos, val, q_host):
+        """Every file of the chunk into rows of (dc, pos, val) at their R
+        → (per-image exceptions, summed census, per-image extents), or
+        None when a file rejects the COO decoder (the caller takes the
+        dense route, where a file that fails fails alone)."""
+        from ..codecs.jpeg import decode_jpeg_to_coefs_coo
+
+        bsz = len(ids)
+        parts: List = [None] * bsz
+        hists = np.zeros((bsz, 65), np.int64)
+        maxks = [1] * bsz
+
+        def one(j: int) -> None:
+            try:
+                r = decode_jpeg_to_coefs_coo(self.datas[ids[j]], dc[j],
+                                             pos[j], val[j], self.max_exc)
+            except Exception:  # noqa: BLE001 — the dense route says why
+                r = None
+            if r is None:
+                return
+            hdr, ei, ev, hist, mk = r
+            self._tables(q_host, j, hdr)
+            parts[j] = (ei, ev)
+            hists[j] = hist
+            maxks[j] = mk
+
+        self._map(one, ids)
+        if any(p is None for p in parts):
+            return None
+        return parts, hists.sum(axis=0), maxks
+
+    def _sticky(self, ids):
+        """COO at the last census's R, decoded by the C++ straight into
+        the pinned upload tensors (JAX :1042-1117); None when a file
+        rejects the COO decoder.  This chunk's census re-picks R for the
+        next."""
+        bsz, nt, r = len(ids), self.nt, self.sticky_r
+        dc, dc_h = self._empty((bsz, nt), torch.int8)
+        pos, pos_h = self._empty((bsz, nt, r), torch.uint8)
+        val, val_h = self._empty((bsz, nt, r), torch.int8)
+        qtabs, q_host = self._empty((bsz, 2, 64), torch.int32)
+        got = self._decode_coo(ids, dc_h, pos_h, val_h, q_host)
+        if got is None:
+            return None
+        parts, hist, _ = got
+        self.sticky_r = _census_r(hist, bsz, nt)[0]
+        return "coo", (dc, pos, val, *self._exceptions(parts)), qtabs
+
+    def _census(self, ids):
+        """Decode at COO_RCAP slots, take the census and pick the route
+        (JAX _prep_chunk_i8, :1134): dense int8 when a file rejects the
+        COO decoder or COO would cost DENSE_SHARE of dense or more, CSR
+        when asked, else COO at the census's R, the pairs past R demoted
+        to exceptions."""
+        bsz, nt = len(ids), self.nt
+        dcp = np.zeros((bsz, nt), np.int8)
+        posp = np.zeros((bsz, nt, COO_RCAP), np.uint8)
+        valp = np.zeros((bsz, nt, COO_RCAP), np.int8)
+        qtabs, q_host = self._empty((bsz, 2, 64), torch.int32)
+        got = self._decode_coo(ids, dcp, posp, valp, q_host)
+        if got is None:
+            return ("i8", *self._dense(ids))
+        parts, hist, maxks = got
+        r, cost = _census_r(hist, bsz, nt)
+        if self.force == "csr":
+            return "csr", self._csr(dcp, posp, valp, parts), qtabs
+        if cost >= DENSE_SHARE * bsz * nt * max(maxks):
+            return ("i8", *self._dense(ids))
+        dc, dc_h = self._empty((bsz, nt), torch.int8)
+        pos, pos_h = self._empty((bsz, nt, r), torch.uint8)
+        val, val_h = self._empty((bsz, nt, r), torch.int8)
+
+        def one(j: int) -> None:
+            dc_h[j] = dcp[j]
+            pos_h[j] = posp[j, :, :r]
+            val_h[j] = valp[j, :, :r]
+            blk, slot = np.nonzero(posp[j, :, r:])
+            if blk.size:
+                ei, ev = parts[j]
+                parts[j] = (np.concatenate([ei, (
+                    blk * 64 + posp[j, blk, slot + r]).astype(np.int32)]),
+                    np.concatenate([ev, valp[j, blk, slot + r].astype(
+                        np.int16)]))
+
+        self._map(one, ids)  # each image's rows and demoted pairs
+        if not self.force:
+            self.sticky_r = r
+        return "coo", (dc, pos, val, *self._exceptions(parts)), qtabs
+
+    def _csr(self, dcp, posp, valp, parts):
+        """CSR (JAX _prep_chunk_csr, :993) from the census decode: each
+        block's count of pairs, and each image's pairs in one row of the
+        streams, block by block."""
+        bsz, nt = dcp.shape
+        occ = posp != 0  # the filled slots are a prefix of each block's
+        cnt = occ.sum(axis=2)
+        per_img = cnt.sum(axis=1)
+        m = int(per_img.max()) if bsz else 0
+        dc, dc_h = self._empty((bsz, nt), torch.int8)
+        counts, counts_h = self._empty((bsz, nt), torch.uint8)
+        spos, spos_h = self._empty((bsz, m), torch.uint8)
+        sval, sval_h = self._empty((bsz, m), torch.int8)
+        dc_h[:] = dcp
+        counts_h[:] = cnt
+        spos_h[:] = 0
+        sval_h[:] = 0
+        for j in range(bsz):
+            spos_h[j, :per_img[j]] = posp[j][occ[j]]
+            sval_h[j, :per_img[j]] = valp[j][occ[j]]
+        return (dc, counts, spos, sval, *self._exceptions(parts))
+
+
 def compress_jpeg_bytes_batched(ctx: Optional[Context],
                                 datas: Sequence[bytes],
                                 opts: Options,
@@ -701,8 +1051,9 @@ def compress_jpeg_bytes_batched(ctx: Optional[Context],
                                 on_error: Optional[OnError] = None
                                 ) -> Optional[List[Result]]:
     """JPEG→JPEG batch on the device (JAX :500): the host entropy-decodes
-    each file to int16 blocks, the device reconstructs, optionally
-    resizes, searches and re-quantizes, and the winners are
+    each chunk's files into a compact upload layout (_CoefWire; int16
+    blocks when the chunk is resized), the device rebuilds the blocks
+    (kernel K6 on a card), reconstructs, optionally resizes, searches and re-quantizes, and the winners are
     Huffman-coded on the device (K3) or on the host as
     compress.device_entropy_on says, on the host whenever the chunk is
     resized.  Results in input order, with image None (pixels never
@@ -714,8 +1065,7 @@ def compress_jpeg_bytes_batched(ctx: Optional[Context],
     per-file check when the caller grouped by it already.  on_chunk,
     on_error, chunk_size, workers and device (a mesh too) as in
     compress_images_batched."""
-    from ..codecs.jpeg import decode_jpeg_to_coefs
-    from ..parallel.batched import batched_decode_resize_search_quantize
+    from ..parallel.batched import batched_wire_search_quantize
 
     if opts.format != Format.JPEG or opts.target_size > 0:
         return None
@@ -754,42 +1104,19 @@ def compress_jpeg_bytes_batched(ctx: Optional[Context],
     pipe = _Pipeline(ctx, mesh, results, "coefficient", workers, on_chunk,
                      on_error)
 
-    def prep(ids):
-        blocks = _host_empty((len(ids), nt, 64), torch.int16, dev)
-        qtabs = _host_empty((len(ids), 2, 64), torch.int32, dev)
-        b_host, q_host = blocks.numpy(), qtabs.numpy()
+    wire = _CoefWire(pipe, datas, nt, f"{w}x{h}", target, dev, resize)
 
-        def one(j: int) -> None:
-            # A file that fails here fails alone; its zero rows still
-            # ride the chunk and are never encoded.
-            try:
-                hdr, coefs = decode_jpeg_to_coefs(datas[ids[j]])
-                flat = np.concatenate(coefs)
-                if flat.shape != (nt, 64):
-                    raise ValueError(
-                        f"fennec: JPEG block grid {flat.shape} does not "
-                        f"match its {w}x{h} header")
-                b_host[j] = flat
-                q_host[j, 0] = hdr.qtables[hdr.comps[0]["tq"]]
-                q_host[j, 1] = hdr.qtables[hdr.comps[1]["tq"]]
-            except Exception as exc:  # noqa: BLE001 — per-item error
-                b_host[j] = 0
-                q_host[j] = 1
-                pipe.fail(ids[j], exc)
-
-        list(pipe.pool.map(one, range(len(ids))))
-        return blocks, qtabs, [target] * len(ids)
-
-    def run_device(blocks, qtabs, targets):
+    def run_device(kinds, *args):
+        *sections, qtabs, targets = args
         # The shard's Lanczos weights on its device (cached per device).
-        rwh, rwv = (lanczos_weights_device(w, h, dst_w, dst_h, blocks.device)
+        rwh, rwv = (lanczos_weights_device(w, h, dst_w, dst_h, qtabs.device)
                     if resize else (None, None))
-        return batched_decode_resize_search_quantize(
-            blocks, qtabs, h, w, in_sub, subsample, targets, rwh, rwv, emit,
-            opts.optimize_huffman)
+        return batched_wire_search_quantize(
+            kinds[0], sections, qtabs, h, w, in_sub, subsample, targets, rwh,
+            rwv, emit, opts.optimize_huffman)
 
     def encode(i, out, j):
         return _finish(results[i], out, j, dst_w, dst_h, opts)
 
-    pipe.run(chunks, prep, run_device, encode)
+    pipe.run(chunks, wire.prep, run_device, encode)
     return results

@@ -178,12 +178,9 @@ def search_inputs(imgs: torch.Tensor, coefs, subsample: bool
     blocks `coefs` are already computed."""
     dev = imgs.device
     h, w = int(imgs.shape[1]), int(imgs.shape[2])
-    ds_w, ds_h = ssim_fast_dims(w, h)
-    box_wh = box_wv = rectangles = None
+    box_wh, box_wv, rectangles = _ssim_box(w, h, dev)
     planes = imgs[..., :3].permute(0, 3, 1, 2)  # (B, 3, H, W) r, g, b
-    if (ds_w, ds_h) != (w, h):
-        box_wh, box_wv = box_weights_device(w, h, ds_w, ds_h, dev)
-        rectangles = box_rectangles_device(w, h, ds_w, ds_h, dev)
+    if box_wh is not None:
         planes = _box_down_plane(planes, box_wh, box_wv)
     lum_orig = _luminance(planes[:, 0], planes[:, 1], planes[:, 2])
 
@@ -191,6 +188,34 @@ def search_inputs(imgs: torch.Tensor, coefs, subsample: bool
                         lum_orig.contiguous(), box_wh, box_wv,
                         quality_tables_on(dev), _dmat_on(dev), subsample, h,
                         w, rectangles)
+
+
+def _ssim_box(w: int, h: int, dev: torch.device):
+    """SSIMFast's box weights (W', W), (H', H) and K2's rectangles for an
+    h × w image on `dev`, or three Nones when it needs no downsample."""
+    ds_w, ds_h = ssim_fast_dims(w, h)
+    if (ds_w, ds_h) == (w, h):
+        return None, None, None
+    return (*box_weights_device(w, h, ds_w, ds_h, dev),
+            box_rectangles_device(w, h, ds_w, ds_h, dev))
+
+
+def search_inputs_yuv420(yp: torch.Tensor, coefs, h: int, w: int
+                         ) -> SearchInputs:
+    """SearchInputs of B h × w images sent as YCbCr 4:2:0 planes (the
+    pixel wire), whose forward-DCT blocks `coefs` are computed: the
+    original's luminance is the Y plane yp (B, ph, pw), box-downsampled
+    and rounded as search_inputs rounds each of R, G and B (BT.601
+    luminance is JPEG's Y, and the box mean is linear; JAX
+    engine/compress.py:432)."""
+    dev = yp.device
+    box_wh, box_wv, rectangles = _ssim_box(w, h, dev)
+    lum_orig = yp[:, :h, :w].to(torch.float32)
+    if box_wh is not None:
+        lum_orig = _box_down_plane(lum_orig, box_wh, box_wv)
+    return SearchInputs(coef_planes(coefs, h, w, True), lum_orig.contiguous(),
+                        box_wh, box_wv, quality_tables_on(dev), _dmat_on(dev),
+                        True, h, w, rectangles)
 
 
 def coef_planes(coefs, h: int, w: int, subsample: bool):
@@ -460,9 +485,40 @@ def batched_quality_search_quantize(imgs: torch.Tensor, targets,
     copy; with it they stay on the device, are Huffman-coded there
     (parallel/batched.emit_scans, optimal tables when `optimize`) and
     the fourth output is the emitted scans (a HostScans)."""
-    bsz, h, w = imgs.shape[:3]
-    inp, coefs, (best_q, best_ssim, found) = _search_chunk(imgs, targets,
-                                                           subsample)
+    inp, coefs, found3 = _search_chunk(imgs, targets, subsample)
+    return _quantize_outputs(inp, coefs, found3, emit, optimize)
+
+
+def batched_quality_search_quantize_yuv420(
+        yp: torch.Tensor, cbp: torch.Tensor, crp: torch.Tensor, targets,
+        h: int, w: int, emit: bool = False, optimize: bool = True):
+    """batched_quality_search_quantize over the YCbCr 4:2:0 pixel wire
+    (counterpart of batched_quality_search_quantize_yuv420 and
+    _batched_search_core_yuv420, compress.py:432-510): yp (B, ph, pw),
+    cbp and crp (B, ph/2, pw/2) uint8 planes on the device, already
+    converted, edge-padded to 16 and chroma-averaged on the host
+    (engine/batched._yuv420_wire_host).  The forward DCT of each plane
+    minus 128, the original's luminance from the Y plane
+    (search_inputs_yuv420), the same seeds and the same K2 / K1
+    bisection; the outputs of batched_quality_search_quantize (always
+    4:2:0).  The planes' u8 rounding moves the coefficients by up to half
+    a level (PARITY.md:120-130)."""
+    t, lo0 = _search_targets(targets, yp.device)
+    coefs = tuple(dct_ops.dct2d_blocks(dct_ops.to_blocks(
+        p.to(torch.float32) - 128.0)) for p in (yp, cbp, crp))
+    inp = search_inputs_yuv420(yp, coefs, h, w)
+    return _quantize_outputs(inp, coefs, _bisect_device_batch(inp, t, lo0),
+                             emit, optimize)
+
+
+def _quantize_outputs(inp: SearchInputs, coefs, found3, emit: bool,
+                      optimize: bool):
+    """The search's outputs as batched_quality_search_quantize returns
+    them: the blocks quantized at each image's final quality, then one
+    device→host copy or the device emission."""
+    best_q, best_ssim, found = found3
+    h, w, subsample = inp.h, inp.w, inp.subsample
+    bsz = best_q.shape[0]
     blocks = quantize_packed(coefs, inp.tables[torch.where(found, best_q,
                                                             100)])
     head = torch.cat([best_q.to(torch.int16)[:, None],

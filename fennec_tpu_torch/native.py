@@ -74,6 +74,22 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fennec_jpeg_decode_progressive_scan.argtypes = [
         p, l, l, i, pp, pi, pi, pi, i, i, pi, pi, i, i, i, i,
         p, p, pi, pi, p, p, i, i]
+    # The batch engines' compact upload routes (engine/batched.py).
+    ll, pi32 = ctypes.c_longlong, ctypes.POINTER(ctypes.c_int32)
+    lib.fennec_jpeg_decode_scan_i8.restype = l
+    lib.fennec_jpeg_decode_scan_i8.argtypes = [
+        p, l, l, i, p, pi, pi, pi, pi, p, p, pi, pi, p, p, pi, pi, i, ll, p,
+        p, l, pi32]
+    lib.fennec_jpeg_decode_scan_coo.restype = l
+    lib.fennec_jpeg_decode_scan_coo.argtypes = [
+        p, l, l, i, p, p, p, i, pi, pi, pi, pi, p, p, pi, pi, p, p, pi, pi,
+        i, p, p, l, p, pi32]
+    lib.fennec_int16_to_int8_exc.restype = l
+    lib.fennec_int16_to_int8_exc.argtypes = [p, l, p, p, p, l]
+    lib.fennec_rgb_to_yuv420.restype = i
+    lib.fennec_rgb_to_yuv420.argtypes = [p, l, i, i, p]
+    lib.fennec_rgba_to_yuv420_one.restype = i
+    lib.fennec_rgba_to_yuv420_one.argtypes = [p, i, i, i, p]
     lib.fennec_build_optimal_specs.restype = l
     lib.fennec_build_optimal_specs.argtypes = [l, p, p, p, p, p]
     lib.fennec_png_unfilter.restype = i
@@ -270,6 +286,169 @@ def jpeg_decode_progressive_scan(data: bytes, pos: int,
             np.copyto(c, snap)
         raise ValueError("fennec native: corrupt progressive scan")
     return int(rc)
+
+
+# ── Compact upload layouts of the coefficient batch path ────────────────────
+#
+# Every output buffer is checked against the scan's block grid before its
+# pointer reaches C: the decoders write sum(bw * bh) blocks.
+
+
+def _scan_blocks(comps) -> int:
+    return sum(c.bw * c.bh for c in comps)
+
+
+def _check_out(arr: np.ndarray, dtype, shape, what: str) -> None:
+    if (not isinstance(arr, np.ndarray) or arr.dtype != dtype
+            or arr.shape != shape or not arr.flags.c_contiguous
+            or not arr.flags.writeable):
+        raise ValueError(
+            f"fennec: {what} must be a writeable C-contiguous {np.dtype(dtype)}"
+            f" array of shape {shape}, got "
+            f"{getattr(arr, 'dtype', type(arr))} {getattr(arr, 'shape', '')}")
+
+
+class ScanRejected(ValueError):
+    """The C++ decoder rejected a scan for a compact layout: corrupt data,
+    or more exceptions than the caller allowed."""
+
+
+def _decode_status(ne: int, what: str) -> None:
+    if ne == -1:
+        raise ScanRejected("fennec native: corrupt JPEG scan")
+    if ne == -2:
+        raise ScanRejected(f"fennec native: too many {what} exceptions")
+
+
+def jpeg_decode_scan_i8(data: bytes, pos: int, comps, restart_interval: int,
+                        out: np.ndarray, max_exc: int = 16384):
+    """Decode an interleaved baseline scan straight into (NT, 64) int8
+    blocks in ZIGZAG order (`out`, every entry written), |v| > 127 stored
+    as 0 and listed as exceptions (offsets into the image's flat NT * 64
+    zigzag layout).  Returns (exc_idx int32, exc_val int16, the largest
+    nonzero zigzag extent).  ScanRejected on corrupt data or past max_exc
+    exceptions."""
+    n = len(comps)
+    _check_out(out, np.int8, (_scan_blocks(comps), 64), "out")
+    exc_idx = np.empty(max_exc, dtype=np.int32)
+    exc_val = np.empty(max_exc, dtype=np.int16)
+    maxk = ctypes.c_int32(64)
+    ne = load().fennec_jpeg_decode_scan_i8(
+        data, len(data), pos, n, out.ctypes.data_as(ctypes.c_void_p),
+        _ints(c.bw for c in comps), _ints(c.bh for c in comps),
+        _ints(c.h for c in comps), _ints(c.v for c in comps),
+        *_spec_arrays([c.dc_spec for c in comps]),
+        *_spec_arrays([c.ac_spec for c in comps]),
+        restart_interval, 0, exc_idx.ctypes.data_as(ctypes.c_void_p),
+        exc_val.ctypes.data_as(ctypes.c_void_p), max_exc,
+        ctypes.byref(maxk))
+    _decode_status(ne, "int8")
+    return exc_idx[:ne].copy(), exc_val[:ne].copy(), int(maxk.value)
+
+
+def jpeg_decode_scan_coo(data: bytes, pos: int, comps, restart_interval: int,
+                         out_dc: np.ndarray, out_pos: np.ndarray,
+                         out_val: np.ndarray, max_exc: int = 16384):
+    """Decode an interleaved baseline scan straight into the sparse COO
+    layout: out_dc (NT,) int8, out_pos (NT, R) uint8 and out_val (NT, R)
+    int8, each block's AC nonzeros as (zigzag position, value) pairs in
+    scan order, position 0 padding.  |v| > 127 and the pairs past R are
+    exceptions (offsets into the image's flat NT * 64 zigzag layout).
+    Returns (exc_idx int32, exc_val int16, cnt_hist (65,) int32: blocks
+    by their count of AC nonzeros within int8, the largest nonzero zigzag
+    extent).  ScanRejected on corrupt data or past max_exc exceptions."""
+    n, nt = len(comps), _scan_blocks(comps)
+    rcap = out_pos.shape[-1] if isinstance(out_pos, np.ndarray) else 0
+    if not 1 <= rcap <= 63:
+        raise ValueError(f"fennec: COO slots per block must be 1..63, got "
+                         f"{rcap}")
+    _check_out(out_dc, np.int8, (nt,), "out_dc")
+    _check_out(out_pos, np.uint8, (nt, rcap), "out_pos")
+    _check_out(out_val, np.int8, (nt, rcap), "out_val")
+    exc_idx = np.empty(max_exc, dtype=np.int32)
+    exc_val = np.empty(max_exc, dtype=np.int16)
+    cnt_hist = np.zeros(65, dtype=np.int32)
+    maxk = ctypes.c_int32(64)
+    ne = load().fennec_jpeg_decode_scan_coo(
+        data, len(data), pos, n, out_dc.ctypes.data_as(ctypes.c_void_p),
+        out_pos.ctypes.data_as(ctypes.c_void_p),
+        out_val.ctypes.data_as(ctypes.c_void_p), rcap,
+        _ints(c.bw for c in comps), _ints(c.bh for c in comps),
+        _ints(c.h for c in comps), _ints(c.v for c in comps),
+        *_spec_arrays([c.dc_spec for c in comps]),
+        *_spec_arrays([c.ac_spec for c in comps]),
+        restart_interval, exc_idx.ctypes.data_as(ctypes.c_void_p),
+        exc_val.ctypes.data_as(ctypes.c_void_p), max_exc,
+        cnt_hist.ctypes.data_as(ctypes.c_void_p), ctypes.byref(maxk))
+    _decode_status(ne, "COO")
+    return (exc_idx[:ne].copy(), exc_val[:ne].copy(), cnt_hist,
+            int(maxk.value))
+
+
+def int16_to_int8_exc(arr: np.ndarray, out: np.ndarray):
+    """int16 values → `out` (int8, same shape, |v| > 127 stored as 0) and
+    those values as exceptions: (flat index int32, value int16)."""
+    src = np.ascontiguousarray(arr, dtype=np.int16)
+    _check_out(out, np.int8, src.shape, "out")
+    exc_idx = np.empty(src.size, dtype=np.int32)
+    exc_val = np.empty(src.size, dtype=np.int16)
+    ne = load().fennec_int16_to_int8_exc(
+        src.ctypes.data_as(ctypes.c_void_p), src.size,
+        out.ctypes.data_as(ctypes.c_void_p),
+        exc_idx.ctypes.data_as(ctypes.c_void_p),
+        exc_val.ctypes.data_as(ctypes.c_void_p), src.size)
+    if ne < 0:
+        raise RuntimeError("fennec native: int16_to_int8_exc failed")
+    return exc_idx[:ne].copy(), exc_val[:ne].copy()
+
+
+def yuv420_wire_size(h: int, w: int) -> int:
+    """Bytes of one h × w image on the YCbCr 4:2:0 pixel wire: Y on the
+    16-padded grid, then Cb and Cr at half its width and height."""
+    ph, pw = h + (-h) % 16, w + (-w) % 16
+    return ph * pw + 2 * (ph // 2) * (pw // 2)
+
+
+def rgb_to_yuv420(rgb: np.ndarray) -> np.ndarray:
+    """(B, H, W, 3) uint8 RGB → (B, yuv420_wire_size(H, W)) uint8 wire
+    rows (engine/batched._yuv420_wire_host's layout and rounding, to 1
+    LSB: 16.16 fixed point)."""
+    rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
+    if rgb.ndim != 4 or rgb.shape[3] != 3 or 0 in rgb.shape[1:3]:
+        raise ValueError(f"fennec: rgb_to_yuv420 takes (B, H, W, 3), got "
+                         f"{rgb.shape}")
+    b, h, w, _ = rgb.shape
+    out = np.empty((b, yuv420_wire_size(h, w)), np.uint8)
+    rc = load().fennec_rgb_to_yuv420(rgb.ctypes.data_as(ctypes.c_void_p), b,
+                                     h, w, out.ctypes.data_as(ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError("fennec native: rgb_to_yuv420 failed")
+    return out
+
+
+def rgba_to_yuv420_into(img: np.ndarray, out_row: np.ndarray) -> None:
+    """ONE (H, W, C >= 3) uint8 image → its wire row, written into
+    out_row in place.  The image's rows must be packed pixels of 3 or 4
+    bytes (an NRGBA array or its [..., :3] view), and out_row a writeable
+    contiguous uint8 row of exactly yuv420_wire_size(H, W) bytes; anything
+    else raises ValueError (the JAX binding checks neither,
+    fennec_tpu/native/build.py:526)."""
+    if (not isinstance(img, np.ndarray) or img.dtype != np.uint8
+            or img.ndim != 3 or img.shape[2] < 3 or 0 in img.shape[:2]):
+        raise ValueError(f"fennec: rgba_to_yuv420_into takes an (H, W, C>=3)"
+                         f" uint8 image, got {getattr(img, 'dtype', '')} "
+                         f"{getattr(img, 'shape', type(img))}")
+    h, w = img.shape[:2]
+    ps = img.strides[1]
+    if ps not in (3, 4) or img.strides[2] != 1 or img.strides[0] != w * ps:
+        raise ValueError(f"fennec: rgba_to_yuv420_into takes rows of packed "
+                         f"3- or 4-byte pixels, got strides {img.strides}")
+    _check_out(out_row, np.uint8, (yuv420_wire_size(h, w),), "out_row")
+    rc = load().fennec_rgba_to_yuv420_one(
+        img.ctypes.data_as(ctypes.c_void_p), h, w, ps,
+        out_row.ctypes.data_as(ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError("fennec native: rgba_to_yuv420 failed")
 
 
 # ── PNG ─────────────────────────────────────────────────────────────────────

@@ -999,3 +999,157 @@ def test_k5_on_a_side_stream(cuda_device, fam):
     torch.cuda.synchronize()
     assert torch.equal(got.tables, want.tables)
     assert torch.equal(got.header, want.header)
+
+
+# ── K6 and the upload routes ────────────────────────────────────────────────
+
+
+def k6_files(kind, device):
+    """Files of one geometry for K6's cases: photo content, noise at Q100
+    (values past int8, more AC nonzeros than slots), 4:4:4, ragged."""
+    rng = np.random.default_rng(17)
+    if kind == "photo":
+        imgs, q, sub = [photo(500, 500, s) for s in range(4)], 92, True
+    elif kind == "noise_q100":
+        imgs = [rng.integers(0, 256, (96, 128, 4), dtype=np.uint8)
+                for _ in range(3)]
+        q, sub = 100, True
+    elif kind == "444":
+        imgs, q, sub = [photo(136, 72, s) for s in range(3)], 95, False
+    else:
+        w, h = (17, 9) if kind == "17x9" else (513, 700)
+        imgs, q, sub = [photo(w, h, s) for s in range(3)], 95, True
+    for img in imgs:
+        img[..., 3] = 255
+    from fennec_tpu_torch.codecs.jpeg import encode_jpeg
+
+    return [encode_jpeg(img, q, sub, device=device) for img in imgs]
+
+
+@pytest.mark.parametrize("kind", ["photo", "noise_q100", "444", "17x9",
+                                  "513x700"])
+def test_k6_matches_plain_and_decoder(cuda_device, kind):
+    """K6 on every layout equals its plain version on the same CUDA
+    tensors and the C++ decoder's blocks, bit for bit (chip_smoke
+    .check_k6); two launches per layout (the check calls it twice)."""
+    cs = chip_smoke()
+    before = {k: w.launches for k, w in cs.k6_wrappers().items()}
+    cs.check_k6(kind, k6_files(kind, "cpu"), cuda_device)
+    assert {k: w.launches - before[k]
+            for k, w in cs.k6_wrappers().items()} == {"coo": 2, "i8": 2,
+                                                      "csr": 2}
+
+
+@pytest.mark.parametrize("env,event", [({}, "upload_coo"),
+                                       ({"FENNEC_UPLOAD": "dense"},
+                                        "upload_i8"),
+                                       ({"FENNEC_UPLOAD": "csr"},
+                                        "upload_csr")])
+def test_routes_on_card_never_take_the_plain_version(cuda_device, monkeypatch,
+                                                     env, event):
+    """An unresized chunk on the card goes up compact and K6 rebuilds it,
+    one launch per chunk, never the plain version; the bytes are the
+    CPU's (its plain version)."""
+    from fennec_tpu_torch.engine.batched import (
+        compress_jpeg_bytes_batched,
+        counters,
+    )
+    from fennec_tpu_torch.ops import coef_wire_cuda as k6
+
+    def refuse(*args, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    datas = k6_files("photo", "cpu")
+    opts = T.Options(format=T.JPEG)
+    on_cpu = compress_jpeg_bytes_batched(None, datas, opts, device="cpu")
+    for w in (k6.unpack_coo, k6.unpack_i8, k6.unpack_csr):
+        monkeypatch.setattr(w, "_plain", refuse)
+    wrapper = {"upload_coo": k6.unpack_coo, "upload_i8": k6.unpack_i8,
+               "upload_csr": k6.unpack_csr}[event]
+    before = wrapper.launches
+    counters.reset()
+    on_card = compress_jpeg_bytes_batched(None, datas, opts,
+                                          device=cuda_device)
+    assert counters.snapshot()["events"] == {event: 1}
+    assert wrapper.launches == before + 1
+    for a, b in zip(on_card, on_cpu):
+        assert a.jpeg_quality == b.jpeg_quality
+        assert abs(a.ssim - b.ssim) <= ATOL
+
+
+def test_k6_failure_raises_with_no_fallback(cuda_device, monkeypatch):
+    """A K6 library that does not build raises out of the engine: no path
+    back to int16 blocks or to the plain version."""
+    from fennec_tpu_torch.engine.batched import compress_jpeg_bytes_batched
+    from fennec_tpu_torch.ops import coef_wire_cuda as k6
+
+    def broken():
+        raise RuntimeError("fennec: nvcc failed (test)")
+
+    monkeypatch.setattr(k6.library, "load", broken)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        compress_jpeg_bytes_batched(None, k6_files("photo", "cpu"),
+                                    T.Options(format=T.JPEG),
+                                    device=cuda_device)
+
+
+def test_k6_on_a_side_stream(cuda_device):
+    """K6 launches on the current stream: rebuilt on a side stream, the
+    blocks equal the default stream's."""
+    cs = chip_smoke()
+    sections, *_ = cs.wire_sections(k6_files("noise_q100", "cpu"),
+                                    cuda_device)
+    for layout, secs in sections.items():
+        want = cs.k6_wrappers()[layout](*secs)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            got = cs.k6_wrappers()[layout](*secs)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), layout
+
+
+def test_yuv420_wire_on_card_matches_cpu(cuda_device, monkeypatch):
+    """FENNEC_PIXEL_WIRE=yuv420 on the card: the chunk goes up as the
+    wire, with the CPU's qualities and SSIM within 1e-5."""
+    from fennec_tpu_torch.engine.batched import counters
+
+    monkeypatch.setenv("FENNEC_PIXEL_WIRE", "yuv420")
+    imgs = [photo(160, 120, s) for s in range(4)]
+    opts = T.Options(format=T.JPEG, device_entropy=True)
+    counters.reset()
+    on_card = T.compress_images(None, imgs, opts, device=cuda_device)
+    assert counters.snapshot()["events"] == {"upload_yuv420": 1}
+    on_cpu = T.compress_images(None, imgs, opts, device="cpu")
+    for a, b in zip(on_card, on_cpu):
+        assert a.jpeg_quality == b.jpeg_quality
+        assert abs(a.ssim - b.ssim) <= ATOL
+
+
+def test_routes_without_exceptions_on_card(cuda_device, monkeypatch):
+    """Flat content at a low quality has no value past int8: each route's
+    exception tensors are (B, 0), pinned and uploaded empty, and the bytes
+    are the CPU's."""
+    from fennec_tpu_torch.codecs.jpeg import encode_jpeg
+    from fennec_tpu_torch.engine.batched import (
+        compress_jpeg_bytes_batched,
+        counters,
+    )
+
+    imgs = [np.full((64, 80, 4), v, np.uint8) for v in (120, 128, 136)]
+    datas = [encode_jpeg(img, 50, True, device="cpu") for img in imgs]
+    opts = T.Options(format=T.JPEG)
+    for env in ({}, {"FENNEC_UPLOAD": "dense"}, {"FENNEC_UPLOAD": "csr"}):
+        monkeypatch.delenv("FENNEC_UPLOAD", raising=False)
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        counters.reset()
+        on_card = compress_jpeg_bytes_batched(None, datas, opts,
+                                              device=cuda_device)
+        assert len(counters.snapshot()["events"]) == 1
+        on_cpu = compress_jpeg_bytes_batched(None, datas, opts,
+                                             device="cpu")
+        assert [r.compressed_data for r in on_card] == \
+            [r.compressed_data for r in on_cpu]
