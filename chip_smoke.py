@@ -19,11 +19,11 @@ of these prints the result lines.
 Phases, each raising on failure:
   1. environment: a CUDA card, its name and power limit, TF32 off;
   2. build: kernels K1, K2, K3 with K4's entries, K5 and K6 (nvcc,
-     sm_90a), the first K3, the first K2 and the first K5 (kept under
-     bench_sources/ to be timed against), the first K5 and K5 again with
-     -DK5_STAMPS, and the host C++ entropy coder, from the sources in
-     this checkout, all eleven at once, each K5 and K6 build's -Xptxas -v
-     printed;
+     sm_90a), the first K3, the first K2, the first K5 and the first K6
+     (kept under bench_sources/ to be timed against), the first K5 and K5
+     again with -DK5_STAMPS, and the host C++ entropy coder, from the
+     sources in this checkout, all twelve at once, each K5 and K6 build's
+     -Xptxas -v printed;
   3. K1 against its plain PyTorch version on the card, at the shapes the
      main paths give it and beyond, the batch engines' (64, 500, 500)
      included, and at ragged shapes for its strips and bands: max |diff|
@@ -204,14 +204,16 @@ Phases, each raising on failure:
      emission (emit_scans) against the host-built flow (host_built_emit)
      in turns at 12 MP and 64 x 500x500, the bytes equal;
  17. the upload routes (--wire alone).  K6, the coefficient-wire unpack,
-     against its plain version on the same CUDA tensors and against the
-     C++ decoder's int16 blocks, bit for bit, on each layout (COO, dense
-     int8, CSR, as wire_sections builds them the engine's way) at the
-     64 x 500x500 chunk, 16 x 12 MP, 8 noise files at Q100 and ragged
-     17x9 and 513x700; K6's device time (torch.profiler, every kernel of
-     the call, split by kernel), CUDA-event time, host time, bound
-     (bytes: the live wire read and 128 bytes a block written) and share,
-     and the plain version's time, at the first two.  The search's
+     against its plain version on the same CUDA tensors, the first K6
+     (FIRST_K6_SOURCE) and the C++ decoder's int16 blocks, bit for bit,
+     on each layout (COO, dense int8, CSR, as wire_sections builds them
+     the engine's way) at the 64 x 500x500 chunk, 16 x 12 MP, 8 noise
+     files at Q100 and ragged 17x9 and 513x700, and on k6_cases (every
+     R and K at the seams, exceptions, views at unaligned addresses);
+     K6's device time (torch.profiler, every kernel of the call, split by
+     kernel), CUDA-event time, host time, in turns with the first K6,
+     bound (bytes: the live wire read and 128 bytes a block written) and
+     share, and the plain version's time, at the first two.  The search's
      outputs from int16 blocks decoded here and from each layout through
      K6, equal (wire_search_agrees).  The 512-file batch through the
      int16 upload (int16_uploads) and COO in turns, three runs each, then
@@ -3796,7 +3798,14 @@ def phase_spatial(T, dev, rounds: int = 2):
 K6_REPLACES = {"coo": "fennec_tpu/parallel/batched.py:570",
                "i8": "fennec_tpu/parallel/batched.py:542",
                "csr": "fennec_tpu/parallel/batched.py:732"}
-K6_KERNEL = {"coo": "coo_kernel", "i8": "i8_kernel", "csr": "csr_kernel"}
+K6_KERNEL = {"coo": "coo_tile_kernel", "i8": "i8_tile_kernel",
+             "csr": "csr_tile_kernel"}
+# The first K6 (a warp rebuilds one block and leaves), kept to be held
+# bit for bit and timed in turns against the current one, and its rebuild
+# kernels' names.
+FIRST_K6_SOURCE = os.path.join("bench_sources", "coef_wire_first.cu")
+FIRST_K6_KERNEL = {"coo": "coo_kernel", "i8": "i8_kernel",
+                   "csr": "csr_kernel"}
 # The batch routes phase 17 forces, with the environment that forces each
 # and the upload event its chunks must carry.
 WIRE_ROUTES = (("coo", {}, "upload_coo"),
@@ -3962,11 +3971,50 @@ def k6_plain():
             "csr": coef_wire.csr_to_natural}
 
 
-def check_k6(tag: str, datas, dev, want=None):
+class FirstK6:
+    """The first K6 (FIRST_K6_SOURCE) built here with nvcc and called
+    through the port's wrappers given its library (`wrappers`, {layout:
+    wrapper}; their launches count apart from K6's).  The port does not
+    import it."""
+
+    def __init__(self) -> None:
+        from fennec_tpu_torch.ops import coef_wire_cuda as k6
+
+        self.library = k6.WireLibrary(
+            os.path.join(HERE, FIRST_K6_SOURCE),
+            os.path.join(k6.BUILD_DIR, "libcoef_wire_first.so"))
+        self.library.build(force=True)
+        self.library.load()
+        self.build_log = self.library.build_log
+        self.wrappers = {"coo": k6.UnpackCoo(self.library),
+                         "i8": k6.UnpackI8(self.library),
+                         "csr": k6.UnpackCsr(self.library)}
+
+
+def k6_agree(tag: str, layout: str, secs, first=None, want=None) -> None:
+    """K6 on one layout's sections (twice) against its plain version on
+    the same tensors, the first K6 (a FirstK6) and `want` (the decoder's
+    blocks on the device), bit for bit; raises on any difference."""
+    got = k6_wrappers()[layout](*secs)
+    others = {"plain version": k6_plain()[layout](*secs),
+              "second call": k6_wrappers()[layout](*secs)}
+    if first is not None:
+        others["first K6"] = first.wrappers[layout](*secs)
+    if want is not None:
+        others["decoder"] = want
+    for who, other in others.items():
+        if not torch.equal(got, other):
+            bad = int((got != other).sum())
+            raise AssertionError(f"K6 {tag} {layout}: {bad} of "
+                                 f"{got.numel()} values differ from the "
+                                 f"{who}")
+
+
+def check_k6(tag: str, datas, dev, want=None, first=None):
     """K6 on every layout of these files against its plain version on the
-    same CUDA tensors, bit for bit, and against the C++ decoder's int16
-    blocks (`want`, decoded here when None).  Returns the layouts'
-    sections, NT, R and K."""
+    same CUDA tensors, the first K6 (`first`, a FirstK6, when given) and
+    the C++ decoder's int16 blocks (`want`, decoded here when None), bit
+    for bit.  Returns the layouts' sections, NT, R and K."""
     from fennec_tpu_torch.codecs.jpeg import decode_jpeg_to_coefs
 
     sections, nt, r, k = wire_sections(datas, dev)
@@ -3975,19 +4023,130 @@ def check_k6(tag: str, datas, dev, want=None):
                          for d in datas])
     want_dev = torch.from_numpy(want).to(dev)
     for layout, secs in sections.items():
-        got = k6_wrappers()[layout](*secs)
-        plain = k6_plain()[layout](*secs)
-        again = k6_wrappers()[layout](*secs)
-        if not (torch.equal(got, plain) and torch.equal(got, want_dev)
-                and torch.equal(got, again)):
-            bad = int((got != plain).sum()) + int((got != want_dev).sum())
-            raise AssertionError(f"K6 {tag} {layout}: {bad} of {got.numel()}"
-                                 f" values differ from the plain version or"
-                                 f" the decoder")
+        k6_agree(tag, layout, secs, first, want_dev)
     e = {lay: int(secs[-3].shape[1]) for lay, secs in sections.items()}
     log(f"K6 {tag}: ({len(datas)}, {nt}) R={r} K={k} exception rows {e}: "
-        f"coo, i8, csr bit-equal to the plain version and the decoder")
+        f"coo, i8, csr bit-equal to the plain version, the decoder"
+        f"{' and the first K6' if first is not None else ''}")
     return sections, nt, r, k
+
+
+def k6_cases():
+    """[(tag, layout, host sections)] that cross K6's seams, made with
+    numpy (ops/coef_wire.py's layouts): COO at every R the engine's census
+    picks (COO_RS) and int8 at K = 1, 8, 63, 64, on 3 images of 101
+    blocks (303: no multiple of the tile); CSR on 3 images of 101 blocks
+    (no multiple of the tile either), the second with no pairs, counts up
+    to 63, streams padded past the pairs, and on 2 images of 70 000 blocks
+    (the scan's second round of tiles); each without exception rows (E =
+    0) and with them: rows at a block's DC and at its last coefficient,
+    live rows outside the image (negative, at and past NT x width), dead
+    rows (past exc_n) inside it, every image's rows in no order; and each
+    layout once more as rows 1.. of a chunk of 4 images, views whose
+    sections start at addresses that are no multiple of 16 (NT x K odd
+    for int8, M odd for CSR)."""
+    from fennec_tpu_torch.engine.batched import COO_RS
+
+    rng = np.random.default_rng(SEED + 615)
+
+    def pairs(bsz, nt, r, counts):
+        """(pos, val) (bsz, nt, r): counts[b, n] distinct zigzag positions
+        1..63 ascending, nonzero int8 values, position 0 past them."""
+        pick = np.argsort(rng.random((bsz, nt, 63)), axis=2)[:, :, :r] + 1
+        pick.sort(axis=2)
+        live = np.arange(r) < counts[:, :, None]
+        pos = np.where(live, pick, 0).astype(np.uint8)
+        val = rng.integers(1, 128, (bsz, nt, r)) * rng.choice([-1, 1],
+                                                              (bsz, nt, r))
+        val = np.where(live, np.clip(val, -128, 127), 0).astype(np.int8)
+        return pos, val
+
+    def exceptions(bsz, nt, width, rows):
+        """(exc_off, exc_val, exc_n); rows = 0: E = 0."""
+        limit = nt * width
+        off = np.zeros((bsz, rows), np.int32)
+        val = rng.integers(-2048, 2048, (bsz, rows)).astype(np.int16)
+        n = np.zeros(bsz, np.int32)
+        if rows == 0:
+            return off, val, n
+        special = np.unique([0, width - 1, (nt - 1) * width, limit - 1])
+        for j in range(bsz):
+            inside = rows - 6 - 3 * j
+            cand = np.setdiff1d(rng.choice(limit, inside + 4, replace=False),
+                                special)
+            live = np.concatenate([special, cand[:inside - special.size],
+                                   [-7, limit, limit + 100]])
+            rng.shuffle(live)
+            n[j] = live.size
+            dead = rng.integers(0, limit, rows - live.size)
+            off[j] = np.concatenate([live, dead])
+        return off, val, n
+
+    def with_exc(tag, layout, secs, bsz, nt, width):
+        out = []
+        for rows in (0, 40):
+            exc = exceptions(bsz, nt, width, rows)
+            out.append((f"{tag}_e{rows}", layout,
+                        [torch.from_numpy(x) for x in (*secs, *exc)]))
+        return out
+
+    def csr(bsz, nt, empty=None):
+        counts = rng.integers(0, 64, (bsz, nt))
+        if empty is not None:
+            counts[empty] = 0
+        pos, val = pairs(bsz, nt, 63, counts)
+        per_img = counts.sum(axis=1)
+        m = int(per_img.max()) + 7
+        m += 1 - m % 2  # odd: rows 1.. of the streams start unaligned
+        spos = np.zeros((bsz, m), np.uint8)
+        sval = np.zeros((bsz, m), np.int8)
+        occ = pos != 0
+        for j in range(bsz):
+            spos[j, :per_img[j]] = pos[j][occ[j]]
+            sval[j, :per_img[j]] = val[j][occ[j]]
+        dc = rng.integers(-128, 128, (bsz, nt)).astype(np.int8)
+        return [dc, counts.astype(np.uint8), spos, sval]
+
+    def coo(bsz, nt, r):
+        pos, val = pairs(bsz, nt, r, rng.integers(0, r + 1, (bsz, nt)))
+        return [rng.integers(-128, 128, (bsz, nt)).astype(np.int8), pos, val]
+
+    def i8(bsz, nt, k):
+        blk = rng.integers(-128, 128, (bsz, nt, k)).astype(np.int8)
+        return [np.where(rng.random(blk.shape) < 0.5, blk, 0).astype(np.int8)]
+
+    cases = []
+    for r in COO_RS:
+        cases += with_exc(f"coo_r{r}", "coo", coo(3, 101, r), 3, 101, 64)
+    for k in (1, 8, 63, 64):
+        cases += with_exc(f"i8_k{k}", "i8", i8(3, 101, k), 3, 101, k)
+    cases += with_exc("csr_101", "csr", csr(3, 101, empty=1), 3, 101, 64)
+    cases += with_exc("csr_70000", "csr", csr(2, 70_000), 2, 70_000, 64)
+    for tag, layout, secs, width in (("coo_r6", "coo", coo(4, 101, 6), 64),
+                                     ("i8_k63", "i8", i8(4, 101, 63), 63),
+                                     ("csr_101", "csr", csr(4, 101), 64)):
+        exc = exceptions(4, 101, width, 40)
+        cases.append((f"{tag}_rows1", layout,
+                      [torch.from_numpy(x) for x in (*secs, *exc)]))
+    return cases
+
+
+def check_k6_cases(dev, first=None) -> int:
+    """K6 on every k6_cases case against its plain version and the first
+    K6 (when given), bit for bit; a "_rows1" case is cut to rows 1.. on
+    the device.  Returns the number of cases."""
+    cases = k6_cases()
+    for tag, layout, secs in cases:
+        secs = [x.to(dev) for x in secs]
+        if tag.endswith("_rows1"):
+            secs = [x[1:] for x in secs]
+            if dev.type == "cuda" and all(
+                    x.data_ptr() % 16 == 0 for x in secs[:-3]):
+                raise AssertionError(f"K6 {tag}: every section aligned")
+        k6_agree(tag, layout, secs, first)
+    log(f"K6 cases: {len(cases)} bit-equal to the plain version"
+        f"{' and the first K6' if first is not None else ''}")
+    return len(cases)
 
 
 def kernel_name(key: str) -> str:
@@ -4013,72 +4172,116 @@ def k6_bound(layout: str, secs, nt: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def time_k6(tag: str, sections, nt: int, iters: int = 50) -> dict:
-    """K6's device ms per call (torch.profiler: every CUDA row of the call
-    over its rebuild kernel's launches), CUDA-event ms, host µs, bound and
-    share, and the plain version's CUDA-event ms, per layout."""
+def k6_turn(fn, kernel: str, iters: int) -> dict:
+    """One turn of a K6 build on one layout's sections: device ms per
+    call (torch.profiler: every CUDA row of the call over the launches of
+    its rebuild kernel `kernel`), device operations and device µs of each
+    kernel per call, CUDA-event ms and host µs."""
+    rows, _ = profiled_rows(fn, iters, kernel)
+    if rows is None:
+        dev_ms, ops, split = cuda_ms(fn, iters), None, None
+    else:
+        calls = sum(e.count for e in rows if kernel in e.key)
+        dev_ms = sum(device_us(e) for e in rows) / calls / 1e3
+        ops = sum(e.count for e in rows) / calls
+        split = {kernel_name(e.key): device_us(e) / calls for e in rows}
+    return {"ms": dev_ms, "device_ops": ops, "kernel_us": split,
+            "event_ms": cuda_ms(fn, iters), "host_us": host_us(fn, iters)}
+
+
+def k6_trusted(turns: list) -> list:
+    """The turns whose profiler reading holds at least 0.8 of their own
+    CUDA-event time (a K6 call keeps the card busy from its first launch
+    to its last: the profiler has been seen to record half of a call's
+    kernel time, 20.5 µs against 47.6 of events); all of them when none
+    does."""
+    kept = [t for t in turns if t["ms"] >= 0.8 * t["event_ms"]]
+    if len(kept) < len(turns):
+        log(f"K6 timing: profiler readings dropped as below 0.8 of their "
+            f"CUDA events: {[round(t['ms'] * 1e3, 2) for t in turns]} µs "
+            f"against {[round(t['event_ms'] * 1e3, 2) for t in turns]}")
+    return kept or turns
+
+
+def time_k6(tag: str, sections, nt: int, first, iters: int = 50) -> dict:
+    """K6 and the first K6 (a FirstK6) on each layout's sections in turns
+    (first, K6, K6, first): device ms per call, its split by kernel,
+    CUDA-event ms and host µs (k6_turn), the least of each over a build's
+    two turns (device ms and split over its k6_trusted turns: the split
+    of the faster), and the turns; bound and share, and the plain
+    version's CUDA-event ms, per layout."""
     out = {}
     for layout, secs in sections.items():
-        fn = functools.partial(k6_wrappers()[layout], *secs)
-        plain = functools.partial(k6_plain()[layout], *secs)
-        rows, _ = profiled_rows(fn, iters, K6_KERNEL[layout])
-        if rows is None:
-            dev_ms, ops, split = cuda_ms(fn, iters), None, None
-        else:
-            calls = sum(e.count for e in rows if K6_KERNEL[layout] in e.key)
-            dev_ms = sum(device_us(e) for e in rows) / calls / 1e3
-            ops = sum(e.count for e in rows) / calls
-            # Device µs per call of each kernel of the call.
-            split = {kernel_name(e.key): device_us(e) / calls for e in rows}
+        runs = {"k6": (functools.partial(k6_wrappers()[layout], *secs),
+                       K6_KERNEL[layout]),
+                "first": (functools.partial(first.wrappers[layout], *secs),
+                          FIRST_K6_KERNEL[layout])}
+        turns = {"k6": [], "first": []}
+        for who in ("first", "k6", "k6", "first"):
+            turns[who].append(k6_turn(*runs[who], iters))
         bound = k6_bound(layout, secs, nt)
-        out[layout] = {
-            "shape": [int(secs[0].shape[0]), nt], "ms": dev_ms,
-            "device_ops": ops, "kernel_us": split,
-            "exception_rows": int(secs[-1].sum()),
-            "event_ms": cuda_ms(fn, iters),
-            "host_us": host_us(fn, iters), "plain_ms": cuda_ms(plain, 3),
-            "bound_ms": bound, "bound_by": "bytes", "share": bound / dev_ms,
-            "wire_bytes": sum(x.numel() * x.element_size() for x in secs)}
-        log(f"K6 timing {tag} {layout}: " + json.dumps(out[layout]))
+        t = {"shape": [int(secs[0].shape[0]), nt],
+             "exception_rows": int(secs[-1].sum())}
+        for who, pre in (("k6", ""), ("first", "first_")):
+            best = min(k6_trusted(turns[who]), key=lambda x: x["ms"])
+            t[pre + "ms"] = best["ms"]
+            t[pre + "kernel_us"] = best["kernel_us"]
+            t[pre + "event_ms"] = min(x["event_ms"] for x in turns[who])
+            t[pre + "host_us"] = min(x["host_us"] for x in turns[who])
+        t["device_ops"] = turns["k6"][0]["device_ops"]
+        t["turns_us"] = {who: [round(x["ms"] * 1e3, 2) for x in v]
+                         for who, v in turns.items()}
+        t.update(plain_ms=cuda_ms(functools.partial(k6_plain()[layout],
+                                                    *secs), 3),
+                 bound_ms=bound, bound_by="bytes", share=bound / t["ms"],
+                 first_share=bound / t["first_ms"],
+                 wire_bytes=sum(x.numel() * x.element_size() for x in secs))
+        out[layout] = t
+        log(f"K6 timing {tag} {layout}: " + json.dumps(t))
     return out
 
 
-def phase_wire(T, dev, ssim_window, counters, tmp, n=512, w=500, h=500,
-               big_wh=(4032, 3024), n_big=16, n_pixel=256):
-    """Phase 17: K6 against its plain version on every layout at the
-    batch path's shapes, its timings, the 512-file batch through each
-    route (int16 and COO in turns), and the pixel path's two wires.  Returns ({case: {layout:
-    timings}}, the largest difference (0)).  The sizes are parameters so
-    that the phase rehearses on the CPU (no timings there)."""
+def phase_wire(T, dev, ssim_window, counters, tmp, first=None, n=512,
+               w=500, h=500, big_wh=(4032, 3024), n_big=16, n_pixel=256):
+    """Phase 17: K6 against its plain version and the first K6 (`first`,
+    a FirstK6; None on the CPU) on every layout at the batch path's
+    shapes and on k6_cases, its timings in turns with the first K6, the
+    512-file batch through each route (int16 and COO in turns), and the
+    pixel path's two wires.  Returns ({case: {layout: timings}}, the
+    largest difference (0)).  The sizes are parameters so that the phase
+    rehearses on the CPU (no timings there)."""
     started = time.perf_counter()
     timed = dev.type == "cuda"
-    # K6 at the 64 x 500x500 chunk, 16 x 12 MP, noise at Q100 and ragged
-    # geometries; timed at the first two.
+    # K6 on k6_cases, at the 64 x 500x500 chunk, 16 x 12 MP, noise at
+    # Q100 and ragged geometries; timed at the 64 x 500x500 chunk and 16 x
+    # 12 MP.
+    check_k6_cases(dev, first)
     paths, datas = write_files500(T, dev, os.path.join(tmp, "wire500"), n,
                                   w, h)
     times = {}
-    secs, nt, *_ = check_k6(f"{w}x{h}x64", datas[:64], dev)
+    secs, nt, *_ = check_k6(f"{w}x{h}x64", datas[:64], dev, first=first)
     if timed:
-        times["500x500x64"] = time_k6("500x500x64", secs, nt)
+        times["500x500x64"] = time_k6("500x500x64", secs, nt, first)
     wire_search_agrees(T, datas[:64], secs, dev)
     del secs
     base = photo(*big_wh, SEED + 500)
     big = [T.encode_to_bytes(np.roll(base, (61 * i, 97 * i), axis=(0, 1)),
                              T.JPEG, 92, device=dev) for i in range(n_big)]
     del base
-    secs, nt, *_ = check_k6(f"{big_wh[0]}x{big_wh[1]}x{n_big}", big, dev)
+    secs, nt, *_ = check_k6(f"{big_wh[0]}x{big_wh[1]}x{n_big}", big, dev,
+                            first=first)
     if timed:
-        times["12mp_x16"] = time_k6("12mp_x16", secs, nt, iters=20)
+        times["12mp_x16"] = time_k6("12mp_x16", secs, nt, first, iters=20)
     del secs, big
     rng = np.random.default_rng(SEED + 1700)
     noise = [T.encode_to_bytes(rng.integers(0, 256, (h, w, 4),
                                             dtype=np.uint8), T.JPEG, 100,
                                device=dev) for _ in range(8)]
-    check_k6("noise_q100_x8", noise, dev)
+    check_k6("noise_q100_x8", noise, dev, first=first)
     for rw, rh in ((17, 9), (513, 700)):
         ragged = [T.encode_to_bytes(photo(rw, rh, SEED + rw + s), T.JPEG, 95,
                                     device=dev) for s in range(3)]
-        check_k6(f"{rw}x{rh}_x3", ragged, dev)
+        check_k6(f"{rw}x{rh}_x3", ragged, dev, first=first)
     if timed:
         torch.cuda.empty_cache()
     log(f"wire: K6 checked and timed in "
@@ -4216,13 +4419,13 @@ def phase_wire(T, dev, ssim_window, counters, tmp, n=512, w=500, h=500,
     return times, 0
 
 
-def wire_only(T, dev, ssim_window) -> int:
+def wire_only(T, dev, ssim_window, first_k6) -> int:
     """`--wire`: phases 1, 2 and 17 alone; no main path, so no result
     line."""
     from fennec_tpu_torch.engine.batched import counters
 
     with tempfile.TemporaryDirectory() as tmp:
-        phase_wire(T, dev, ssim_window, counters, tmp)
+        phase_wire(T, dev, ssim_window, counters, tmp, first_k6)
     log(f"wire only: every case passed; K6 launches {K6_WIRE}")
     return 0
 
@@ -4230,8 +4433,8 @@ def wire_only(T, dev, ssim_window) -> int:
 def build_all(ssim_window, k3, probe_recon):
     """Phase 2: every kernel of the port and the host entropy coder
     built from this checkout's sources, all at once; returns the first
-    K3's, the first K2's and the first K5's harnesses, and the stamped K5
-    builds ({"first": ..., "k5": ...})."""
+    K3's, the first K2's and the first K5's harnesses, the stamped K5
+    builds ({"first": ..., "k5": ...}) and the first K6's harness."""
     from concurrent.futures import ThreadPoolExecutor
 
     from fennec_tpu_torch import native
@@ -4243,7 +4446,7 @@ def build_all(ssim_window, k3, probe_recon):
         got = build()
         return time.perf_counter() - t, got
 
-    with ThreadPoolExecutor(11) as pool:
+    with ThreadPoolExecutor(12) as pool:
         done = list(pool.map(timed, (
             lambda: ssim_window.build(force=True),
             lambda: k3.library.build(force=True),
@@ -4254,7 +4457,7 @@ def build_all(ssim_window, k3, probe_recon):
             lambda: K5Build(FIRST_K5_SOURCE, "first_stamped", True),
             lambda: K5Build(os.path.relpath(k5.SOURCE, HERE), "stamped",
                             True),
-            lambda: k6.library.build(force=True))))
+            lambda: k6.library.build(force=True), FirstK6)))
     ssim_window.load()
     k3.library.load()
     native.load()
@@ -4266,7 +4469,8 @@ def build_all(ssim_window, k3, probe_recon):
         f"k2_nvcc_s={done[4][0]:.3f} first_k2_nvcc_s={done[5][0]:.3f} "
         f"k5_nvcc_s={done[6][0]:.3f} first_k5_nvcc_s={done[7][0]:.3f} "
         f"stamped_k5_nvcc_s={done[8][0]:.3f}, {done[9][0]:.3f} "
-        f"k6_nvcc_s={done[10][0]:.3f} (in parallel)")
+        f"k6_nvcc_s={done[10][0]:.3f} first_k6_nvcc_s={done[11][0]:.3f} "
+        f"(in parallel)")
     log(ssim_window.build_log.strip())
     log(k3.library.build_log.strip())
     log(probe_recon.build_log.strip())
@@ -4274,7 +4478,8 @@ def build_all(ssim_window, k3, probe_recon):
                       ("first K5", done[7][1].build_log),
                       ("first K5 -DK5_STAMPS", done[8][1].build_log),
                       ("K5 -DK5_STAMPS", done[9][1].build_log),
-                      ("K6", k6.library.build_log)):
+                      ("K6", k6.library.build_log),
+                      ("first K6", done[11][1].build_log)):
         log(f"{tag} nvcc -Xptxas -v: {text.strip()}")
     lib = k3.library.load()
     log(f"K3 segment_blocks={k3.library.segment_blocks} resident CTAs "
@@ -4284,7 +4489,7 @@ def build_all(ssim_window, k3, probe_recon):
     log(f"K2 resident CTAs, SMs: 4:2:0 {probe_recon.card(dev, True)} "
         f"4:4:4 {probe_recon.card(dev, False)}")
     return (done[3][1], done[5][1], done[7][1],
-            {"first": done[8][1], "k5": done[9][1]})
+            {"first": done[8][1], "k5": done[9][1]}, done[11][1])
 
 
 def k2_only(T, dev, first_k2) -> int:
@@ -4402,8 +4607,8 @@ def main(only: str = "") -> int:
     count_bisections()
     if only == "digests":  # kernels build at first use
         return digests_only(T, dev)
-    first_k3, first_k2, first_k5, stamped = build_all(ssim_window, k3,
-                                                      k2.probe_recon)
+    first_k3, first_k2, first_k5, stamped, first_k6 = build_all(
+        ssim_window, k3, k2.probe_recon)
     if only == "k3":
         return k3_only(T, dev, first_k3)
     if only == "k2":
@@ -4411,7 +4616,7 @@ def main(only: str = "") -> int:
     if only == "k5":
         return k5_only(T, dev, first_k5, stamped)
     if only == "wire":
-        return wire_only(T, dev, ssim_window)
+        return wire_only(T, dev, ssim_window, first_k6)
     if only == "mesh":
         from fennec_tpu_torch.engine.batched import counters
 
@@ -4583,7 +4788,8 @@ def main(only: str = "") -> int:
     # 17. The upload routes: K6 against its plain version, the batch
     # through each route, the pixel path's two wires.
     with tempfile.TemporaryDirectory() as tmp:
-        k6_times, k6_err = phase_wire(T, dev, ssim_window, counters, tmp)
+        k6_times, k6_err = phase_wire(T, dev, ssim_window, counters, tmp,
+                                      first_k6)
     log("K5 emission summary (ms, K5 flow vs host-built flow in turns): "
         + json.dumps(k5_emits))
     log("mesh summary (warm img/s, median of 3; cross-card scaling not "
@@ -4713,6 +4919,9 @@ def main(only: str = "") -> int:
             # No one PyTorch call rebuilds the blocks (several do).
             "library_ms": None,
             "event_ms": kt["event_ms"], "host_us": kt["host_us"],
+            # The first K6 (bench_sources/coef_wire_first.cu), in turns.
+            "first_ms": kt["first_ms"], "first_event_ms": kt["first_event_ms"],
+            "first_host_us": kt["first_host_us"],
             "device_ops": kt["device_ops"], "wire_bytes": kt["wire_bytes"],
             "12mp_x16": kb})
     t = times[(1, 384, 512)]

@@ -15,11 +15,14 @@ wrapper per layout, each with its own count:
 each returning the (B, NT, 64) int16 natural-order blocks (the layouts
 and the exceptions' rules: ops/coef_wire.py).  A CPU tensor goes to the
 plain version there and counts in `plain_calls`; a CUDA tensor launches
-the kernel or raises, and counts one in `launches` per call (a call is
-the rebuild's launch, two for CSR, and one more when the chunk has
-exception rows).  Each call checks its inputs, allocates its output with
-one torch.empty on their device and launches on that device's current
-stream without synchronising.
+the kernel or raises, and counts one in `launches` per call.  A call is
+one to three device operations: the rebuild's launch (persistent CTAs
+over tiles of TILE blocks), for CSR a scan launch before it (and its
+scratch's torch.empty), and the exceptions' launch when the chunk has
+exception rows (E > 0).  Each call checks its inputs, allocates its
+output with one torch.empty on their device and launches on that
+device's current stream without synchronising.  Any contiguous tensor
+will do, a row slice at any address included.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from .ssim_cuda import compile_library, is_current
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "coef_wire.cu")
 _SO = os.path.join(BUILD_DIR, "libcoef_wire.so")
+TILE = 64  # blocks per tile of the rebuild (csrc/coef_wire.cu kTile)
 
 
 class WireLibrary:
@@ -101,14 +105,16 @@ def _exc_args(exc_off, exc_val, exc_n):
 
 
 class _Unpack(_Counted):
-    """One layout's wrapper: the plain version on the CPU, the kernel on a
-    card (launch(lib, out, *tensors) returns the C entry's error)."""
+    """One layout's wrapper: the plain version on the CPU, the kernel of
+    `lib` (default: K6's library) on a card (launch(lib, out, *tensors)
+    returns the C entry's error)."""
 
     what = ""
 
-    def __init__(self, check, plain) -> None:
+    def __init__(self, check, plain, lib: WireLibrary = None) -> None:
         super().__init__()
         self.plain_calls = 0
+        self.library = lib or library
         self._check = check
         self._plain = plain
 
@@ -129,8 +135,8 @@ class _Unpack(_Counted):
         bsz, nt = first.shape[:2]
         out = torch.empty((bsz, nt, 64), dtype=torch.int16, device=dev)
         if bsz and nt:
-            library.check(self.launch(library.load(), out, *tensors),
-                          self.what)
+            self.library.check(self.launch(self.library.load(), out,
+                                           *tensors), self.what)
             self.count_launch()
         return out
 
@@ -138,8 +144,8 @@ class _Unpack(_Counted):
 class UnpackCoo(_Unpack):
     what = "COO"
 
-    def __init__(self) -> None:
-        super().__init__(check_coo, coo_to_natural)
+    def __init__(self, lib: WireLibrary = None) -> None:
+        super().__init__(check_coo, coo_to_natural, lib)
 
     @staticmethod
     def launch(lib, out, dc, pos, val, exc_off, exc_val, exc_n) -> int:
@@ -153,8 +159,8 @@ class UnpackCoo(_Unpack):
 class UnpackI8(_Unpack):
     what = "int8"
 
-    def __init__(self) -> None:
-        super().__init__(check_i8, i8_to_natural)
+    def __init__(self, lib: WireLibrary = None) -> None:
+        super().__init__(check_i8, i8_to_natural, lib)
 
     @staticmethod
     def launch(lib, out, i8, exc_off, exc_val, exc_n) -> int:
@@ -167,16 +173,13 @@ class UnpackI8(_Unpack):
 class UnpackCsr(_Unpack):
     what = "CSR"
 
-    def __init__(self) -> None:
-        super().__init__(check_csr, csr_to_natural)
+    def __init__(self, lib: WireLibrary = None) -> None:
+        super().__init__(check_csr, csr_to_natural, lib)
 
     @staticmethod
     def launch(lib, out, dc, counts, spos, sval, exc_off, exc_val,
                exc_n) -> int:
         bsz, nt = dc.shape
-        if bsz > 65535:
-            raise ValueError(f"fennec: K6 CSR takes at most 65535 images, "
-                             f"got {bsz}")
         scratch = torch.empty(bsz * lib.fennec_wire_csr_tiles(nt),
                               dtype=torch.int32, device=out.device)
         return lib.fennec_wire_csr(

@@ -1026,18 +1026,58 @@ def k6_files(kind, device):
     return [encode_jpeg(img, q, sub, device=device) for img in imgs]
 
 
+@functools.lru_cache(maxsize=1)
+def first_k6():
+    """chip_smoke.FirstK6: the first K6 (bench_sources/coef_wire_first.cu)
+    built and called through the port's wrappers."""
+    return chip_smoke().FirstK6()
+
+
 @pytest.mark.parametrize("kind", ["photo", "noise_q100", "444", "17x9",
                                   "513x700"])
 def test_k6_matches_plain_and_decoder(cuda_device, kind):
     """K6 on every layout equals its plain version on the same CUDA
-    tensors and the C++ decoder's blocks, bit for bit (chip_smoke
-    .check_k6); two launches per layout (the check calls it twice)."""
+    tensors, the C++ decoder's blocks and the first K6, bit for bit
+    (chip_smoke.check_k6); two launches per layout (the check calls it
+    twice), the first K6's counted apart."""
     cs = chip_smoke()
     before = {k: w.launches for k, w in cs.k6_wrappers().items()}
-    cs.check_k6(kind, k6_files(kind, "cpu"), cuda_device)
+    cs.check_k6(kind, k6_files(kind, "cpu"), cuda_device, first=first_k6())
     assert {k: w.launches - before[k]
             for k, w in cs.k6_wrappers().items()} == {"coo": 2, "i8": 2,
                                                       "csr": 2}
+
+
+@pytest.mark.parametrize("layout", ["coo", "i8", "csr"])
+def test_k6_cases_match_plain_and_the_first_k6(cuda_device, layout):
+    """K6 on chip_smoke.k6_cases, bit for bit against its plain version
+    and the first K6: every R of COO_RS and K in {1, 8, 63, 64}, B x NT
+    and a CSR image's NT no multiple of the tile, a CSR image with no
+    pairs, E = 0, exception rows at a block's DC and its last
+    coefficient, dead rows, offsets outside the image, rows in no order,
+    and rows 1.. of a chunk, whose sections start at addresses that are
+    no multiple of 16."""
+    cs = chip_smoke()
+    cases = [c for c in cs.k6_cases() if c[1] == layout]
+    assert cases
+    for tag, _, secs in cases:
+        secs = [x.to(cuda_device) for x in secs]
+        if tag.endswith("_rows1"):
+            secs = [x[1:] for x in secs]
+            assert any(x.data_ptr() % 16 for x in secs[:-3]), tag
+        cs.k6_agree(tag, layout, secs, first_k6())
+    torch.cuda.synchronize()
+
+
+def test_k6_csr_scratch_is_the_libraries_own(cuda_device):
+    """The CSR wrapper's scratch is what K6's library asks per image:
+    each tile's first pair (tiles of TILE blocks) and the image's
+    pairs."""
+    from fennec_tpu_torch.ops import coef_wire_cuda as k6
+
+    lib = k6.library.load()
+    for nt in (1, 63, 64, 65, 6144, 285_768):
+        assert lib.fennec_wire_csr_tiles(nt) == -(-nt // k6.TILE) + 1
 
 
 @pytest.mark.parametrize("env,event", [({}, "upload_coo"),

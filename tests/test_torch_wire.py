@@ -17,6 +17,8 @@ counters' events; an out-of-memory halved chunk and a two-shard CPU mesh
 on the COO and CSR routes; a corrupt file fails alone.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -27,7 +29,7 @@ from fennec_tpu.parallel import batched as jpb
 from fennec_tpu_torch import native
 from fennec_tpu_torch.codecs import jpeg as tjpeg
 from fennec_tpu_torch.engine import batched as tbatched
-from fennec_tpu_torch.ops import coef_wire
+from fennec_tpu_torch.ops import coef_wire, coef_wire_cuda
 from fennec_tpu_torch.ops.coef_wire_cuda import unpack_coo, unpack_csr
 from fennec_tpu_torch.ops.dct import ZIGZAG
 from fennec_tpu_torch.parallel import batched as pb
@@ -480,3 +482,353 @@ def test_compress_batch_goes_through_coo(tmp_path):
     assert snap["events"].get("upload_coo") == 1
     want = per_image(PHOTOS, T.Options(format=T.JPEG))
     assert [open(r.item.dst, "rb").read() for r in res] == want
+
+
+# ── K6's tile engine, modelled ──────────────────────────────────────────────
+#
+# A plain-Python model of csrc/coef_wire.cu's walk, step for step: the
+# persistent CTAs' tiles of TILE blocks, each section's span staged as the
+# aligned 16-byte chunks that cover it from a base address of any
+# alignment (a chunk must hold a byte of its section: the kernel reads no
+# other memory), COO's p / R as a multiply by ceil(2^32 / R), int8's
+# gather through the inverse zigzag, CSR's per-image scan (tile sums of
+# masked words as __dp4a sums them), its spans and its binary search of a
+# pair's block, and the exception units.  Held to the plain versions on
+# chip_smoke.k6_cases and on the decoded CASES, at two sets of addresses.
+
+INV = np.argsort(ZIGZAG)  # the zigzag position of natural index n
+WALK_GRIDS = (1, 7)
+
+
+@functools.lru_cache(maxsize=1)
+def chip_smoke():
+    """The chip_smoke.py module of this checkout (pure numpy and torch
+    where these tests call it)."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@functools.lru_cache(maxsize=1)
+def k6_cases():
+    return chip_smoke().k6_cases()
+
+
+def cover(n):
+    """Shared bytes that hold the chunks covering n bytes (the kernel's
+    cover)."""
+    return (n + 30 + 15) // 16 * 16
+
+
+class Section:
+    """A section's bytes at address `addr`: reads are whole aligned
+    16-byte chunks, and every chunk read must hold one of its bytes;
+    bytes around the section read as 0xA5."""
+
+    def __init__(self, t: torch.Tensor, addr: int):
+        self.raw = t.contiguous().view(-1).view(torch.uint8).numpy()
+        self.addr = addr
+        self.padded = np.concatenate([np.full(16, 0xA5, np.uint8), self.raw,
+                                      np.full(32, 0xA5, np.uint8)])
+
+    def chunks(self, lo, hi):
+        """(first chunk's address, count, head) covering bytes [lo, hi)."""
+        a = (self.addr + lo) & ~15
+        e = (self.addr + hi + 15) & ~15
+        return a, (e - a) // 16 if hi > lo else 0, self.addr + lo - a
+
+    def stage(self, lo, hi):
+        """The staged chunks of [lo, hi) as one byte array, and the head:
+        where byte lo lands in it."""
+        a, n, head = self.chunks(lo, hi)
+        start = a - self.addr
+        assert n == 0 or (start + 16 > 0
+                          and start + 16 * (n - 1) < self.raw.size), \
+            "a chunk outside its section"
+        return self.padded[start + 16:start + 16 + 16 * n], head
+
+
+def walk(tiles, grid):
+    """The tiles in the order the persistent CTAs take them."""
+    return [g for c in range(min(grid, tiles)) for g in range(c, tiles, grid)]
+
+
+def model_exceptions(out, exc, nt, width):
+    """exceptions_kernel: units of 128 rows of one image, live rows with
+    an offset inside the image set at their natural position."""
+    off, val, n = (x.numpy() for x in exc)
+    bsz, e = off.shape
+    per = -(-e // 128)
+    for u in range(bsz * per):
+        img, first = u // per, (u % per) * 128
+        live = min(max(int(n[img]), 0), e)
+        if first >= live:
+            continue
+        o = off[img, first:min(first + 128, live)].astype(np.int64)
+        v = val[img, first:min(first + 128, live)]
+        ok = (o >= 0) & (o < nt * width)
+        out[img * nt + o[ok] // width, ZIGZAG[o[ok] % width]] = v[ok]
+
+
+def model_coo(secs, addrs, grid):
+    dc, pos, val, *exc = secs
+    bsz, nt, r = pos.shape
+    nblocks, magic = bsz * nt, ((1 << 32) + r - 1) // r
+    mem = [Section(t, a) for t, a in zip((dc, pos, val), addrs)]
+    out = np.full((nblocks, 64), 0x5A5A, np.int16)
+    writes = np.zeros(nblocks, np.int64)
+    for g in walk(-(-nblocks // coef_wire_cuda.TILE), grid):
+        b0 = g * coef_wire_cuda.TILE
+        b1 = min(b0 + coef_wire_cuda.TILE, nblocks)
+        n = b1 - b0
+        (dcs, hd), (ps, hp), (vs, hv) = (m.stage(b0 * w, b1 * w) for m, w in
+                                         zip(mem, (1, r, r)))
+        tile = np.zeros((n, 64), np.int16)
+        tile[:, 0] = dcs[hd:hd + n].view(np.int8)
+        p = np.arange(n * r, dtype=np.int64)
+        q = ps[hp + p] & 63
+        j = (p * magic) >> 32
+        live = q != 0
+        tile[j[live], ZIGZAG[q[live]]] = vs[hv + p[live]].view(np.int8)
+        out[b0:b1] = tile
+        writes[b0:b1] += 1
+    assert (writes == 1).all()
+    model_exceptions(out, exc, nt, 64)
+    return out.reshape(bsz, nt, 64)
+
+
+def model_i8(secs, addrs, grid):
+    i8, *exc = secs
+    bsz, nt, k = i8.shape
+    nblocks = bsz * nt
+    mem = Section(i8, addrs[0])
+    out = np.full((nblocks, 64), 0x5A5A, np.int16)
+    writes = np.zeros(nblocks, np.int64)
+    for g in walk(-(-nblocks // coef_wire_cuda.TILE), grid):
+        b0 = g * coef_wire_cuda.TILE
+        b1 = min(b0 + coef_wire_cuda.TILE, nblocks)
+        wire, head = mem.stage(b0 * k, b1 * k)
+        blk = wire[head:head + (b1 - b0) * k].view(np.int8).reshape(-1, k)
+        out[b0:b1] = np.where(INV < k, blk[:, np.minimum(INV, k - 1)], 0)
+        writes[b0:b1] += 1
+    assert (writes == 1).all()
+    model_exceptions(out, exc, nt, k)
+    return out.reshape(bsz, nt, 64)
+
+
+def span_sums(sec, lo, hi):
+    """span_sum over arrays of spans [lo, hi) (at most TILE bytes each):
+    each span's covering chunks read, each 4-byte word masked to the
+    span, the bytes kept summed."""
+    x0 = sec.addr + lo
+    a = x0 & ~15
+    first, end = x0 - a, x0 - a + hi - lo
+    padded = np.concatenate([np.full(16, 0xA5, np.uint8), sec.raw,
+                             np.full(96, 0xA5, np.uint8)]).astype(np.int64)
+    total = np.zeros(lo.shape, np.int64)
+    for i in range((coef_wire_cuda.TILE + 30) // 16):
+        read = 16 * i < end
+        start = a + 16 * i - sec.addr
+        assert ((start < sec.raw.size) & (start + 16 > 0))[read].all(), \
+            "a chunk outside its section"
+        for k in range(4):
+            f = np.clip(first - 16 * i - 4 * k, 0, 4)
+            ln = np.clip(end - 16 * i - 4 * k, 0, 4)
+            for b in range(4):
+                keep = read & (f <= b) & (b < ln)
+                total += np.where(keep, padded[np.where(
+                    keep, start + 4 * k + b + 16, 0)], 0)
+    return total
+
+
+def csr_bases(counts, addr):
+    """csr_scan_kernel: (B, tiles + 1) each tile's first pair in its
+    image, then the image's pairs."""
+    bsz, nt = counts.shape
+    tile_n = coef_wire_cuda.TILE
+    t = np.arange(-(-nt // tile_n), dtype=np.int64)
+    row = np.arange(bsz, dtype=np.int64)[:, None] * nt
+    sums = span_sums(Section(counts, addr), row + t * tile_n,
+                     row + np.minimum((t + 1) * tile_n, nt))
+    return np.concatenate([np.zeros((bsz, 1), np.int64),
+                           np.cumsum(sums, axis=1)], axis=1)
+
+
+def model_csr(secs, addrs, grid):
+    dc, counts, spos, sval, *exc = secs
+    bsz, nt = dc.shape
+    m = spos.shape[1]
+    tile_n = coef_wire_cuda.TILE
+    tiles = -(-nt // tile_n)
+    base = csr_bases(counts, addrs[1])
+    mem = [Section(t, a) for t, a in zip((dc, counts, spos, sval), addrs)]
+    out = np.full((bsz * nt, 64), 0x5A5A, np.int16)
+    writes = np.zeros(bsz * nt, np.int64)
+    for g in walk(bsz * tiles, grid):
+        img, t = divmod(g, tiles)
+        b0 = img * nt + t * tile_n
+        b1 = img * nt + min((t + 1) * tile_n, nt)
+        n = b1 - b0
+        (dcs, hd), (cs, hc) = (s.stage(b0, b1) for s in mem[:2])
+        lo, hi = min(base[img, t], m), min(base[img, t + 1], m)
+        staged = min(hi, lo + tile_n * 64)
+        (ps, hp), (vs, hv) = (s.stage(img * m + lo, img * m + staged)
+                              for s in mem[2:])
+        tile = np.zeros((n, 64), np.int16)
+        tile[:, 0] = dcs[hd:hd + n].view(np.int8)
+        cnt = cs[hc:hc + n].astype(np.int64)
+        start = np.full(64, np.iinfo(np.int32).max, np.int64)
+        start[:n] = np.cumsum(cnt) - cnt
+        q = np.arange(hi - lo, dtype=np.int64)
+        j = np.zeros(q.size, np.int64)
+        for step in (32, 16, 8, 4, 2, 1):
+            j = np.where(start[j + step] <= q, j + step, j)
+        inside = q < staged - lo
+        pq = np.where(inside, ps[hp + np.minimum(q, staged - lo - 1)],
+                      spos[img].numpy()[np.minimum(lo + q, m - 1)]) & 63
+        v = np.where(inside, vs[hv + np.minimum(q, staged - lo - 1)],
+                     sval[img].numpy().view(np.uint8)[
+                         np.minimum(lo + q, m - 1)]).view(np.int8)
+        live = pq != 0
+        tile[j[live], ZIGZAG[pq[live]]] = v[live]
+        out[b0:b1] = tile
+        writes[b0:b1] += 1
+    assert (writes == 1).all()
+    model_exceptions(out, exc, nt, 64)
+    return out.reshape(bsz, nt, 64)
+
+
+MODELS = {"coo": model_coo, "i8": model_i8, "csr": model_csr}
+PLAIN = {"coo": coef_wire.coo_to_natural, "i8": coef_wire.i8_to_natural,
+         "csr": coef_wire.csr_to_natural}
+# Each byte section's address: 16-byte aligned, and skewed (heads 3, 7,
+# 13, 9 into their chunks).
+ADDRS = {"aligned": (0, 0, 0, 0), "skewed": (3, 7, 13, 9)}
+
+
+@pytest.mark.parametrize("index", range(27))
+def test_k6_model_matches_plain_on_the_card_cases(index):
+    """The model of K6 bit for bit against the plain version on
+    chip_smoke.k6_cases (every R and K, tiles cut short, CSR with an
+    image of no pairs and a second round of the scan, E = 0, exception
+    rows at DC and the last coefficient, dead rows, offsets outside the
+    image, rows in no order, rows 1.. of a chunk), aligned and skewed,
+    walked by one CTA and by seven."""
+    tag, layout, secs = k6_cases()[index]
+    if tag.endswith("_rows1"):
+        secs = [x[1:] for x in secs]
+    want = PLAIN[layout](*secs).numpy()
+    for grid, addrs in zip(WALK_GRIDS, ADDRS.values()):
+        np.testing.assert_array_equal(MODELS[layout](secs, addrs, grid),
+                                      want)
+
+
+def test_k6_cases_are_all_tested():
+    assert len(k6_cases()) == 27
+
+
+def wire_of(name):
+    """Each layout's sections of CASES[name], built as the engine builds
+    them: COO at the census's R, int8 cut at K, CSR from the census."""
+    datas = CASES[name]()
+    r = coef_wire_census_r(datas)
+    dc, pos, val, parts, _ = coo_decode(datas, 16)
+    counts, spos, sval, _ = csr_sections(pos, val)
+    coo_parts = []
+    for j, (ei, ev) in enumerate(parts):
+        blk, slot = np.nonzero(pos[j, :, r:])
+        coo_parts.append((np.concatenate([ei, (blk * 64 + pos[j, blk, slot + r])
+                                          .astype(np.int32)]),
+                          np.concatenate([ev, val[j, blk, slot + r]
+                                          .astype(np.int16)])))
+    full = np.zeros((len(datas), pos.shape[1], 64), np.int8)
+    i8_parts, k = [], 1
+    for j, d in enumerate(datas):
+        _, ei, ev, mk = tjpeg.decode_jpeg_to_coefs_i8(d, full[j],
+                                                      max_exc=1 << 20)
+        i8_parts.append((ei, ev))
+        k = max(k, mk)
+    t = torch.from_numpy
+    return dense_blocks(datas), {
+        "coo": [t(dc), t(np.ascontiguousarray(pos[:, :, :r])),
+                t(np.ascontiguousarray(val[:, :, :r])),
+                *pack_exceptions(coo_parts)],
+        "i8": [t(np.ascontiguousarray(full[:, :, :k])),
+               *pack_exceptions([((ei // 64) * k + ei % 64, ev)
+                                 for ei, ev in i8_parts])],
+        "csr": [t(dc), t(counts), t(spos), t(sval), *pack_exceptions(parts)]}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_k6_model_matches_plain_and_decoder(name):
+    """The model of K6 on each layout of the decoded CASES equals the
+    plain version and the C++ decoder's blocks, aligned and skewed."""
+    want, sections = wire_of(name)
+    for layout, secs in sections.items():
+        np.testing.assert_array_equal(PLAIN[layout](*secs).numpy(), want)
+        for grid, addrs in zip(WALK_GRIDS, ADDRS.values()):
+            np.testing.assert_array_equal(
+                MODELS[layout](secs, addrs, grid), want)
+
+
+@pytest.mark.parametrize("bsz,nt", [(1, 1), (1, 63), (1, 64), (1, 65),
+                                    (3, 101), (64, 6144), (2, 70_000)])
+@pytest.mark.parametrize("grid", [1, 7, 132 * 6])
+def test_k6_walk_covers_every_block_once(bsz, nt, grid):
+    """The flat walk (COO, int8) and the per-image walk (CSR) cover every
+    block of the chunk exactly once."""
+    tile_n = coef_wire_cuda.TILE
+    flat = np.zeros(bsz * nt, np.int64)
+    for g in walk(-(-bsz * nt // tile_n), grid):
+        flat[g * tile_n:min((g + 1) * tile_n, bsz * nt)] += 1
+    tiles = -(-nt // tile_n)
+    per_image = np.zeros(bsz * nt, np.int64)
+    for g in walk(bsz * tiles, grid):
+        img, t = divmod(g, tiles)
+        per_image[img * nt + t * tile_n:img * nt + min((t + 1) * tile_n,
+                                                       nt)] += 1
+    assert (flat == 1).all() and (per_image == 1).all()
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_k6_csr_spans_start_at_the_plain_starts(name):
+    """The scan's tile bases, summed from masked words at any head, are
+    the plain csr_slots' starts at each tile's first block; the last is
+    the image's pairs."""
+    _, sections = wire_of(name)
+    counts = sections["csr"][1]
+    start = (torch.cumsum(counts.long(), 1) - counts.long()).numpy()
+    tile_n = coef_wire_cuda.TILE
+    for addr in range(16):
+        base = csr_bases(counts, addr)
+        np.testing.assert_array_equal(base[:, :-1], start[:, ::tile_n])
+        np.testing.assert_array_equal(base[:, -1], counts.long().sum(1))
+
+
+def test_k6_stages_hold_every_span():
+    """At every head, the chunks that cover a span hold all its bytes,
+    each holds one of them, and they fit the stage the kernel gives the
+    span (cover of its longest)."""
+    for head in range(16):
+        for length in list(range(0, 130)) + [4031, 4032, 4095, 4096]:
+            sec = Section(torch.zeros(length + 32, dtype=torch.uint8), head)
+            a, n, h = sec.chunks(5, 5 + length)
+            if length == 0:
+                assert n == 0
+                continue
+            assert a <= head + 5 < a + 16 and h == head + 5 - a
+            assert a + 16 * n >= head + 5 + length > a + 16 * (n - 1)
+            assert 16 * n <= cover(length)
+
+
+def test_k6_coo_magic_divides():
+    """p * ceil(2^32 / R) >> 32 is p // R for every pair of a tile."""
+    p = np.arange(coef_wire_cuda.TILE * 63, dtype=np.int64)
+    for r in range(1, 64):
+        magic = ((1 << 32) + r - 1) // r
+        np.testing.assert_array_equal((p * magic) >> 32, p // r)
