@@ -1,7 +1,8 @@
 """Drive the PyTorch port's main paths once on one CUDA card, and check
 them.
 
-    python3 chip_smoke.py [--k2 | --k3 | --k5 | --digests | --mesh | --wire]
+    python3 chip_smoke.py [--k2 | --k3 | --k5 | --digests | --mesh | --wire
+                           | --k7k8]
 
 With no argument, every phase below; it needs one card.  --k2 runs
 phases 1 and 2, K2's part of phase 3 and the size oracle's checks of
@@ -12,18 +13,20 @@ turns, against the first K3; K4's step and bisection); --k5 runs
 phases 1, 2 and 16 (K5 against its plain version, the host builder and
 the first K5, its phase split, its timings in turns with the first K5
 and the emission in turns); --digests prints digests of a few main-path
-outputs, to compare two checkouts on one card; --mesh runs phases 1, 2,
-14 and 15 alone; --wire runs phases 1, 2 and 17 alone.  None
+outputs, to compare two checkouts on one card, each call also on K7's
+and K8's plain versions (the route before them) with every difference
+traced to a tie; --mesh runs phases 1, 2, 14 and 15 alone; --wire runs
+phases 1, 2 and 17 alone; --k7k8 runs phases 1, 2 and 18 alone.  None
 of these prints the result lines.
 
 Phases, each raising on failure:
   1. environment: a CUDA card, its name and power limit, TF32 off;
-  2. build: kernels K1, K2, K3 with K4's entries, K5 and K6 (nvcc,
-     sm_90a), the first K3, the first K2, the first K5 and the first K6
-     (kept under bench_sources/ to be timed against), the first K5 and K5
-     again with -DK5_STAMPS, and the host C++ entropy coder, from the
-     sources in this checkout, all twelve at once, each K5 and K6 build's
-     -Xptxas -v printed;
+  2. build: kernels K1, K2, K3 with K4's entries, K5, K6, K7 and K8
+     (nvcc, sm_90a), the first K3, the first K2, the first K5 and the
+     first K6 (kept under bench_sources/ to be timed against), the first
+     K5 and K5 again with -DK5_STAMPS, and the host C++ entropy coder,
+     from the sources in this checkout, all fourteen at once, each K5-K8
+     build's -Xptxas -v printed;
   3. K1 against its plain PyTorch version on the card, at the shapes the
      main paths give it and beyond, the batch engines' (64, 500, 500)
      included, and at ragged shapes for its strips and bands: max |diff|
@@ -64,8 +67,10 @@ Phases, each raising on failure:
      bisection is replayed with it, every probe also scored through K2
      and K1: no accept/reject decision may differ.  Each standard-mode
      call must launch K2 seven times per image or chunk, counted from 0
-     like K1's and K3's.  Then the stages of the warm 12 MP
-     compress_file, synchronised one by one (median of 5);
+     like K1's and K3's, and every search K8's DCT and luminance.  Then
+     the stages of the warm 12 MP compress_file, synchronised one by one
+     (median of 5), the decode through K7 and the DCT and the original's
+     luminance through K8, each its own stage;
   5. a small noisy image through the same entry point on the card and on
      the CPU (plain versions): the same quality and SSIM, and the same
      decision checks;
@@ -227,12 +232,30 @@ Phases, each raising on failure:
      and the yuv420 wire (FENNEC_PIXEL_WIRE): img/s, uploaded bytes, the
      qualities that moved and the largest |dSSIM|; every yuv420 output
      meets its target or is the Q100 fallback.
+ 18. (run after phase 3) K7, the decode's device stage, and K8, the
+     forward DCT and the original's luminance, against their plain
+     versions on the same CUDA tensors (phase_k7k8; --k7k8 alone): K7 on
+     the frames of a 12 MP 4:2:0 and a 1080p 4:4:4 JPEG, the progressive
+     and multi-scan fixtures, synthetic gray, Adobe RGB, CMYK, YCCK and
+     4:2:2 frames (a fifth of their blocks a DC tie) and a ragged one, DC
+     1 at q = 4 (129), its batch entry on a 64 x 500x500 chunk that K6
+     rebuilt from the COO wire; K8's DCT at 12 MP in 4:2:0 and 4:4:4, 64
+     x 500x500, one 12 MP band of four and ragged alpha images (levels at
+     Q30/60/92), images alone against the batch bit for bit; its
+     luminance at 12 MP, 64 x 500x500 (no downsample), the band and
+     700x20, bit-equal to the exact box means.  Every pixel, level or
+     luminance value that differs from the plain version must sit at a
+     tie, and is counted.  Device, CUDA-event and host time, the plain
+     version's, bound and share and the block product alone (torch.matmul
+     of (N, 64) x (64, 64), a part of the function) at K7's 12 MP, 1080p
+     4:4:4 and 64 x 500x500, K8's 12 MP, 64 x 500x500 and band.
 
 The last lines: the kernel table as JSON (K1's, K2's, K3a's, K3b's, K5's
 and K4's step's and bisection's launches summed over the main-path runs of
 phases 4, 6-8 and 10, each counted from 0; K4's step, now the
 bisection's yardstick, launches 0 times there; K6's per layout over those
-runs and phase 17's),
+runs and phase 17's; K7's and K8's, with phase 18's timings and tie
+counts),
 the card's name and power limit as nvidia-smi reports them, and {"ok":
 true, "device": {...}}.  Images are made from numpy seeds; nothing is
 fetched.  Without a CUDA card the script fails before printing any
@@ -549,6 +572,8 @@ def k3_zero() -> None:
 
     build_tables.launches = 0
     K6Launches().launches = 0
+    for w in k78_wrappers().values():
+        w.launches = 0
 
     k3.block_stats.launches = 0
     k3.deposit.launches = 0
@@ -589,6 +614,15 @@ def k3_take(tag: str, dev, emissions: int, bisections: int = 0,
         K2_MAIN["recon"] += p
     for layout, k in k6_wrappers().items():
         (K6_MAIN if main else K6_WIRE)[layout] += k.launches
+    k78 = {k: w.launches for k, w in k78_wrappers().items()}
+    if main:
+        for k, n in k78.items():
+            K78_MAIN[k] += n
+    if (main and dev.type == "cuda" and probes
+            and not (k78["forward_dct"] and k78["luminance"])):
+        raise AssertionError(f"{tag}: a search on the card launched K8 "
+                             f"{k78}: its forward DCT and the original's "
+                             f"luminance must run through K8")
     calls = BISECTIONS["calls"]
     if dev.type == "cuda" and (a != b or k5 != b or b < emissions
                                or z != calls
@@ -3245,6 +3279,7 @@ def stage_table(T, dev, path: str, tmp: str, rounds: int = 5):
     from fennec_tpu_torch.engine import compress as C
     from fennec_tpu_torch.exif import read_orientation
     from fennec_tpu_torch.image import to_nrgba, to_nrgba_ref, validate_image
+    from fennec_tpu_torch.ops.decode_recon_cuda import decode_recon
     from fennec_tpu_torch.parallel.batched import emit_scans
 
     opts = T.Options()
@@ -3273,15 +3308,18 @@ def stage_table(T, dev, path: str, tmp: str, rounds: int = 5):
         mcus_x = -(-hdr.width // (8 * hmax))
         mcus_y = -(-hdr.height // (8 * vmax))
         comps = [dict(hdr.comps[sc["comp"]]) for sc in hdr.scan_comps]
-        up = stage("upload of the quantized blocks", lambda: [
-            (torch.from_numpy(hdr.qtables[c["tq"]]).to(dev),
-             torch.from_numpy(q).to(dev)) for c, q in zip(comps, coefs)])
-        pixels = stage("device dequantize, IDCT, colour", lambda: (
-            J._combine_planes([J._decode_plane(
-                qc.to(torch.float32), qt, mcus_y * c["v"] * 8,
-                mcus_x * c["h"] * 8, hmax // c["h"], vmax // c["v"])
-                for c, (qt, qc) in zip(comps, up)], hdr.height, hdr.width,
-                J.jpeg_color_mode(hdr)).to(torch.uint8)))
+
+        def upload():  # as codecs/jpeg._reconstruct uploads
+            return ([torch.from_numpy(q).to(dev) for q in coefs],
+                    torch.from_numpy(np.stack([hdr.qtables[c["tq"]]
+                                               for c in comps])).to(dev))
+
+        up = stage("upload of the quantized blocks", upload)
+        pixels = stage("device dequantize, IDCT, colour (K7)", lambda: (
+            decode_recon.frame(
+                *up, [(c["h"], c["v"], mcus_x * c["h"], mcus_y * c["v"])
+                      for c in comps], hmax, vmax, hdr.height, hdr.width,
+                J.jpeg_color_mode(hdr))))
         img = stage("copy back of the decoded image",
                     lambda: pixels.cpu().numpy())
         del up, pixels
@@ -3290,8 +3328,10 @@ def stage_table(T, dev, path: str, tmp: str, rounds: int = 5):
         h, w = src.shape[:2]
         x = stage("upload of the image", lambda: torch.from_numpy(
             to_nrgba_ref(src)).to(dev).to(torch.float32))
-        inp, fcoefs = stage("forward DCT, original's luminance",
-                            lambda: C.prepare_search(x[None], True))
+        fcoefs = stage("forward DCT (K8)",
+                       lambda: C.forward_dct(x[None], True))
+        inp = stage("original's luminance (K8) and the search's inputs",
+                    lambda: C.search_inputs(x[None], fcoefs, True))
 
         def search():
             best_q, best_ssim, found = C._bisect_device_batch(
@@ -4430,6 +4470,458 @@ def wire_only(T, dev, ssim_window, first_k6) -> int:
     return 0
 
 
+# ── Kernels K7 and K8 (phase 18) ──────────────────────────────────────────
+
+# K7's and K8's launches on the main path (phases 4, 6-8 and 10), each call
+# counted from 0 just before it and read just after (k3_zero, k3_take).
+K78_MAIN = {"decode_recon": 0, "forward_dct": 0, "luminance": 0}
+K78_TIE = 1e-3  # a value that rounds apart must sit within this of k + 1/2
+K78_REPLACES = {
+    "decode_recon": "fennec_tpu/codecs/jpeg.py:702",
+    "forward_dct": "fennec_tpu/codecs/jpeg.py:52",
+    "luminance": "fennec_tpu/engine/compress.py:166"}
+
+
+def k78_wrappers():
+    """{name: wrapper} of K7's and K8's entries."""
+    from fennec_tpu_torch.ops import decode_recon_cuda as k7
+    from fennec_tpu_torch.ops import forward_dct_cuda as k8
+
+    return {"decode_recon": k7.decode_recon, "forward_dct": k8.forward_dct,
+            "luminance": k8.original_luminance}
+
+
+def at_tie(x: torch.Tensor) -> torch.Tensor:
+    """Values within K78_TIE of k + 1/2."""
+    x = x.to(torch.float64)
+    return (x - torch.floor(x) - 0.5).abs() <= K78_TIE
+
+
+def k7_frame(data: bytes, dev):
+    """A JPEG file's frame as K7's frame entry takes it, decoded to
+    coefficients on the host as codecs/jpeg.decode_jpeg decodes it:
+    (blocks, tables, comps, hmax, vmax, h, w, mode) on `dev`."""
+    from fennec_tpu_torch.codecs import jpeg as J
+    from fennec_tpu_torch.codecs.progressive import (
+        decode_progressive_to_coefs,
+    )
+
+    if J.is_progressive_jpeg(data):
+        frame, coefs = decode_progressive_to_coefs(data)
+        comps, qtables = frame.comps, frame.qtables
+        hmax, vmax = frame.hmax, frame.vmax
+    else:
+        frame, coefs = J.decode_jpeg_to_coefs(data)
+        hmax = max(c["h"] for c in frame.comps)
+        vmax = max(c["v"] for c in frame.comps)
+        mx, my = -(-frame.width // (8 * hmax)), -(-frame.height // (8 * vmax))
+        comps = [dict(frame.comps[sc["comp"]], bw=mx * frame.comps[
+            sc["comp"]]["h"], bh=my * frame.comps[sc["comp"]]["v"])
+            for sc in frame.scan_comps]
+        qtables = frame.qtables
+    return ([torch.from_numpy(np.asarray(q, np.int16)).to(dev)
+             for q in coefs],
+            torch.from_numpy(np.stack([qtables[c["tq"]] for c in comps])
+                             ).to(dev),
+            [(c["h"], c["v"], c["bw"], c["bh"]) for c in comps], hmax, vmax,
+            frame.height, frame.width, J.jpeg_color_mode(frame))
+
+
+def k7_synthetic(sampling, mode: str, w: int, h: int, seed: int, dev):
+    """Random quantized blocks of a frame (sparse AC; a fifth of the
+    blocks an odd DC alone at a table entry of 4, every pixel of those at
+    k + 1/2) in K7's frame form, for the modes no encoder here writes."""
+    rng = np.random.default_rng(seed)
+    hmax = max(s[0] for s in sampling)
+    vmax = max(s[1] for s in sampling)
+    mx, my = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    blocks, tables, comps = [], [], []
+    for ch, cv in sampling:
+        n = mx * ch * my * cv
+        b = np.zeros((n, 64), np.int16)
+        b[:, 0] = rng.integers(-90, 90, n)
+        b[:, 1:] = np.where(rng.random((n, 63)) < 0.12,
+                            rng.integers(-12, 13, (n, 63)), 0)
+        flat = rng.random(n) < 0.2
+        b[flat, 1:] = 0
+        b[flat, 0] = 2 * rng.integers(-15, 15, int(flat.sum())) + 1
+        t = rng.integers(1, 40, 64).astype(np.int32)
+        t[0] = 4
+        blocks.append(torch.from_numpy(b).to(dev))
+        tables.append(t)
+        comps.append((ch, cv, mx * ch, my * cv))
+    return (blocks, torch.from_numpy(np.stack(tables)).to(dev), comps, hmax,
+            vmax, h, w, mode)
+
+
+def k7_round_inputs(blocks, tables, comps, hmax, vmax, h, w, mode):
+    """(..., h, w, n) the values the plain decode rounds for each output
+    channel (blocks may carry a batch dimension)."""
+    from fennec_tpu_torch.ops import dct as D
+    from fennec_tpu_torch.ops.color import ycbcr_to_rgb
+
+    planes = []
+    for b, t, (ch, cv, bw, bh) in zip(blocks, tables, comps):
+        p = D.from_blocks(D.idct2d_blocks(D.dequantize_blocks(
+            b.to(torch.float32), t)), bh * 8, bw * 8) + 128.0
+        p = p.repeat_interleave(vmax // cv, dim=-2)
+        planes.append(p.repeat_interleave(hmax // ch, dim=-1)[..., :h, :w])
+    if mode in ("ycbcr", "ycck"):
+        rgb = ycbcr_to_rgb(torch.stack(planes[:3], dim=-1))
+        planes = [rgb[..., 0], rgb[..., 1], rgb[..., 2]] + planes[3:]
+    return torch.stack(planes, dim=-1)
+
+
+def k7_compare(tag: str, got, want, inputs) -> int:
+    """The pixels (rows of RGBA) where got and want differ: each must sit
+    at a tie of one of the values the plain decode rounds (`inputs`).
+    Returns their count."""
+    diff = (got.to(torch.int32) != want.to(torch.int32)).any(dim=-1)
+    n = int(diff.sum())
+    if n:
+        bad = int((diff & ~at_tie(inputs).any(dim=-1)).sum())
+        if bad:
+            raise AssertionError(f"K7 {tag}: {bad} of {n} differing pixels "
+                                 f"away from a tie")
+    return n
+
+
+def k8_levels(tag: str, got, want, qualities, dev) -> int:
+    """K8's coefficients against the plain version's, quantized at each
+    quality: every level that differs must sit at a tie of the plain
+    coefficient's quotient.  Returns the count."""
+    from fennec_tpu_torch.engine.size_search import quality_tables_on
+    from fennec_tpu_torch.ops.dct import quantize_blocks
+
+    tables = quality_tables_on(dev)
+    n = 0
+    for q in qualities:
+        for part, (g, w) in enumerate(zip(got, want)):
+            t = tables[q][min(part, 1)]
+            d = quantize_blocks(g, t) != quantize_blocks(w, t)
+            k = int(d.sum())
+            if k:
+                bad = int((d & ~at_tie((w / t).abs())).sum())
+                if bad:
+                    raise AssertionError(f"K8 {tag} Q{q}: {bad} of {k} "
+                                         f"levels differ away from a tie")
+            n += k
+    return n
+
+
+def box_sums(imgs: torch.Tensor, rect: torch.Tensor, ndh: int, dw: int):
+    """(sums (B, 3, ndh, dw), n (ndh, dw)) int64 of r, g and b over the
+    rectangles of `rect` (ops/resize.box_rectangles' layout)."""
+    r = rect.to(torch.int64)
+    y0, y1 = r[:ndh], r[ndh:2 * ndh]
+    x0, x1 = r[2 * ndh:2 * ndh + dw], r[2 * ndh + dw:2 * ndh + 2 * dw]
+    p = imgs[..., :3].permute(0, 3, 1, 2).to(torch.int64)
+    table = torch.zeros((*p.shape[:2], p.shape[2] + 1, p.shape[3] + 1),
+                        dtype=torch.int64, device=p.device)
+    table[..., 1:, 1:] = p.cumsum(-2).cumsum(-1)
+    hi, lo = table.index_select(-2, y1), table.index_select(-2, y0)
+    sums = (hi.index_select(-1, x1) - hi.index_select(-1, x0)
+            - lo.index_select(-1, x1) + lo.index_select(-1, x0))
+    return sums, (y1 - y0)[:, None] * (x1 - x0)[None, :]
+
+
+def k8_lum_compare(tag: str, got, want, imgs, rect, ndh: int, dw: int):
+    """K8's luminance against the plain version's: bit-equal to the
+    exact means' luminance, and differing from the plain version only
+    where a channel's exact mean is k + 1/2.  Returns (differing values,
+    largest |difference|)."""
+    from fennec_tpu_torch.engine.compress import _luminance
+
+    if rect is None:
+        if not torch.equal(got, want):
+            raise AssertionError(f"K8 {tag}: the luminance without a "
+                                 f"downsample differs from the plain one")
+        return 0, 0.0
+    sums, n = box_sums(imgs, rect, ndh, dw)
+    mean = torch.where(n > 0, torch.div(2 * sums + n, 2 * n.clamp(min=1),
+                                        rounding_mode="floor"), 0)
+    mean = mean.to(torch.float32)
+    exact = _luminance(mean[:, 0], mean[:, 1], mean[:, 2])
+    if not torch.equal(got, exact):
+        raise AssertionError(f"K8 {tag}: the luminance differs from the "
+                             f"exact box means' in "
+                             f"{int((got != exact).sum())} values")
+    tie = ((n > 0) & ((2 * sums) % (2 * n).clamp(min=1) == n)).any(dim=1)
+    diff = got != want
+    bad = int((diff & ~tie).sum())
+    if bad:
+        raise AssertionError(f"K8 {tag}: {bad} luminance values differ "
+                             f"away from a box-mean tie")
+    return int(diff.sum()), float((got - want).abs().max())
+
+
+def k78_bound(nbytes: float, fmas: float):
+    """(bound ms, "bytes" or "operations"): the bytes over the card's
+    memory rate, the multiply-adds (two operations each) over its float32
+    rate, the larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * fmas / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_k78(kernel, plain, kname: str, nbytes: float, fmas: float,
+             shape, matmul_rows: int = 0, iters: int = 20) -> dict:
+    """One entry's timings at one shape: device ms (torch.profiler, rows
+    of `kname`), CUDA-event ms and host µs per call, the plain version's
+    CUDA-event ms, the bound and its share, and the time of the block
+    product alone, torch.matmul of (matmul_rows, 64) x (64, 64): a part of
+    the function, not a library call that computes it (none when
+    matmul_rows is 0)."""
+    dev_ms = profiled_device_ms(kernel, iters, kname)
+    bound_ms, bound_by = k78_bound(nbytes, fmas)
+    got = {"shape": list(shape), "ms": dev_ms,
+           "event_ms": cuda_ms(kernel, iters),
+           "host_us": host_us(kernel, iters),
+           "plain_ms": cuda_ms(plain, max(3, iters // 4)),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "share": bound_ms / dev_ms}
+    if matmul_rows:
+        rows = torch.zeros((matmul_rows, 64), dtype=torch.float32,
+                           device="cuda")
+        m = torch.zeros((64, 64), dtype=torch.float32, device="cuda")
+        got["matmul_part_ms"] = cuda_ms(lambda: torch.matmul(rows, m), iters)
+    return got
+
+
+def phase_k7k8(T, dev, timed: bool = True):
+    """Phase 18: K7 and K8 against their plain versions on the same CUDA
+    tensors.  K7 on the frames of a 12 MP 4:2:0 and a 1080p 4:4:4 JPEG,
+    the progressive and multi-scan fixtures, and synthetic gray, Adobe
+    RGB, CMYK, YCCK and 4:2:2 frames (a fifth of their blocks a DC tie),
+    DC 1 at q = 4 decoding to 129, and the batch entry on a 64 x 500²
+    chunk rebuilt by K6 from the COO wire; K8's DCT at 12 MP (levels at
+    Q30, Q60, Q92), 64 x 500², one 12 MP band of four and ragged
+    shapes, alone against inside the batch bit for bit; its luminance
+    there and without a downsample.  Every differing pixel, level or
+    luminance value must sit at a tie; each is counted.  Timed (device,
+    CUDA-event and host time, plain, bound, share, the block product
+    alone) at K7's 12 MP, 1080p 4:4:4 and 64 x 500² and K8's 12 MP, 64 x
+    500² and band.  Returns ({entry: {case: timings}}, {counts})."""
+    from fennec_tpu_torch.codecs import jpeg as J
+    from fennec_tpu_torch.engine import compress as C
+    from fennec_tpu_torch.ops import resize as R
+    from fennec_tpu_torch.ops.ssim import ssim_fast_dims
+
+    w78 = k78_wrappers()
+    k7, fdct, lum = w78["decode_recon"], w78["forward_dct"], w78["luminance"]
+    times = {"decode_recon": {}, "forward_dct": {}, "luminance": {}}
+    counts = {}
+    before = {k: w.launches for k, w in w78.items()}
+    plain_before = {k: w.plain_calls for k, w in w78.items()}
+
+    # K7, one frame at a time.
+    big = T.encode_to_bytes(photo(4032, 3024, SEED), T.JPEG, 92, device=dev)
+    mid444 = J.encode_jpeg(photo(1920, 1080, SEED + 3), 92, False, device=dev)
+    fixtures = os.path.join(HERE, "tests", "torch_fixtures")
+    frames = [("12mp_420", k7_frame(big, dev)),
+              ("1080p_444", k7_frame(mid444, dev))]
+    for name in ("progressive_1280x720.jpg", "multiscan_1280x720.jpg"):
+        with open(os.path.join(fixtures, name), "rb") as f:
+            frames.append((name.split("_")[0], k7_frame(f.read(), dev)))
+    for i, (tag, samp, mode) in enumerate((
+            ("gray", [(1, 1)], "gray"),
+            ("adobe_rgb", [(1, 1)] * 3, "rgb"),
+            ("cmyk", [(1, 1)] * 4, "cmyk"),
+            ("ycck_420", [(2, 2), (1, 1), (1, 1), (2, 2)], "ycck"),
+            ("ycbcr_422", [(2, 1), (1, 1), (1, 1)], "ycbcr"),
+            ("ycbcr_422_ragged", [(2, 1), (1, 1), (1, 1)], "ycbcr"))):
+        w, h = (1001, 753) if i < 5 else (17, 9)
+        frames.append((tag, k7_synthetic(samp, mode, w, h, SEED + 50 + i,
+                                          dev)))
+    dc = torch.zeros((1, 64), dtype=torch.int16, device=dev)
+    dc[0, 0] = 1
+    frames.append(("dc_tie", ([dc], torch.full((1, 64), 4, dtype=torch.int32,
+                                                device=dev),
+                              [(1, 1, 1, 1)], 1, 1, 8, 8, "gray")))
+    worst = 0
+    for tag, args in frames:
+        got = k7.frame(*args)
+        again = k7.frame(*args)
+        want = J.reconstruct_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"K7 {tag}: two calls differ")
+        n = k7_compare(tag, got, want, k7_round_inputs(*args))
+        counts[f"k7_{tag}"] = n
+        worst = max(worst, int((got.to(torch.int32)
+                                - want.to(torch.int32)).abs().max()))
+        log(f"K7 {tag} {args[6]}x{args[5]} {args[7]}: pixels differing from "
+            f"the plain version (each at a rounding tie) {n}")
+    if not bool((k7.frame(*frames[-1][1])[..., :3] == 129).all()):
+        raise AssertionError("K7: DC 1 at q = 4 must decode to 129")
+
+    # K7's batch entry on a 64 x 500² chunk that K6 rebuilt.
+    datas = [T.encode_to_bytes(photo(500, 500, SEED + 900 + k), T.JPEG, 92,
+                               device=dev) for k in range(64)]
+    sections, nt, _r, _k = wire_sections(datas, dev)
+    blocks = k6_wrappers()["coo"](*sections["coo"])
+    hdr = J.parse_jpeg(datas[0])
+    qt = torch.from_numpy(np.stack([hdr.qtables[0], hdr.qtables[1]])).to(
+        dev)[None].expand(64, 2, 64).contiguous()
+    got = k7.batch(blocks, qt, 500, 500, True)
+    want = C.decode_jpeg_image_plain(blocks, qt, 500, 500, True)
+    ny = 32 * 32 * 4
+    parts = [blocks[:, :ny], blocks[:, ny:ny + 1024], blocks[:, ny + 1024:]]
+    comps = [(2, 2, 64, 64), (1, 1, 32, 32), (1, 1, 32, 32)]
+    inputs = k7_round_inputs(parts, [qt[:, 0, None], qt[:, 1, None],
+                                     qt[:, 1, None]], comps, 2, 2, 500, 500,
+                             "ycbcr")
+    counts["k7_batch_64x500"] = k7_compare("64x500 batch", got, want, inputs)
+    for i in (0, 63):
+        alone = k7.batch(blocks[i:i + 1], qt[i:i + 1], 500, 500, True)
+        if not torch.equal(alone[0], got[i]):
+            raise AssertionError(f"K7: image {i} alone differs from the "
+                                 f"batch")
+    log(f"K7 64 x 500x500 batch (float32): pixels differing "
+        f"{counts['k7_batch_64x500']}, largest level difference "
+        f"{int((got - want).abs().max())}")
+
+    # K8: the DCT and the luminance.
+    big_img = torch.from_numpy(T.codecs.decode_image(big, device=dev)).to(
+        dev).to(torch.float32)[None]
+    small = torch.stack([torch.from_numpy(T.codecs.decode_image(
+        d, device=dev)) for d in datas]).to(dev).to(torch.float32)
+    alpha = torch.from_numpy(np.random.default_rng(SEED + 7).integers(
+        0, 256, (2, 37, 93, 4)).astype(np.float32)).to(dev)
+    band = R.box_band(3024, ssim_fast_dims(4032, 3024)[1], 1512, 2268, 16)
+    pix = big_img[:, band.start:band.end]
+    k8_cases = [("12mp_420", big_img, True), ("12mp_444", big_img, False),
+                ("64x500_420", small, True),
+                ("band_12mp_420", pix[:, :band.stop - band.start], True),
+                ("alpha_37x93_420", alpha, True),
+                ("alpha_37x93_444", alpha, False)]
+    worst_coef = 0.0
+    for tag, x, sub in k8_cases:
+        got = fdct(x, sub)
+        want = J.forward_dct_plain(x, sub)
+        again = fdct(x, sub)
+        torch.cuda.synchronize()
+        if any(not torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K8 {tag}: two calls differ")
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        worst_coef = max(worst_coef, err)
+        n = k8_levels(tag, got, want, (30, 60, 92), dev)
+        counts[f"k8_{tag}"] = n
+        if x.shape[0] > 1:
+            for i in (0, x.shape[0] - 1):
+                alone = fdct(x[i:i + 1].contiguous(), sub)
+                if any(not torch.equal(a[0], b[i])
+                       for a, b in zip(alone, got)):
+                    raise AssertionError(f"K8 {tag}: image {i} alone "
+                                         f"differs from the batch")
+        log(f"K8 DCT {tag} {tuple(x.shape)}: largest |coefficient "
+            f"difference| {err:.3e}, levels differing at Q30/60/92 (each at "
+            f"a tie) {n}")
+    for tag, x, rows, bandinfo in (
+            ("12mp", big_img, 3024, None), ("64x500", small, 500, None),
+            ("band_12mp", pix, band.stop - band.start, band),
+            ("ragged_700x20", torch.round(alpha[:1, :20].repeat(
+                1, 1, 8, 1)[:, :, :700]), 20, None)):
+        h, w = x.shape[1], x.shape[2]
+        if bandinfo is None:
+            ds_w, ds_h = ssim_fast_dims(w, h)
+            wh = wv = rect = None
+            if (ds_w, ds_h) != (w, h):
+                wh, wv, rect = C._ssim_box(w, h, dev)
+        else:
+            ds_w = ssim_fast_dims(w, band.src_h)[0]
+            wh, wv, rect = R.band_box_device(w, ds_w, band, dev)
+        got = lum(x, wh, wv, rect, rows)
+        want = C.lum_orig_plain(x, wh, wv, rows)
+        ndh, dw = got.shape[1], got.shape[2]
+        n, err = k8_lum_compare(tag, got, want, x, rect, ndh, dw)
+        counts[f"k8_lum_{tag}"] = n
+        log(f"K8 luminance {tag} {tuple(x.shape)} -> {tuple(got.shape)}: "
+            f"values differing from the plain version (each at a box-mean "
+            f"tie) {n}, largest |difference| {err}")
+    for k, w in w78.items():
+        if w.plain_calls != plain_before[k]:
+            raise AssertionError(f"{k}: a CUDA tensor took the plain version")
+    ran = {k: w.launches - before[k] for k, w in w78.items()}
+    log(f"K7/K8 phase: launches {ran}, largest K7 level difference "
+        f"{worst}, K8 coefficient {worst_coef:.3e}")
+    counts["k7_max_level_diff"] = worst
+    counts["k8_max_coef_diff"] = worst_coef
+    if not timed:
+        return times, counts
+
+    # Timings.  K7: the blocks read once (2 bytes a coefficient), the
+    # tables, the output written once; multiply-adds 64 for every nonzero
+    # coefficient (the zero ones change nothing and the kernel skips
+    # them).  K8: the image read once (16 bytes a pixel) and the blocks
+    # written (256 bytes each), 4096 multiply-adds a block; the luminance
+    # the image read once and the output written.
+    def k7_cost(blocks_list, out_bytes):
+        nnz = sum(int((b != 0).sum()) for b in blocks_list)
+        nbytes = sum(b.numel() * 2 for b in blocks_list) + out_bytes
+        return nbytes, 64.0 * nnz
+
+    for tag, args in frames[:2]:
+        nb = sum(b.shape[0] for b in args[0])
+        nbytes, fmas = k7_cost(args[0], args[5] * args[6] * 4)
+        times["decode_recon"][tag] = time_k78(
+            lambda a=args: k7.frame(*a),
+            lambda a=args: J.reconstruct_plain(*a), "decode_recon_kernel",
+            nbytes, fmas, (1, nb, 64), nb)
+        times["decode_recon"][tag]["dense_ops_bound_ms"] = k78_bound(
+            0, 4096.0 * nb)[0]
+    nbytes, fmas = k7_cost([blocks], 64 * 500 * 500 * 16)
+    times["decode_recon"]["64x500_f32"] = time_k78(
+        lambda: k7.batch(blocks, qt, 500, 500, True),
+        lambda: C.decode_jpeg_image_plain(blocks, qt, 500, 500, True),
+        "decode_recon_kernel", nbytes, fmas, tuple(blocks.shape),
+        blocks.shape[0] * blocks.shape[1])
+    times["decode_recon"]["64x500_f32"]["dense_ops_bound_ms"] = k78_bound(
+        0, 4096.0 * blocks.shape[0] * blocks.shape[1])[0]
+    for tag, x, sub in (k8_cases[0], k8_cases[2], k8_cases[3]):
+        nblk = x.shape[0] * sum(c.shape[1] for c in fdct(x, sub))
+        times["forward_dct"][tag] = time_k78(
+            lambda x=x, s=sub: fdct(x, s),
+            lambda x=x, s=sub: J.forward_dct_plain(x, s), "fdct_kernel",
+            x.numel() * 4 + nblk * 256, 4096.0 * nblk,
+            (x.shape[0], nblk // x.shape[0], 64), nblk)
+    for tag, x, rows, bandinfo in (
+            ("12mp", big_img, 3024, None), ("64x500", small, 500, None),
+            ("band_12mp", pix, band.stop - band.start, band)):
+        h, w = x.shape[1], x.shape[2]
+        if bandinfo is None:
+            wh, wv, rect = C._ssim_box(w, h, dev)
+        else:
+            wh, wv, rect = R.band_box_device(
+                w, ssim_fast_dims(w, band.src_h)[0], band, dev)
+        out = lum(x, wh, wv, rect, rows)
+        kname = "lum_box_kernel" if rect is not None else "lum_pixels_kernel"
+        times["luminance"][tag] = time_k78(
+            lambda x=x, a=(wh, wv, rect, rows): lum(x, *a),
+            lambda x=x, a=(wh, wv, rows): C.lum_orig_plain(x, *a), kname,
+            x.numel() * 4 + out.numel() * 4, 0.0, tuple(out.shape))
+    for entry, rows in times.items():
+        for tag, t in rows.items():
+            log(f"K7/K8 {entry} {tag} {t['shape']}: device "
+                f"{t['ms'] * 1e3:.2f} µs, CUDA events "
+                f"{t['event_ms'] * 1e3:.2f} µs, host {t['host_us']:.2f} µs, "
+                f"plain {t['plain_ms']:.3f} ms, bound "
+                f"{t['bound_ms'] * 1e3:.2f} µs ({t['bound_by']}), share "
+                f"{100 * t['share']:.1f} %"
+                + (f", block product alone {t['matmul_part_ms'] * 1e3:.2f} "
+                   f"µs" if "matmul_part_ms" in t else ""))
+    return times, counts
+
+
+def k7k8_only(T, dev) -> int:
+    """`--k7k8`: phases 1, 2 and 18 alone; no main path, so no result
+    line."""
+    times, counts = phase_k7k8(T, dev)
+    log("K7/K8 summary: " + json.dumps({"times": times, "counts": counts}))
+    log("k7k8 only: every case passed")
+    return 0
+
+
 def build_all(ssim_window, k3, probe_recon):
     """Phase 2: every kernel of the port and the host entropy coder
     built from this checkout's sources, all at once; returns the first
@@ -4439,14 +4931,16 @@ def build_all(ssim_window, k3, probe_recon):
 
     from fennec_tpu_torch import native
     from fennec_tpu_torch.ops import coef_wire_cuda as k6
+    from fennec_tpu_torch.ops import forward_dct_cuda as k8
     from fennec_tpu_torch.ops import huffbuild_cuda as k5
+    from fennec_tpu_torch.ops.decode_recon_cuda import decode_recon as k7
 
     def timed(build):
         t = time.perf_counter()
         got = build()
         return time.perf_counter() - t, got
 
-    with ThreadPoolExecutor(12) as pool:
+    with ThreadPoolExecutor(14) as pool:
         done = list(pool.map(timed, (
             lambda: ssim_window.build(force=True),
             lambda: k3.library.build(force=True),
@@ -4457,19 +4951,24 @@ def build_all(ssim_window, k3, probe_recon):
             lambda: K5Build(FIRST_K5_SOURCE, "first_stamped", True),
             lambda: K5Build(os.path.relpath(k5.SOURCE, HERE), "stamped",
                             True),
-            lambda: k6.library.build(force=True), FirstK6)))
+            lambda: k6.library.build(force=True), FirstK6,
+            lambda: k7.build(force=True),
+            lambda: k8.library.build(force=True))))
     ssim_window.load()
     k3.library.load()
     native.load()
     probe_recon.load()
     k5.library.load()
     k6.library.load()
+    k7.load()
+    k8.library.load()
     log(f"build k1_nvcc_s={done[0][0]:.3f} k3_nvcc_s={done[1][0]:.3f} "
         f"native_gxx_s={done[2][0]:.3f} first_k3_nvcc_s={done[3][0]:.3f} "
         f"k2_nvcc_s={done[4][0]:.3f} first_k2_nvcc_s={done[5][0]:.3f} "
         f"k5_nvcc_s={done[6][0]:.3f} first_k5_nvcc_s={done[7][0]:.3f} "
         f"stamped_k5_nvcc_s={done[8][0]:.3f}, {done[9][0]:.3f} "
         f"k6_nvcc_s={done[10][0]:.3f} first_k6_nvcc_s={done[11][0]:.3f} "
+        f"k7_nvcc_s={done[12][0]:.3f} k8_nvcc_s={done[13][0]:.3f} "
         f"(in parallel)")
     log(ssim_window.build_log.strip())
     log(k3.library.build_log.strip())
@@ -4479,7 +4978,8 @@ def build_all(ssim_window, k3, probe_recon):
                       ("first K5 -DK5_STAMPS", done[8][1].build_log),
                       ("K5 -DK5_STAMPS", done[9][1].build_log),
                       ("K6", k6.library.build_log),
-                      ("first K6", done[11][1].build_log)):
+                      ("first K6", done[11][1].build_log),
+                      ("K7", k7.build_log), ("K8", k8.library.build_log)):
         log(f"{tag} nvcc -Xptxas -v: {text.strip()}")
     lib = k3.library.load()
     log(f"K3 segment_blocks={k3.library.segment_blocks} resident CTAs "
@@ -4488,6 +4988,7 @@ def build_all(ssim_window, k3, probe_recon):
     dev = torch.device("cuda", torch.cuda.current_device())
     log(f"K2 resident CTAs, SMs: 4:2:0 {probe_recon.card(dev, True)} "
         f"4:4:4 {probe_recon.card(dev, False)}")
+    log(f"K7 resident CTAs {k7.ctas(dev)}, K8's DCT {k8.library.ctas(dev)}")
     return (done[3][1], done[5][1], done[7][1],
             {"first": done[8][1], "k5": done[9][1]}, done[11][1])
 
@@ -4526,27 +5027,169 @@ def k5_only(T, dev, first_k5, stamped) -> int:
     return 0
 
 
+@contextlib.contextmanager
+def k78_route(plain: bool, record: list):
+    """K7's and K8's entries as the package calls them, replaced for the
+    duration by recorders that append (kind, inputs, output) to `record`;
+    with plain=True they run the plain versions on the card, which is the
+    route before K7 and K8 (the parent's)."""
+    from fennec_tpu_torch.codecs import jpeg as J
+    from fennec_tpu_torch.engine import compress as C
+    from fennec_tpu_torch.ops import forward_dct_cuda as k8
+
+    real = k78_wrappers()
+
+    def keep(kind, inputs, out):
+        record.append((kind, inputs, out))
+        return out
+
+    class Decode:
+        @staticmethod
+        def frame(*args):
+            return keep("frame", args, J.reconstruct_plain(*args) if plain
+                        else real["decode_recon"].frame(*args))
+
+        @staticmethod
+        def batch(*args):
+            return keep("batch", args,
+                        C.decode_jpeg_image_plain(*args) if plain
+                        else real["decode_recon"].batch(*args))
+
+    def fdct(img, sub):
+        return keep("forward_dct", (img, sub),
+                    J.forward_dct_plain(img, sub) if plain
+                    else real["forward_dct"](img, sub))
+
+    def lum(imgs, wh, wv, rect, rows):
+        return keep("luminance", (imgs, wh, wv, rect, rows),
+                    C.lum_orig_plain(imgs, wh, wv, rows) if plain
+                    else real["luminance"](imgs, wh, wv, rect, rows))
+
+    saved = (k8.forward_dct, C.original_luminance, J.decode_recon,
+             C.decode_recon)
+    k8.forward_dct, C.original_luminance = fdct, lum
+    J.decode_recon = C.decode_recon = Decode
+    try:
+        yield record
+    finally:
+        (k8.forward_dct, C.original_luminance, J.decode_recon,
+         C.decode_recon) = saved
+
+
+def same_inputs(a, b) -> bool:
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.shape == b.shape and a.dtype == b.dtype
+                and bool(torch.equal(a, b)))
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(map(same_inputs, a, b))
+    return a == b
+
+
+def trace_ties(name: str, kern: list, plain: list, qualities, dev) -> dict:
+    """Each K7 / K8 call of the kernel route paired with the plain route's
+    call on the same inputs: the pixels, levels (at the call's chosen
+    qualities) and luminance values that differ, every one at a tie (the
+    phase-18 checks, which raise otherwise).  Calls with no partner got
+    inputs that an earlier difference had already moved."""
+    out = {"pixels": 0, "levels": 0, "luminance": 0, "downstream": 0}
+    for kind, args, got in kern:
+        match = next((w for k, a, w in plain
+                      if k == kind and same_inputs(a, args)), None)
+        if match is None:
+            out["downstream"] += 1
+            continue
+        if kind == "frame":
+            out["pixels"] += k7_compare(name, got, match,
+                                        k7_round_inputs(*args))
+        elif kind == "batch":
+            blocks, qt, h, w, sub = args
+            s = 2 if sub else 1
+            mx, my = -(-w // (8 * s)), -(-h // (8 * s))
+            ny, nc = mx * my * s * s, mx * my
+            parts = [blocks[:, :ny], blocks[:, ny:ny + nc],
+                     blocks[:, ny + nc:]]
+            comps = [(s, s, mx * s, my * s), (1, 1, mx, my), (1, 1, mx, my)]
+            q = qt.to(torch.int32)
+            out["pixels"] += k7_compare(name, got, match, k7_round_inputs(
+                parts, [q[:, 0, None], q[:, 1, None], q[:, 1, None]], comps,
+                s, s, h, w, "ycbcr"))
+        elif kind == "forward_dct":
+            out["levels"] += k8_levels(name, got, match, qualities, dev)
+        else:
+            imgs, _wh, wv, rect, _rows = args
+            x = imgs if imgs.dim() == 4 else imgs[None]
+            out["luminance"] += k8_lum_compare(
+                name, got, match, x, rect, got.shape[-2], got.shape[-1])[0]
+    return out
+
+
 def digests_only(T, dev) -> int:
     """`--digests`: the outputs of a few main-path calls as digests, and
     each call's warm time, to compare two checkouts on one card: standard
     mode at 12 MP and 1080p, T1 at 1080p and 500x500, T2 over 64 photos,
-    T3 over 16 files."""
-    big = T.encode_to_bytes(photo(4032, 3024, SEED), T.JPEG, 92, device=dev)
-    mid = T.encode_to_bytes(photo(1920, 1080, SEED + 800), T.JPEG, 92,
-                            device=dev)
-    small = [photo(500, 500, SEED + 900 + k) for k in range(64)]
+    T3 over 16 files.  Each call runs on K7 and K8 ("digest") and on their
+    plain versions on the card ("digest_plain", the route before them: a
+    checkout without K7 and K8 prints it as "digest"); where the two
+    differ, trace_ties holds every differing pixel, level and luminance
+    value to a tie, and the chosen qualities that moved are printed.  The
+    standard calls' decisions are replayed with the plain scorer
+    (check_result).  The input files are encoded on the plain versions,
+    as such a checkout encodes them."""
+    with k78_route(True, []):
+        big = T.encode_to_bytes(photo(4032, 3024, SEED), T.JPEG, 92,
+                                device=dev)
+        mid = T.encode_to_bytes(photo(1920, 1080, SEED + 800), T.JPEG, 92,
+                                device=dev)
+        small = [photo(500, 500, SEED + 900 + k) for k in range(64)]
+        files = [T.encode_to_bytes(small[i], T.JPEG, 92, device=dev)
+                 for i in range(16)]
+    moved = {}
 
-    def say(name, run):
+    def say(name, run, check=None):
         run()  # cold
         t = time.perf_counter()
         results = run()  # warm; host bytes, so it ends synchronised
         log(f"timing {name} warm_ms={(time.perf_counter() - t) * 1e3:.1f}")
-        log(f"digest {name}="
-            f"{digest(r.compressed_data for r in results)}")
+        blobs = [r.compressed_data for r in results]
+        log(f"digest {name}={digest(blobs)}")
+        kern, plain = [], []
+        with k78_route(False, kern):
+            got = run()
+        with k78_route(True, plain):
+            was = run()
+        if [r.compressed_data for r in got] != blobs:
+            raise AssertionError(f"digests {name}: a run differs")
+        log(f"digest_plain {name}="
+            f"{digest(r.compressed_data for r in was)}")
+        qa = [getattr(r, "jpeg_quality", 0) for r in got]
+        qb = [getattr(r, "jpeg_quality", 0) for r in was]
+        moved[name] = [(i, a, b) for i, (a, b) in enumerate(zip(qa, qb))
+                       if a != b]
+        if digest(blobs) != digest(r.compressed_data for r in was):
+            # The levels at the chosen qualities, at every quality where
+            # the call does not say which it chose (T3's files).
+            ties = trace_ties(name, kern, plain,
+                              sorted({q for q in qa + qb if q})
+                              or range(1, 101), dev)
+            differ = sum(a.compressed_data != b.compressed_data
+                         for a, b in zip(got, was))
+            log(f"trace {name}: differing outputs {differ} of {len(got)}, "
+                f"ties {ties}, qualities moved "
+                f"(item, K7/K8, plain) {moved[name]}")
+            if not (ties["pixels"] or ties["levels"] or ties["luminance"]):
+                raise AssertionError(f"digests {name}: the outputs differ "
+                                     f"with no tie to explain it")
+        if check is not None:
+            check(got)
 
     std = T.Options()
-    say("std_12mp", lambda: [T.compress_bytes(None, big, std, device=dev)])
-    say("std_1080p", lambda: [T.compress_bytes(None, mid, std, device=dev)])
+    say("std_12mp", lambda: [T.compress_bytes(None, big, std, device=dev)],
+        lambda res: check_result(T, res[0], dev, 0.94, (4032, 3024),
+                                 "digests std_12mp"))
+    say("std_1080p", lambda: [T.compress_bytes(None, mid, std, device=dev)],
+        lambda res: check_result(T, res[0], dev, 0.94, (1920, 1080),
+                                 "digests std_1080p"))
     ts = T.Options(format=T.JPEG, target_size=200 * 1024)
     say("t1_1080p_200KB",
         lambda: [T.compress_bytes(None, mid, ts, device=dev)])
@@ -4562,18 +5205,29 @@ def digests_only(T, dev) -> int:
         for i in range(16):
             src = os.path.join(tmp, f"in{i}.jpg")
             with open(src, "wb") as f:
-                f.write(T.encode_to_bytes(small[i], T.JPEG, 92, device=dev))
+                f.write(files[i])
             items.append(T.BatchItem(src=src,
                                      dst=os.path.join(tmp, f"out{i}.jpg")))
-        res = T.compress_batch(None, items, T.BatchOptions(default_opts=ts),
-                               device=dev)
-        blobs = []
-        for r in res:
-            if r.err is not None:
-                raise AssertionError(f"digests: {r.item.src}: {r.err}")
-            with open(r.item.dst, "rb") as f:
-                blobs.append(f.read())
-    log(f"digest t3_16x500_20KB={digest(blobs)}")
+
+        class Out:
+            def __init__(self, data):
+                self.compressed_data = data
+
+        def t3():
+            res = T.compress_batch(None, items,
+                                   T.BatchOptions(default_opts=ts),
+                                   device=dev)
+            blobs = []
+            for r in res:
+                if r.err is not None:
+                    raise AssertionError(f"digests: {r.item.src}: {r.err}")
+                with open(r.item.dst, "rb") as f:
+                    blobs.append(Out(f.read()))
+            return blobs
+
+        say("t3_16x500_20KB", t3)
+    log(f"digests: qualities that moved between K7/K8 and their plain "
+        f"versions {moved}")
     return 0
 
 
@@ -4617,6 +5271,8 @@ def main(only: str = "") -> int:
         return k5_only(T, dev, first_k5, stamped)
     if only == "wire":
         return wire_only(T, dev, ssim_window, first_k6)
+    if only == "k7k8":
+        return k7k8_only(T, dev)
     if only == "mesh":
         from fennec_tpu_torch.engine.batched import counters
 
@@ -4633,6 +5289,9 @@ def main(only: str = "") -> int:
     # 3. K1, then K2, against their plain versions.
     max_err, times = phase_kernel(dev, ssim_window, batched_ssim_plain)
     k2_err, k2_times = phase_k2(dev, first=first_k2)
+    # 18. K7 and K8 against their plain versions, before the main path
+    # runs through them.
+    k78_times, k78_counts = phase_k7k8(T, dev)
 
     # 4. The main path.
     big = photo(4032, 3024, SEED)
@@ -4749,6 +5408,11 @@ def main(only: str = "") -> int:
         raise AssertionError(f"the main path launched K6 {K6_MAIN}: every "
                              f"layout must run (photos as COO, noise as "
                              f"dense int8, FENNEC_UPLOAD=csr as CSR)")
+    log(f"main path launches of K7 and K8 (phases 4, 6-8, 10): {K78_MAIN}")
+    if not all(K78_MAIN.values()):
+        raise AssertionError(f"the main path launched K7 / K8 {K78_MAIN}: "
+                             f"every decode on the card is K7, every forward "
+                             f"DCT and original's luminance K8")
     log(f"replays of the bisection with the plain scorer: "
         f"{REPLAY['probes']} probes, largest |SSIM difference| between K2 "
         f"+ K1 and the plain scorer {REPLAY['max_ssim_diff']:.3e}, "
@@ -4924,6 +5588,45 @@ def main(only: str = "") -> int:
             "first_host_us": kt["first_host_us"],
             "device_ops": kt["device_ops"], "wire_bytes": kt["wire_bytes"],
             "12mp_x16": kb})
+    # K7 and K8 (phase 18): timed at 12 MP; the other shapes beside.
+    for name, entry, case in (("decode_recon", "decode_recon", "12mp_420"),
+                              ("forward_dct", "forward_dct", "12mp_420")):
+        kt = k78_times[entry][case]
+        row = {
+            "name": name, "route": "cuda",
+            "source": os.path.relpath(k78_wrappers()[entry].source
+                                      if entry == "decode_recon" else
+                                      k78_wrappers()[entry].library.source,
+                                      HERE),
+            # XLA programs of the JAX package, not Pallas kernels.
+            "replaces": K78_REPLACES[entry],
+            "launches": K78_MAIN[entry],
+            # Pixel levels (K7) or coefficients (K8) against the plain
+            # version; every differing level sits at a tie (phase 18).
+            "max_abs_err": (k78_counts["k7_max_level_diff"]
+                            if entry == "decode_recon"
+                            else k78_counts["k8_max_coef_diff"]),
+            "shape": kt["shape"], "ms": kt["ms"], "plain_ms": kt["plain_ms"],
+            "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"],
+            "share": kt["share"],
+            # No one PyTorch call computes either; matmul_part_ms is the
+            # block product alone.
+            "library_ms": None,
+            "event_ms": kt["event_ms"], "host_us": kt["host_us"],
+            "matmul_part_ms": kt["matmul_part_ms"],
+            "others": {c: v for c, v in k78_times[entry].items()
+                       if c != case}}
+        if entry == "forward_dct":
+            row["luminance"] = {
+                "replaces": K78_REPLACES["luminance"],
+                "launches": K78_MAIN["luminance"],
+                **k78_times["luminance"]}
+        else:
+            row["ties"] = {k: v for k, v in k78_counts.items()
+                           if k.startswith("k7_") and "max" not in k}
+        k3_rows.append(row)
+    k3_rows[-1]["ties"] = {k: v for k, v in k78_counts.items()
+                           if k.startswith("k8_") and "max" not in k}
     t = times[(1, 384, 512)]
     k2t = k2_times["12mp_420_q30"]
     print(json.dumps({"kernels": [{
@@ -4979,7 +5682,8 @@ def main(only: str = "") -> int:
 
 if __name__ == "__main__":
     flags = {"--k2": "k2", "--k3": "k3", "--k5": "k5",
-             "--digests": "digests", "--mesh": "mesh", "--wire": "wire"}
+             "--digests": "digests", "--mesh": "mesh", "--wire": "wire",
+             "--k7k8": "k7k8"}
     if len(sys.argv) > 2 or (len(sys.argv) == 2
                              and sys.argv[1] not in flags):
         raise SystemExit(f"usage: python3 chip_smoke.py [{' | '.join(flags)}]")

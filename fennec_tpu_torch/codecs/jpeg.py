@@ -23,6 +23,8 @@ import torch
 from .. import device as _device
 from .. import native
 from ..ops import dct as dct_ops
+from ..ops import forward_dct_cuda
+from ..ops.decode_recon_cuda import decode_recon
 from ..ops.color import clamp_u8, rgb_to_ycbcr, ycbcr_to_rgb
 from ..types import UnsupportedFormatError
 from .entropy_py import ComponentSpec, DecodeComponentSpec
@@ -43,7 +45,15 @@ from .tables import (
 def forward_dct(img: torch.Tensor, subsample: bool):
     """(H, W, 4) float32 → unquantized DCT coefficient blocks
     (coef_y (Ny, 64), coef_cb (Nc, 64), coef_cr (Nc, 64)), alpha
-    composited on black (Go RGBA semantics).  Quality-independent."""
+    composited on black (Go RGBA semantics); leading batch dimensions
+    give (B, N, 64) blocks.  Quality-independent.  Kernel K8 on a CUDA
+    image (ops/forward_dct_cuda.py), forward_dct_plain on a CPU one."""
+    return forward_dct_cuda.forward_dct(img, subsample)
+
+
+def forward_dct_plain(img: torch.Tensor, subsample: bool):
+    """forward_dct in plain torch ops, on the image's device: what the CPU
+    runs and what K8 is held against on the card."""
     alpha = img[..., 3:4] * (1.0 / 255.0)
     ycc = rgb_to_ycbcr(img[..., :3] * alpha)
     mult = 16 if subsample else 8
@@ -618,20 +628,33 @@ def _decode_progressive(data: bytes, dev: torch.device) -> np.ndarray:
 def _reconstruct(comps, qtables, coefs, hmax: int, vmax: int, frame,
                  dev: torch.device) -> np.ndarray:
     """Quantized coefficients of every component (dicts with h, v, tq,
-    bw, bh) → (H, W, 4) uint8 on the host, the transforms on `dev`.
-    `frame` carries the dimensions and colour markers (a JpegHeader or a
+    bw, bh) → (H, W, 4) uint8 on the host, the transforms on `dev`
+    (kernel K7 on a card, reconstruct_plain on the CPU).  `frame` carries
+    the dimensions and colour markers (a JpegHeader or a
     ProgressiveDecoder)."""
-    planes = []
-    for c, q in zip(comps, coefs):
+    for c in comps:
         if c["tq"] not in qtables:
             raise ValueError("fennec: corrupt JPEG: missing DQT")
-        qt = torch.from_numpy(qtables[c["tq"]]).to(dev)
-        qc = torch.from_numpy(q).to(dev).to(torch.float32)
-        planes.append(_decode_plane(qc, qt, c["bh"] * 8, c["bw"] * 8,
-                                    hmax // c["h"], vmax // c["v"]))
-    out = _combine_planes(planes, frame.height, frame.width,
-                          jpeg_color_mode(frame))
-    return out.to(torch.uint8).cpu().numpy()
+    mode = jpeg_color_mode(frame)
+    tabs = np.stack([qtables[c["tq"]] for c in comps]).astype(np.int32)
+    blocks = [torch.from_numpy(q).to(dev) for q in coefs]
+    tables = torch.from_numpy(tabs).to(dev)
+    out = decode_recon.frame(
+        blocks, tables, [(c["h"], c["v"], c["bw"], c["bh"]) for c in comps],
+        hmax, vmax, frame.height, frame.width, mode)
+    return out.cpu().numpy()
+
+
+def reconstruct_plain(blocks, tables, comps, hmax: int, vmax: int, h: int,
+                      w: int, mode: str) -> torch.Tensor:
+    """K7's function for one frame in plain torch ops, on the blocks'
+    device: component c's quantized blocks and tables[c], comps (h, v, bw,
+    bh) each → (h, w, 4) uint8.  What the CPU runs and what K7 is held
+    against on the card."""
+    planes = [_decode_plane(q.to(torch.float32), qt, c[3] * 8, c[2] * 8,
+                            hmax // c[0], vmax // c[1])
+              for c, q, qt in zip(comps, blocks, tables)]
+    return _combine_planes(planes, h, w, mode).to(torch.uint8)
 
 
 def _decode_plane(qcoefs: torch.Tensor, qtable: torch.Tensor, ph: int,

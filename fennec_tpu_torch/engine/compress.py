@@ -35,6 +35,8 @@ from ..codecs.jpeg import encode_jpeg_from_coefs, forward_dct
 from ..image import is_grayscale, to_gray, to_nrgba_ref
 from ..ops import dct as dct_ops
 from ..ops.color import clamp_u8, ycbcr_to_rgb
+from ..ops.decode_recon_cuda import decode_recon
+from ..ops.forward_dct_cuda import original_luminance
 from ..ops.probe_recon_cuda import probe_recon
 from ..ops.resize import (
     BoxBand,
@@ -179,15 +181,25 @@ def search_inputs(imgs: torch.Tensor, coefs, subsample: bool
     dev = imgs.device
     h, w = int(imgs.shape[1]), int(imgs.shape[2])
     box_wh, box_wv, rectangles = _ssim_box(w, h, dev)
+    lum_orig = original_luminance(imgs, box_wh, box_wv, rectangles, h)
+    return SearchInputs(coef_planes(coefs, h, w, subsample), lum_orig,
+                        box_wh, box_wv, quality_tables_on(dev), _dmat_on(dev),
+                        subsample, h, w, rectangles)
+
+
+def lum_orig_plain(imgs: torch.Tensor, box_wh: Optional[torch.Tensor],
+                   box_wv: Optional[torch.Tensor], rows: int) -> torch.Tensor:
+    """The original's SSIMFast luminance of (B, H, W, 4) float32 images in
+    plain torch ops, on their device: r, g and b box-downsampled with the
+    weights and rounded (_box_down_plane), or without a downsample their
+    first `rows` rows, then BT.601 luminance.  What the CPU runs and what
+    kernel K8's luminance entry is held against on the card."""
     planes = imgs[..., :3].permute(0, 3, 1, 2)  # (B, 3, H, W) r, g, b
     if box_wh is not None:
         planes = _box_down_plane(planes, box_wh, box_wv)
-    lum_orig = _luminance(planes[:, 0], planes[:, 1], planes[:, 2])
-
-    return SearchInputs(coef_planes(coefs, h, w, subsample),
-                        lum_orig.contiguous(), box_wh, box_wv,
-                        quality_tables_on(dev), _dmat_on(dev), subsample, h,
-                        w, rectangles)
+    else:
+        planes = planes[..., :rows, :]
+    return _luminance(planes[:, 0], planes[:, 1], planes[:, 2]).contiguous()
 
 
 def _ssim_box(w: int, h: int, dev: torch.device):
@@ -253,17 +265,14 @@ def band_inputs(pix: torch.Tensor, band: BoxBand, planes, halo,
     dev = pix.device
     w = int(pix.shape[2])
     ds_w, ds_h = ssim_fast_dims(w, band.src_h)
-    rgb = pix[..., :3].permute(0, 3, 1, 2)
     box_wh = box_wv = rectangles = None
     if (ds_w, ds_h) != (w, band.src_h):
         box_wh, box_wv, rectangles = band_box_device(w, ds_w, band, dev)
-        rgb = _box_down_plane(rgb, box_wh, box_wv)
-    else:
-        rgb = rgb[..., :band.stop - band.start, :]
-    lum_orig = _luminance(rgb[:, 0], rgb[:, 1], rgb[:, 2])
+    lum_orig = original_luminance(pix, box_wh, box_wv, rectangles,
+                                  band.stop - band.start)
     cplanes = tuple(torch.cat([p, x], dim=-2) if x.shape[-2] else p
                     for p, x in zip(planes, halo))
-    return SearchInputs(cplanes, lum_orig.contiguous(), box_wh, box_wv,
+    return SearchInputs(cplanes, lum_orig, box_wh, box_wv,
                         quality_tables_on(dev), _dmat_on(dev), subsample,
                         band.rows, w, rectangles, band)
 
@@ -420,7 +429,16 @@ def decode_jpeg_image(blocks: torch.Tensor, qtabs: torch.Tensor, h: int,
     blocks: (B, NT, 64) integer blocks, natural order, y then cb then cr
     on MCU-padded grids; qtabs: (B, 2, 64) [luma, chroma] tables.
     Returns (B, h, w, 4) float32 integral pixels on the blocks' device,
-    the same values codecs/jpeg.decode_jpeg gives each file."""
+    the same values codecs/jpeg.decode_jpeg gives each file: kernel K7 on
+    a card (int16 blocks), decode_jpeg_image_plain on the CPU."""
+    return decode_recon.batch(blocks, qtabs, h, w, in_subsample)
+
+
+def decode_jpeg_image_plain(blocks: torch.Tensor, qtabs: torch.Tensor,
+                            h: int, w: int,
+                            in_subsample: bool) -> torch.Tensor:
+    """decode_jpeg_image in plain torch ops, on the blocks' device: what
+    the CPU runs and what K7 is held against on the card."""
     bsz = blocks.shape[0]
     mult = 16 if in_subsample else 8
     ph, pw = h + (-h) % mult, w + (-w) % mult

@@ -1,0 +1,302 @@
+"""Kernel K7: the decode's device stage (dequantize, IDCT, upsample,
+colour) in CUDA C++ (csrc/decode_recon.cu), and its wrapper.
+
+Replaces the XLA programs _decode_plane_device and _combine_planes_device
+(fennec_tpu/codecs/jpeg.py :702, :715) and decode_jpeg_image_device
+(fennec_tpu/engine/compress.py :556).  At first use on a CUDA tensor the
+source is compiled with nvcc for sm_90a into fennec_tpu_torch/_build/ and
+loaded with ctypes, as K1-K6 are.  Two entries, one count:
+
+  decode_recon.frame(blocks, tables, comps, hmax, vmax, h, w, mode)
+      one frame's components (codecs/jpeg._reconstruct) → (h, w, 4) uint8;
+  decode_recon.batch(blocks, qtabs, h, w, in_subsample)
+      a (B, NT, 64) chunk of YCbCr JPEGs (engine/compress
+      .decode_jpeg_image) → (B, h, w, 4) float32.
+
+CPU tensors go to the plain versions (codecs/jpeg.reconstruct_plain and
+engine/compress.decode_jpeg_image_plain) and count in `plain_calls`; CUDA
+tensors launch the kernel or raise, one launch per call, counted in
+`launches`.  A call on the card checks its inputs, allocates its output
+with one torch.empty and launches on the current stream without
+synchronising.
+
+tile_plan and sample_offsets are the kernel's tiling in plain Python: the
+wrapper launches with the first, and the CPU tests walk tiles with both.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+from typing import NamedTuple, Sequence, Tuple
+
+import torch
+
+from ..types import UnsupportedFormatError
+from .dct import _kron_on
+from .jpeg_emit_cuda import BUILD_DIR, _Counted, _stream
+from .ssim_cuda import NVCC_FLAGS, compile_library, is_current
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "decode_recon.cu")
+_SO = os.path.join(BUILD_DIR, "libdecode_recon.so")
+TILE_BLOCKS = 128  # blocks of a tile, all components (csrc kTileBlocks)
+MAX_TILE_COLS = 1024  # pixel columns of a tile (kMaxCols)
+MAX_COMPS = 4
+MAX_BATCH = 65535
+MODES = {"gray": 0, "rgb": 1, "ycbcr": 2, "cmyk": 3, "ycck": 4}
+COMPONENTS = {"gray": 1, "rgb": 3, "ycbcr": 3, "cmyk": 4, "ycck": 4}
+
+
+class Component(NamedTuple):
+    """One component's sampling factors and block grid (bw x bh blocks,
+    the MCU-padded grid)."""
+
+    h: int
+    v: int
+    bw: int
+    bh: int
+
+
+def tile_plan(comps: Sequence[Component], mcus_x: int,
+              tile_blocks: int = TILE_BLOCKS) -> Tuple[int, int]:
+    """(MCUs a tile, tiles per MCU row): as many whole MCUs as hold at most
+    tile_blocks blocks of every component (the kernel's TILE_BLOCKS), at
+    most a row's."""
+    per_mcu = sum(c.h * c.v for c in comps)
+    tile = max(1, min(tile_blocks // per_mcu, mcus_x))
+    return tile, -(-mcus_x // tile)
+
+
+def sample_offsets(comp: Component, hmax: int, vmax: int, tile_mcus: int):
+    """(rows, cols) of one component as the kernel tabulates them: pixel
+    (ly, lx) of a tile reads the component's sample at rows[ly] + cols[lx]
+    within the component's run of the tile's blocks (tile MCU m's blocks
+    m * h * v + by * h + bx, 64 floats each)."""
+    ry, rx = vmax // comp.v, hmax // comp.h
+    rows = [((ly // ry) >> 3) * comp.h * 64 + ((ly // ry) & 7) * 8
+            for ly in range(8 * vmax)]
+    cols = []
+    for lx in range(tile_mcus * 8 * hmax):
+        sx = lx // rx
+        m, bx = sx // (8 * comp.h), (sx % (8 * comp.h)) >> 3
+        cols.append((m * comp.v * comp.h + bx) * 64 + (sx & 7))
+    return rows, cols
+
+
+def check_frame(blocks, tables, comps, hmax: int, vmax: int, h: int, w: int,
+                mode: str) -> None:
+    """Raise unless the frame is one K7 takes: a mode of MODES with its
+    number of components, sampling factors 1-4 that divide the largest
+    (hmax, vmax), each component's blocks (bw * bh, 64) int16 on one
+    device with bw = mcus_x * h and bh = mcus_y * v, the tables (ncomp,
+    64) integers there, and h, w >= 1."""
+    if mode not in MODES or len(comps) != COMPONENTS[mode]:
+        raise ValueError(f"fennec: K7 takes a mode of {sorted(MODES)} with "
+                         f"its components, got {mode} with {len(comps)}")
+    if (len(blocks) != len(comps) or tables.is_floating_point()
+            or tuple(tables.shape) != (len(comps), 64)
+            or tables.device != blocks[0].device):
+        raise ValueError("fennec: K7 takes blocks per component and "
+                         "(ncomp, 64) integer tables on their device")
+    if h < 1 or w < 1:
+        raise ValueError(f"fennec: K7 takes a frame of at least 1x1, got "
+                         f"{h}x{w}")
+    mcus_x = -(-w // (8 * hmax))
+    mcus_y = -(-h // (8 * vmax))
+    dev = blocks[0].device
+    for c, b in zip(comps, blocks):
+        if not (1 <= c.h <= 4 and 1 <= c.v <= 4) or hmax % c.h or vmax % c.v:
+            raise UnsupportedFormatError(
+                f"fennec: sampling {c.h}x{c.v} does not divide {hmax}x{vmax}")
+        if (c.bw, c.bh) != (mcus_x * c.h, mcus_y * c.v):
+            raise ValueError(f"fennec: K7 component grid {c.bw}x{c.bh}, "
+                             f"want {mcus_x * c.h}x{mcus_y * c.v}")
+        if (b.dtype != torch.int16 or tuple(b.shape) != (c.bw * c.bh, 64)
+                or b.device != dev):
+            raise ValueError(f"fennec: K7 blocks {tuple(b.shape)} {b.dtype} "
+                             f"on {b.device}, want ({c.bw * c.bh}, 64) int16 "
+                             f"on {dev}")
+
+
+def check_batch(blocks, qtabs, h: int, w: int, in_subsample: bool) -> None:
+    """Raise unless blocks is (B, NT, 64) int16 with NT the blocks of an
+    h x w YCbCr image's padded grids, 1 <= B <= 65535, and qtabs (B, 2,
+    64) integers on its device."""
+    if not isinstance(blocks, torch.Tensor) or blocks.dtype != torch.int16:
+        raise TypeError(f"fennec: K7 takes int16 blocks, got "
+                        f"{getattr(blocks, 'dtype', type(blocks))}")
+    mult = 16 if in_subsample else 8
+    ph, pw = h + (-h) % mult, w + (-w) % mult
+    nt = (ph // 8) * (pw // 8) * (3 if not in_subsample else 1)
+    if in_subsample:
+        nt += 2 * (ph // 16) * (pw // 16)
+    if (blocks.dim() != 3 or blocks.shape[1:] != (nt, 64)
+            or not 1 <= blocks.shape[0] <= MAX_BATCH or h < 1 or w < 1):
+        raise ValueError(f"fennec: K7 takes (B, {nt}, 64) blocks for "
+                         f"{h}x{w}, 1 <= B <= {MAX_BATCH}, got "
+                         f"{tuple(blocks.shape)}")
+    if (not isinstance(qtabs, torch.Tensor) or qtabs.is_floating_point()
+            or tuple(qtabs.shape) != (blocks.shape[0], 2, 64)
+            or qtabs.device != blocks.device):
+        raise ValueError(f"fennec: K7 takes (B, 2, 64) integer tables on "
+                         f"{blocks.device}, got "
+                         f"{tuple(getattr(qtabs, 'shape', ()))}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous at a 16-byte aligned address (a copy if it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+class DecodeReconKernel(_Counted):
+    """Builds, loads and launches K7; `build_log` holds nvcc's report of
+    the last build."""
+
+    def __init__(self, source: str = SOURCE, library: str = _SO) -> None:
+        super().__init__()
+        self.source = source
+        self.library = library
+        self.build_log = ""
+        self.plain_calls = 0
+        self._lib = None
+        self._lock = threading.Lock()
+        self._ctas = {}  # device index -> CTAs the card holds at once
+
+    def build(self, force: bool = False) -> str:
+        if force or not is_current(self.library, self.source):
+            self.build_log = compile_library(self.source, self.library,
+                                             NVCC_FLAGS)
+        return self.library
+
+    def load(self) -> ctypes.CDLL:
+        if self._lib is not None:
+            return self._lib
+        with self._lock:
+            if self._lib is None:
+                lib = ctypes.CDLL(self.build())
+                p, i = ctypes.c_void_p, ctypes.c_int
+                ints = ctypes.POINTER(ctypes.c_int)
+                lib.fennec_decode_recon_error_string.restype = \
+                    ctypes.c_char_p
+                lib.fennec_decode_recon_error_string.argtypes = [i]
+                lib.fennec_decode_recon_ctas_per_sm.restype = i
+                lib.fennec_decode_recon_ctas_per_sm.argtypes = []
+                lib.fennec_decode_recon.restype = i
+                lib.fennec_decode_recon.argtypes = [
+                    ctypes.POINTER(p), ctypes.POINTER(ctypes.c_longlong),
+                    ints, ints, ints, ints, i, p, i, p, i, i, i, i, i, i, i,
+                    i, i, i, i, p, i, p]
+                self._lib = lib
+            return self._lib
+
+    def check(self, err: int) -> None:
+        if err != 0:
+            msg = self.load().fennec_decode_recon_error_string(err).decode()
+            raise RuntimeError(f"fennec: K7 launch failed: CUDA error {err}: "
+                               f"{msg}")
+
+    def ctas(self, dev: torch.device) -> int:
+        """CTAs of K7 the card holds at once: its occupancy times its SMs,
+        asked once per device."""
+        found = self._ctas.get(dev.index)
+        if found is None:
+            per_sm = self.load().fennec_decode_recon_ctas_per_sm()
+            if per_sm <= 0:
+                self.check(-per_sm or 1)
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            found = self._ctas[dev.index] = per_sm * sms
+        return found
+
+    def _plain(self, kind: str, *args):
+        with self._count_lock:
+            self.plain_calls += 1
+        if kind == "frame":
+            from ..codecs.jpeg import reconstruct_plain
+
+            return reconstruct_plain(*args)
+        from ..engine.compress import decode_jpeg_image_plain
+
+        return decode_jpeg_image_plain(*args)
+
+    def frame(self, blocks: Sequence[torch.Tensor], tables: torch.Tensor,
+              comps: Sequence[Component], hmax: int, vmax: int, h: int,
+              w: int, mode: str) -> torch.Tensor:
+        """One frame: component c's (bw * bh, 64) int16 blocks and row c
+        of the (ncomp, 64) integer tables → (h, w, 4) uint8 RGBA on their
+        device."""
+        comps = [Component(*c) for c in comps]
+        dev = blocks[0].device
+        if dev.type == "cpu":
+            return self._plain("frame", blocks, tables, comps, hmax, vmax, h,
+                               w, mode)
+        check_frame(blocks, tables, comps, hmax, vmax, h, w, mode)
+        out = torch.empty((h, w, 4), dtype=torch.uint8, device=dev)
+        self._launch(dev, [_aligned(b) for b in blocks], [0] * len(comps),
+                     comps, list(range(len(comps))),
+                     tables.to(torch.int32).contiguous(), 64, hmax, vmax, h,
+                     w, MODES[mode], 1, out, False)
+        return out
+
+    def batch(self, blocks: torch.Tensor, qtabs: torch.Tensor, h: int,
+              w: int, in_subsample: bool) -> torch.Tensor:
+        """(B, NT, 64) int16 YCbCr blocks (y, cb, cr on the MCU-padded
+        grids) and (B, 2, 64) [luma, chroma] tables → (B, h, w, 4)
+        float32 integral RGBA on their device."""
+        dev = blocks.device
+        if dev.type == "cpu":
+            return self._plain("batch", blocks, qtabs, h, w, in_subsample)
+        check_batch(blocks, qtabs, h, w, in_subsample)
+        bsz, nt = blocks.shape[:2]
+        s = 2 if in_subsample else 1
+        mcus_x, mcus_y = -(-w // (8 * s)), -(-h // (8 * s))
+        comps = [Component(s, s, mcus_x * s, mcus_y * s),
+                 Component(1, 1, mcus_x, mcus_y),
+                 Component(1, 1, mcus_x, mcus_y)]
+        blocks = _aligned(blocks)
+        ny = comps[0].bw * comps[0].bh
+        nc = mcus_x * mcus_y
+        parts = [blocks, blocks[:, ny:], blocks[:, ny + nc:]]
+        out = torch.empty((bsz, h, w, 4), dtype=torch.float32, device=dev)
+        self._launch(dev, parts, [nt] * 3, comps, [0, 1, 1],
+                     qtabs.to(torch.int32).contiguous(), 128, s, s, h, w,
+                     MODES["ycbcr"], bsz, out, True)
+        return out
+
+    def _launch(self, dev, parts, strides, comps, tsel, tabs, tab_stride,
+                hmax, vmax, h, w, mode, nimg, out, out_f32) -> None:
+        if dev.type != "cuda":
+            raise ValueError(f"fennec: K7 takes CPU or CUDA tensors, got "
+                             f"{dev}")
+        if dev.index != torch.cuda.current_device():
+            with torch.cuda.device(dev):
+                return self._launch(dev, parts, strides, comps, tsel, tabs,
+                                    tab_stride, hmax, vmax, h, w, mode, nimg,
+                                    out, out_f32)
+        lib = self.load()
+        n = len(comps)
+        mcus_x, mcus_y = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+        tile, tiles_x = tile_plan(comps, mcus_x)
+
+        def arr(ctype, vals):
+            return (ctype * MAX_COMPS)(*vals, *[0] * (MAX_COMPS - n))
+
+        err = lib.fennec_decode_recon(
+            arr(ctypes.c_void_p, [p.data_ptr() for p in parts]),
+            arr(ctypes.c_longlong, strides),
+            arr(ctypes.c_int, [c.bw for c in comps]),
+            arr(ctypes.c_int, [c.h for c in comps]),
+            arr(ctypes.c_int, [c.v for c in comps]),
+            arr(ctypes.c_int, tsel), n, tabs.data_ptr(), tab_stride,
+            _kron_on(dev).data_ptr(), hmax, vmax, mcus_x, mcus_y, h, w, mode,
+            nimg, tile, tiles_x, self.ctas(dev), out.data_ptr(),
+            int(out_f32), _stream(dev))
+        self.check(err)
+        self.count_launch()
+
+
+# The one instance the codec and the batch engine launch and chip_smoke.py
+# counts.
+decode_recon = DecodeReconKernel()

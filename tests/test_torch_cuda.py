@@ -1193,3 +1193,192 @@ def test_routes_without_exceptions_on_card(cuda_device, monkeypatch):
                                              device="cpu")
         assert [r.compressed_data for r in on_card] == \
             [r.compressed_data for r in on_cpu]
+
+
+# ── K7 (the decode's device stage) and K8 (the forward DCT, the original's
+# luminance) ────────────────────────────────────────────────────────────────
+
+K7_FRAMES = [("gray", [(1, 1)], "gray"),
+             ("ycbcr_420", [(2, 2), (1, 1), (1, 1)], "ycbcr"),
+             ("ycbcr_422", [(2, 1), (1, 1), (1, 1)], "ycbcr"),
+             ("ycbcr_444", [(1, 1)] * 3, "ycbcr"),
+             ("adobe_rgb", [(1, 1)] * 3, "rgb"),
+             ("cmyk", [(1, 1)] * 4, "cmyk"),
+             ("ycck_420", [(2, 2), (1, 1), (1, 1), (2, 2)], "ycck")]
+
+
+@pytest.mark.parametrize("tag,sampling,mode", K7_FRAMES)
+@pytest.mark.parametrize("wh", [(1001, 753), (17, 9), (353, 40)])
+def test_k7_matches_plain(cuda_device, tag, sampling, mode, wh):
+    """K7 on every mode and sampling against reconstruct_plain on the same
+    CUDA tensors: every differing pixel at a rounding tie; two calls
+    bit-identical; one launch a call, never the plain version."""
+    from fennec_tpu_torch.codecs.jpeg import reconstruct_plain
+    from fennec_tpu_torch.ops.decode_recon_cuda import decode_recon
+
+    cs = chip_smoke()
+    args = cs.k7_synthetic(sampling, mode, *wh, sum(wh) + len(tag),
+                           cuda_device)
+    before, plain = decode_recon.launches, decode_recon.plain_calls
+    got = decode_recon.frame(*args)
+    again = decode_recon.frame(*args)
+    torch.cuda.synchronize()
+    assert decode_recon.launches == before + 2
+    assert decode_recon.plain_calls == plain
+    assert got.dtype == torch.uint8 and got.shape == (wh[1], wh[0], 4)
+    assert torch.equal(got, again)
+    cs.k7_compare(tag, got, reconstruct_plain(*args),
+                  cs.k7_round_inputs(*args))
+
+
+def test_k7_dc_tie_decodes_to_129(cuda_device):
+    """A flat block of quantized DC 1 at q = 4 is exactly 128.5: K7 sums
+    with the float32 Kron matrix, whose row 0 is 0.125, and gives 129."""
+    from fennec_tpu_torch.ops.decode_recon_cuda import decode_recon
+
+    blocks = torch.zeros((1, 64), dtype=torch.int16, device=cuda_device)
+    blocks[0, 0] = 1
+    tables = torch.full((1, 64), 4, dtype=torch.int32, device=cuda_device)
+    got = decode_recon.frame([blocks], tables, [(1, 1, 1, 1)], 1, 1, 8, 8,
+                             "gray")
+    assert (got[..., :3] == 129).all() and (got[..., 3] == 255).all()
+
+
+@pytest.mark.parametrize("sub", [True, False])
+def test_k7_batch_matches_plain_and_decode_jpeg(cuda_device, sub):
+    """decode_jpeg_image on the card (K7's batch entry) against its plain
+    version, each image alone against the batch, and each against
+    codecs/jpeg.decode_jpeg of its file (K7's frame entry)."""
+    from fennec_tpu_torch.codecs.jpeg import (
+        decode_jpeg,
+        decode_jpeg_to_coefs,
+        encode_jpeg,
+        parse_jpeg,
+    )
+    from fennec_tpu_torch.engine.compress import (
+        decode_jpeg_image,
+        decode_jpeg_image_plain,
+    )
+
+    datas = [encode_jpeg(photo(77, 45, s), 90, sub, device="cpu")
+             for s in range(5)]
+    blocks = torch.stack([torch.from_numpy(np.concatenate(
+        decode_jpeg_to_coefs(d)[1])) for d in datas]).to(cuda_device)
+    hdr = parse_jpeg(datas[0])
+    qt = torch.from_numpy(np.stack([hdr.qtables[0], hdr.qtables[1]]))
+    qt = qt[None].expand(5, 2, 64).contiguous().to(cuda_device)
+    got = decode_jpeg_image(blocks, qt, 45, 77, sub)
+    want = decode_jpeg_image_plain(blocks, qt, 45, 77, sub)
+    assert got.dtype == torch.float32 and got.shape == (5, 45, 77, 4)
+    assert int((got - want).abs().max()) <= 1
+    for i in range(5):
+        alone = decode_jpeg_image(blocks[i:i + 1], qt[i:i + 1], 45, 77, sub)
+        assert torch.equal(alone[0], got[i])
+        frame = decode_jpeg(datas[i], device=cuda_device)
+        assert np.array_equal(frame, got[i].to(torch.uint8).cpu().numpy())
+
+
+@pytest.mark.parametrize("sub", [True, False])
+@pytest.mark.parametrize("shape", [(64, 500, 500), (2, 37, 93), (1, 9, 17)])
+def test_k8_dct_matches_plain_and_batch(cuda_device, sub, shape):
+    """K8's DCT against forward_dct_plain on the same CUDA images
+    (levels at Q30/60/92 equal except at ties), and every image alone
+    bit-equal to its blocks inside the batch."""
+    from fennec_tpu_torch.codecs.jpeg import forward_dct, forward_dct_plain
+    from fennec_tpu_torch.ops import forward_dct_cuda as k8
+
+    cs = chip_smoke()
+    rng = np.random.default_rng(sum(shape))
+    img = rng.integers(0, 256, (*shape, 4)).astype(np.float32)
+    x = torch.from_numpy(img).to(cuda_device)
+    before, plain = k8.forward_dct.launches, k8.forward_dct.plain_calls
+    got = forward_dct(x, sub)
+    assert k8.forward_dct.launches == before + 1
+    assert k8.forward_dct.plain_calls == plain
+    want = forward_dct_plain(x, sub)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) < 2e-3
+    cs.k8_levels(f"{shape}", got, want, (30, 60, 92), cuda_device)
+    for i in range(shape[0]):
+        alone = forward_dct(x[i], sub)
+        for a, b in zip(alone, got):
+            assert torch.equal(a, b[i])
+
+
+@pytest.mark.parametrize("wh", [(4032, 3024), (700, 20), (500, 500),
+                                (9, 613)])
+def test_k8_luminance_is_the_exact_box_mean(cuda_device, wh):
+    """The original's luminance on the card: the exact box means' (K2's
+    rounding) bit for bit, the plain version's except at box-mean ties;
+    without a downsample the plain version's exactly."""
+    from fennec_tpu_torch.engine import compress as C
+
+    cs = chip_smoke()
+    w, h = wh
+    x = torch.from_numpy(photo(w, h, 3)).to(cuda_device).float()[None]
+    wh_, wv, rect = C._ssim_box(w, h, cuda_device)
+    got = C.original_luminance(x, wh_, wv, rect, h)
+    want = C.lum_orig_plain(x, wh_, wv, h)
+    assert got.shape == want.shape
+    cs.k8_lum_compare(f"{wh}", got, want, x, rect, got.shape[1],
+                      got.shape[2])
+
+
+def test_k8_luminance_on_bands_is_the_whole_images(cuda_device):
+    """Each band's K8 luminance (band_inputs) equals its rows of the whole
+    image's, bit for bit: the sums are integers."""
+    from fennec_tpu_torch.engine import compress as C
+    from fennec_tpu_torch.ops import resize as R
+    from fennec_tpu_torch.ops.ssim import ssim_fast_dims
+
+    w, h = 4000, 3008
+    x = torch.from_numpy(photo(w, h, 5)).to(cuda_device).float()[None]
+    whole = C.original_luminance(x, *C._ssim_box(w, h, cuda_device), h)
+    ds_w, ds_h = ssim_fast_dims(w, h)
+    for k in range(4):
+        band = R.box_band(h, ds_h, k * h // 4, (k + 1) * h // 4, 16)
+        wh_, wv, rect = R.band_box_device(w, ds_w, band, cuda_device)
+        got = C.original_luminance(x[:, band.start:band.end], wh_, wv, rect,
+                                   band.stop - band.start)
+        assert torch.equal(got[0], whole[0, band.d0:band.d1])
+
+
+def test_k7_k8_failure_raises_with_no_fallback(cuda_device, monkeypatch):
+    """A K7 or K8 library that does not build raises out of the entry
+    points on the card: no plain result comes back."""
+    from fennec_tpu_torch.ops import forward_dct_cuda as k8
+    from fennec_tpu_torch.ops.decode_recon_cuda import decode_recon
+
+    def broken():
+        raise RuntimeError("fennec: nvcc failed (test)")
+
+    data = T.encode_to_bytes(photo(96, 64, 1), T.JPEG, 90, device="cpu")
+    for target in (decode_recon, k8.library):
+        with monkeypatch.context() as m:
+            m.setattr(target, "load", broken)
+            plain = (decode_recon.plain_calls, k8.forward_dct.plain_calls,
+                     k8.original_luminance.plain_calls)
+            with pytest.raises(RuntimeError, match="nvcc failed"):
+                T.compress_bytes(None, data, T.Options(), device=cuda_device)
+            assert plain == (decode_recon.plain_calls,
+                             k8.forward_dct.plain_calls,
+                             k8.original_luminance.plain_calls)
+
+
+def test_main_path_runs_through_k7_and_k8(cuda_device):
+    """compress_bytes on the card decodes with K7 and searches from K8's
+    blocks and luminance: each launched, no plain version taken; the
+    result is the CPU's quality."""
+    from fennec_tpu_torch.ops import forward_dct_cuda as k8
+    from fennec_tpu_torch.ops.decode_recon_cuda import decode_recon
+
+    data = T.encode_to_bytes(photo(700, 540, 2), T.JPEG, 92, device="cpu")
+    ws = (decode_recon, k8.forward_dct, k8.original_luminance)
+    before = [(w.launches, w.plain_calls) for w in ws]
+    on_card = T.compress_bytes(None, data, T.Options(), device=cuda_device)
+    after = [(w.launches, w.plain_calls) for w in ws]
+    for (l0, p0), (l1, p1) in zip(before, after):
+        assert l1 > l0 and p1 == p0
+    on_cpu = T.compress_bytes(None, data, T.Options(), device="cpu")
+    assert on_card.jpeg_quality == on_cpu.jpeg_quality
+    assert abs(on_card.ssim - on_cpu.ssim) <= ATOL
