@@ -4491,6 +4491,47 @@ def k78_wrappers():
             "luminance": k8.original_luminance}
 
 
+FIRST_K7_SOURCE = os.path.join("bench_sources", "decode_recon_first.cu")
+FIRST_K8_SOURCE = os.path.join("bench_sources", "forward_dct_first.cu")
+FIRST_K8_TILE_BLOCKS = 128  # blocks of the first K8's DCT tile
+
+
+class FirstK7:
+    """The first K7 (FIRST_K7_SOURCE) built here with nvcc and called
+    through the port's wrapper class given its library (`k7`, a
+    DecodeReconKernel whose launches count apart from K7's).  The port
+    does not import it."""
+
+    def __init__(self) -> None:
+        from fennec_tpu_torch.ops import decode_recon_cuda as k7
+
+        self.k7 = k7.DecodeReconKernel(
+            os.path.join(HERE, FIRST_K7_SOURCE),
+            os.path.join(k7.BUILD_DIR, "libdecode_recon_first.so"))
+        self.k7.build(force=True)
+        self.k7.load()
+        self.build_log = self.k7.build_log
+
+
+class FirstK8:
+    """The first K8 (FIRST_K8_SOURCE) built here with nvcc and its DCT
+    called through the port's entry class given its library (`fdct`,
+    counted apart from K8's), at its own tile (FIRST_K8_TILE_BLOCKS).  The
+    port does not import it."""
+
+    def __init__(self) -> None:
+        from fennec_tpu_torch.ops import forward_dct_cuda as k8
+
+        self.library = k8.K8Library(
+            os.path.join(HERE, FIRST_K8_SOURCE),
+            os.path.join(k8.BUILD_DIR, "libforward_dct_first.so"))
+        self.library.tile_blocks = FIRST_K8_TILE_BLOCKS
+        self.library.build(force=True)
+        self.library.load()
+        self.build_log = self.library.build_log
+        self.fdct = k8.ForwardDct(self.library)
+
+
 def at_tie(x: torch.Tensor) -> torch.Tensor:
     """Values within K78_TIE of k + 1/2."""
     x = x.to(torch.float64)
@@ -4665,21 +4706,35 @@ def k78_bound(nbytes: float, fmas: float):
 
 
 def time_k78(kernel, plain, kname: str, nbytes: float, fmas: float,
-             shape, matmul_rows: int = 0, iters: int = 20) -> dict:
+             shape, matmul_rows: int = 0, iters: int = 20,
+             first=None) -> dict:
     """One entry's timings at one shape: device ms (torch.profiler, rows
     of `kname`), CUDA-event ms and host µs per call, the plain version's
     CUDA-event ms, the bound and its share, and the time of the block
     product alone, torch.matmul of (matmul_rows, 64) x (64, 64): a part of
     the function, not a library call that computes it (none when
-    matmul_rows is 0)."""
-    dev_ms = profiled_device_ms(kernel, iters, kname)
+    matmul_rows is 0).  With `first` (the same call on a first build),
+    the two are timed in turns (first, new, new, first): the least of each
+    reading over a build's two turns (first_* for the first build), every
+    turn's device µs, and the bound's share of each."""
+    turns = {"new": [], "first": []}
+    for who in ("first", "new", "new", "first") if first else ("new",):
+        fn = kernel if who == "new" else first
+        turns[who].append({"ms": profiled_device_ms(fn, iters, kname),
+                           "event_ms": cuda_ms(fn, iters),
+                           "host_us": host_us(fn, iters)})
     bound_ms, bound_by = k78_bound(nbytes, fmas)
-    got = {"shape": list(shape), "ms": dev_ms,
-           "event_ms": cuda_ms(kernel, iters),
-           "host_us": host_us(kernel, iters),
-           "plain_ms": cuda_ms(plain, max(3, iters // 4)),
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "share": bound_ms / dev_ms}
+    got = {"shape": list(shape)}
+    for who, pre in (("new", ""), ("first", "first_")):
+        for key in ("ms", "event_ms", "host_us") if turns[who] else ():
+            got[pre + key] = min(t[key] for t in turns[who])
+    got.update(plain_ms=cuda_ms(plain, max(3, iters // 4)),
+               bound_ms=bound_ms, bound_by=bound_by,
+               share=bound_ms / got["ms"])
+    if first:
+        got["first_share"] = bound_ms / got["first_ms"]
+        got["turns_us"] = {who: [round(t["ms"] * 1e3, 2) for t in v]
+                           for who, v in turns.items()}
     if matmul_rows:
         rows = torch.zeros((matmul_rows, 64), dtype=torch.float32,
                            device="cuda")
@@ -4688,7 +4743,7 @@ def time_k78(kernel, plain, kname: str, nbytes: float, fmas: float,
     return got
 
 
-def phase_k7k8(T, dev, timed: bool = True):
+def phase_k7k8(T, dev, timed: bool = True, first=None):
     """Phase 18: K7 and K8 against their plain versions on the same CUDA
     tensors.  K7 on the frames of a 12 MP 4:2:0 and a 1080p 4:4:4 JPEG,
     the progressive and multi-scan fixtures, and synthetic gray, Adobe
@@ -4698,10 +4753,14 @@ def phase_k7k8(T, dev, timed: bool = True):
     Q30, Q60, Q92), 64 x 500², one 12 MP band of four and ragged
     shapes, alone against inside the batch bit for bit; its luminance
     there and without a downsample.  Every differing pixel, level or
-    luminance value must sit at a tie; each is counted.  Timed (device,
-    CUDA-event and host time, plain, bound, share, the block product
-    alone) at K7's 12 MP, 1080p 4:4:4 and 64 x 500² and K8's 12 MP, 64 x
-    500² and band.  Returns ({entry: {case: timings}}, {counts})."""
+    luminance value must sit at a tie; each is counted.  With `first`
+    (FirstK7, FirstK8), K7 on every frame and the batch and K8's DCT on
+    every case (alone and inside the batch) must equal the first builds'
+    bit for bit.  Timed (device, CUDA-event and host time, plain, bound,
+    share, the block product alone) at K7's 12 MP, 1080p 4:4:4 and 64 x
+    500² and K8's 12 MP, 64 x 500² and band, K7 and K8's DCT in turns
+    with the first builds when given.  Returns ({entry: {case:
+    timings}}, {counts})."""
     from fennec_tpu_torch.codecs import jpeg as J
     from fennec_tpu_torch.engine import compress as C
     from fennec_tpu_torch.ops import resize as R
@@ -4709,6 +4768,8 @@ def phase_k7k8(T, dev, timed: bool = True):
 
     w78 = k78_wrappers()
     k7, fdct, lum = w78["decode_recon"], w78["forward_dct"], w78["luminance"]
+    first_k7, first_fdct = (first[0].k7, first[1].fdct) if first else (None,
+                                                                        None)
     times = {"decode_recon": {}, "forward_dct": {}, "luminance": {}}
     counts = {}
     before = {k: w.launches for k, w in w78.items()}
@@ -4746,6 +4807,9 @@ def phase_k7k8(T, dev, timed: bool = True):
         torch.cuda.synchronize()
         if not torch.equal(got, again):
             raise AssertionError(f"K7 {tag}: two calls differ")
+        if first_k7 is not None and not torch.equal(got,
+                                                    first_k7.frame(*args)):
+            raise AssertionError(f"K7 {tag}: differs from the first K7")
         n = k7_compare(tag, got, want, k7_round_inputs(*args))
         counts[f"k7_{tag}"] = n
         worst = max(worst, int((got.to(torch.int32)
@@ -4765,6 +4829,9 @@ def phase_k7k8(T, dev, timed: bool = True):
         dev)[None].expand(64, 2, 64).contiguous()
     got = k7.batch(blocks, qt, 500, 500, True)
     want = C.decode_jpeg_image_plain(blocks, qt, 500, 500, True)
+    if first_k7 is not None and not torch.equal(
+            got, first_k7.batch(blocks, qt, 500, 500, True)):
+        raise AssertionError("K7 64x500 batch: differs from the first K7")
     ny = 32 * 32 * 4
     parts = [blocks[:, :ny], blocks[:, ny:ny + 1024], blocks[:, ny + 1024:]]
     comps = [(2, 2, 64, 64), (1, 1, 32, 32), (1, 1, 32, 32)]
@@ -4803,6 +4870,10 @@ def phase_k7k8(T, dev, timed: bool = True):
         torch.cuda.synchronize()
         if any(not torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"K8 {tag}: two calls differ")
+        if first_fdct is not None and any(
+                not torch.equal(a, b) for a, b in zip(got,
+                                                      first_fdct(x, sub))):
+            raise AssertionError(f"K8 {tag}: differs from the first K8")
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         worst_coef = max(worst_coef, err)
         n = k8_levels(tag, got, want, (30, 60, 92), dev)
@@ -4814,6 +4885,12 @@ def phase_k7k8(T, dev, timed: bool = True):
                        for a, b in zip(alone, got)):
                     raise AssertionError(f"K8 {tag}: image {i} alone "
                                          f"differs from the batch")
+                if first_fdct is not None and any(
+                        not torch.equal(a, b) for a, b in zip(
+                            alone, first_fdct(x[i:i + 1].contiguous(),
+                                              sub))):
+                    raise AssertionError(f"K8 {tag}: image {i} alone "
+                                         f"differs from the first K8")
         log(f"K8 DCT {tag} {tuple(x.shape)}: largest |coefficient "
             f"difference| {err:.3e}, levels differing at Q30/60/92 (each at "
             f"a tie) {n}")
@@ -4845,6 +4922,12 @@ def phase_k7k8(T, dev, timed: bool = True):
     ran = {k: w.launches - before[k] for k, w in w78.items()}
     log(f"K7/K8 phase: launches {ran}, largest K7 level difference "
         f"{worst}, K8 coefficient {worst_coef:.3e}")
+    if first:
+        log(f"K7 on {len(frames)} frames and the 64 x 500² batch, K8's DCT "
+            f"on {len(k8_cases)} cases (alone and inside the batch): bit "
+            f"for bit the first builds' ({FIRST_K7_SOURCE}, "
+            f"{FIRST_K8_SOURCE}; {first_k7.launches} and "
+            f"{first_fdct.launches} launches of theirs)")
     counts["k7_max_level_diff"] = worst
     counts["k8_max_coef_diff"] = worst_coef
     if not timed:
@@ -4867,7 +4950,8 @@ def phase_k7k8(T, dev, timed: bool = True):
         times["decode_recon"][tag] = time_k78(
             lambda a=args: k7.frame(*a),
             lambda a=args: J.reconstruct_plain(*a), "decode_recon_kernel",
-            nbytes, fmas, (1, nb, 64), nb)
+            nbytes, fmas, (1, nb, 64), nb,
+            first=first and (lambda a=args: first_k7.frame(*a)))
         times["decode_recon"][tag]["dense_ops_bound_ms"] = k78_bound(
             0, 4096.0 * nb)[0]
     nbytes, fmas = k7_cost([blocks], 64 * 500 * 500 * 16)
@@ -4875,7 +4959,9 @@ def phase_k7k8(T, dev, timed: bool = True):
         lambda: k7.batch(blocks, qt, 500, 500, True),
         lambda: C.decode_jpeg_image_plain(blocks, qt, 500, 500, True),
         "decode_recon_kernel", nbytes, fmas, tuple(blocks.shape),
-        blocks.shape[0] * blocks.shape[1])
+        blocks.shape[0] * blocks.shape[1],
+        first=first and (lambda: first_k7.batch(blocks, qt, 500, 500,
+                                                True)))
     times["decode_recon"]["64x500_f32"]["dense_ops_bound_ms"] = k78_bound(
         0, 4096.0 * blocks.shape[0] * blocks.shape[1])[0]
     for tag, x, sub in (k8_cases[0], k8_cases[2], k8_cases[3]):
@@ -4884,7 +4970,8 @@ def phase_k7k8(T, dev, timed: bool = True):
             lambda x=x, s=sub: fdct(x, s),
             lambda x=x, s=sub: J.forward_dct_plain(x, s), "fdct_kernel",
             x.numel() * 4 + nblk * 256, 4096.0 * nblk,
-            (x.shape[0], nblk // x.shape[0], 64), nblk)
+            (x.shape[0], nblk // x.shape[0], 64), nblk,
+            first=first and (lambda x=x, s=sub: first_fdct(x, s)))
     for tag, x, rows, bandinfo in (
             ("12mp", big_img, 3024, None), ("64x500", small, 500, None),
             ("band_12mp", pix, band.stop - band.start, band)):
@@ -4909,14 +4996,20 @@ def phase_k7k8(T, dev, timed: bool = True):
                 f"{t['bound_ms'] * 1e3:.2f} µs ({t['bound_by']}), share "
                 f"{100 * t['share']:.1f} %"
                 + (f", block product alone {t['matmul_part_ms'] * 1e3:.2f} "
-                   f"µs" if "matmul_part_ms" in t else ""))
+                   f"µs" if "matmul_part_ms" in t else "")
+                + (f"; first build in turns: device {t['first_ms'] * 1e3:.2f}"
+                   f" µs, CUDA events {t['first_event_ms'] * 1e3:.2f} µs, "
+                   f"host {t['first_host_us']:.2f} µs, share "
+                   f"{100 * t['first_share']:.1f} %, turns (µs) "
+                   f"{t['turns_us']}" if "first_ms" in t else ""))
     return times, counts
 
 
-def k7k8_only(T, dev) -> int:
-    """`--k7k8`: phases 1, 2 and 18 alone; no main path, so no result
-    line."""
-    times, counts = phase_k7k8(T, dev)
+def k7k8_only(T, dev, first) -> int:
+    """`--k7k8`: phases 1, 2 and 18 alone (K7 and K8's DCT held to the
+    first builds and timed in turns with them); no main path, so no
+    result line."""
+    times, counts = phase_k7k8(T, dev, first=first)
     log("K7/K8 summary: " + json.dumps({"times": times, "counts": counts}))
     log("k7k8 only: every case passed")
     return 0
@@ -4926,7 +5019,8 @@ def build_all(ssim_window, k3, probe_recon):
     """Phase 2: every kernel of the port and the host entropy coder
     built from this checkout's sources, all at once; returns the first
     K3's, the first K2's and the first K5's harnesses, the stamped K5
-    builds ({"first": ..., "k5": ...}) and the first K6's harness."""
+    builds ({"first": ..., "k5": ...}), the first K6's harness and the
+    first K7's and K8's (FirstK7, FirstK8)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from fennec_tpu_torch import native
@@ -4940,7 +5034,7 @@ def build_all(ssim_window, k3, probe_recon):
         got = build()
         return time.perf_counter() - t, got
 
-    with ThreadPoolExecutor(14) as pool:
+    with ThreadPoolExecutor(16) as pool:
         done = list(pool.map(timed, (
             lambda: ssim_window.build(force=True),
             lambda: k3.library.build(force=True),
@@ -4953,7 +5047,7 @@ def build_all(ssim_window, k3, probe_recon):
                             True),
             lambda: k6.library.build(force=True), FirstK6,
             lambda: k7.build(force=True),
-            lambda: k8.library.build(force=True))))
+            lambda: k8.library.build(force=True), FirstK7, FirstK8)))
     ssim_window.load()
     k3.library.load()
     native.load()
@@ -4969,7 +5063,8 @@ def build_all(ssim_window, k3, probe_recon):
         f"stamped_k5_nvcc_s={done[8][0]:.3f}, {done[9][0]:.3f} "
         f"k6_nvcc_s={done[10][0]:.3f} first_k6_nvcc_s={done[11][0]:.3f} "
         f"k7_nvcc_s={done[12][0]:.3f} k8_nvcc_s={done[13][0]:.3f} "
-        f"(in parallel)")
+        f"first_k7_nvcc_s={done[14][0]:.3f} "
+        f"first_k8_nvcc_s={done[15][0]:.3f} (in parallel)")
     log(ssim_window.build_log.strip())
     log(k3.library.build_log.strip())
     log(probe_recon.build_log.strip())
@@ -4979,7 +5074,9 @@ def build_all(ssim_window, k3, probe_recon):
                       ("K5 -DK5_STAMPS", done[9][1].build_log),
                       ("K6", k6.library.build_log),
                       ("first K6", done[11][1].build_log),
-                      ("K7", k7.build_log), ("K8", k8.library.build_log)):
+                      ("K7", k7.build_log), ("K8", k8.library.build_log),
+                      ("first K7", done[14][1].build_log),
+                      ("first K8", done[15][1].build_log)):
         log(f"{tag} nvcc -Xptxas -v: {text.strip()}")
     lib = k3.library.load()
     log(f"K3 segment_blocks={k3.library.segment_blocks} resident CTAs "
@@ -4988,9 +5085,12 @@ def build_all(ssim_window, k3, probe_recon):
     dev = torch.device("cuda", torch.cuda.current_device())
     log(f"K2 resident CTAs, SMs: 4:2:0 {probe_recon.card(dev, True)} "
         f"4:4:4 {probe_recon.card(dev, False)}")
-    log(f"K7 resident CTAs {k7.ctas(dev)}, K8's DCT {k8.library.ctas(dev)}")
+    log(f"K7 resident CTAs {k7.ctas(dev)}, K8's DCT {k8.library.ctas(dev)}; "
+        f"the first K7's {done[14][1].k7.ctas(dev)}, the first K8's DCT "
+        f"{done[15][1].library.ctas(dev)}")
     return (done[3][1], done[5][1], done[7][1],
-            {"first": done[8][1], "k5": done[9][1]}, done[11][1])
+            {"first": done[8][1], "k5": done[9][1]}, done[11][1],
+            (done[14][1], done[15][1]))
 
 
 def k2_only(T, dev, first_k2) -> int:
@@ -5261,7 +5361,7 @@ def main(only: str = "") -> int:
     count_bisections()
     if only == "digests":  # kernels build at first use
         return digests_only(T, dev)
-    first_k3, first_k2, first_k5, stamped, first_k6 = build_all(
+    first_k3, first_k2, first_k5, stamped, first_k6, first_k78 = build_all(
         ssim_window, k3, k2.probe_recon)
     if only == "k3":
         return k3_only(T, dev, first_k3)
@@ -5272,7 +5372,7 @@ def main(only: str = "") -> int:
     if only == "wire":
         return wire_only(T, dev, ssim_window, first_k6)
     if only == "k7k8":
-        return k7k8_only(T, dev)
+        return k7k8_only(T, dev, first_k78)
     if only == "mesh":
         from fennec_tpu_torch.engine.batched import counters
 
@@ -5291,7 +5391,7 @@ def main(only: str = "") -> int:
     k2_err, k2_times = phase_k2(dev, first=first_k2)
     # 18. K7 and K8 against their plain versions, before the main path
     # runs through them.
-    k78_times, k78_counts = phase_k7k8(T, dev)
+    k78_times, k78_counts = phase_k7k8(T, dev, first=first_k78)
 
     # 4. The main path.
     big = photo(4032, 3024, SEED)
@@ -5613,6 +5713,9 @@ def main(only: str = "") -> int:
             # block product alone.
             "library_ms": None,
             "event_ms": kt["event_ms"], "host_us": kt["host_us"],
+            # The first build (bench_sources/*_first.cu), in turns.
+            "first_ms": kt["first_ms"], "first_event_ms": kt["first_event_ms"],
+            "first_host_us": kt["first_host_us"],
             "matmul_part_ms": kt["matmul_part_ms"],
             "others": {c: v for c, v in k78_times[entry].items()
                        if c != case}}

@@ -28,33 +28,63 @@
 // 129).  With the 8-point float32 matrix the DC term is scaled by d00 *
 // d00 = 0.12499999 instead, a few ulps below the tie before the + 128.
 //
-// What bounds it on an H100: at 12 MP 4:2:0 it reads 36.6 MB of blocks and
-// writes 48.8 MB of RGBA (25 us at 3.35 TB/s); the product is 4096
-// multiply-adds a block (35 us at 67 TFLOP/s), fewer for the zero
-// coefficients it skips.  The colour is ~30 operations a pixel.
+// What bounds it on an H100: bytes.  At 12 MP 4:2:0 it reads 36.6 MB of
+// blocks and writes 48.8 MB of RGBA (25 us at 3.35 TB/s); the product is
+// 4096 multiply-adds a block (35 us at 67 TFLOP/s dense), fewer for the
+// zero coefficients it skips; the colour ~40 instructions a pixel.  PR 16's
+// design (bench_sources/decode_recon_first.cu) ran at 9-27 % of the bytes
+// bound: its product made ~12 shared-memory wavefronts for 32 warp-FMAs,
+// and a tile's loads, product and stores ran in turn.  What holds this
+// design back is issue: clock64() stamps and edited builds
+// (bench_sources/k7k8_variants.py) put the product at ~35 us of a 12 MP
+// call (a warp's 16 blocks share one mask, ~21 of 64 k a block run, and
+// the luma warps run about three times as many as the chroma ones) and the
+// colour pass at ~28 us.
 //
-// Design, simple first.  Persistent CTAs of 256 threads (as many as the
-// card holds at once) walk tiles: a tile is up to kTileBlocks blocks' worth
-// of whole MCUs of one MCU row of one image.  Per tile:
+// Design.  Persistent CTAs of 256 threads (as many as the card holds at
+// once, two an SM) walk tiles of whole MCUs of one MCU row (at most
+// kTileBlocks blocks).  A tile's blocks of one component block row are one
+// contiguous span of device memory, so:
 //
-//   1. Load and dequantize.  Each block is eight 16-byte loads; a thread
-//      converts eight coefficients and multiplies each by its table entry
-//      into shared memory (float32, one rounding, as the plain version).
+//   0. Staging.  Warp 0 fills a ring of kStages stages with TMA bulk copies
+//      (cp.async.bulk, completion on one mbarrier a stage), one a lane: one
+//      per component block row (four in 4:2:0), raw int16, and one of the
+//      image's table rows.  A stage is refilled, kStages tiles ahead, as
+//      soon as every warp has converted it, so the copies run while the CTA
+//      computes.  The stage's slots are component-major and, within a
+//      component, row-major: component c's block row by of the tile's nm
+//      MCUs starts at slot nm * (pre_c + by * h_c).
 //
-//   2. IDCT.  A warp takes four blocks at a time; lane l sums outputs l and
-//      l + 32 of each, over k ascending with fmaf, the matrix row k read
-//      from shared memory.  A k whose coefficient is zero in all four
-//      blocks is skipped: fmaf(0, m, s) is s for every sum the chains hold
-//      (they start at +0), so the skip changes no bit.  Then + 128, written
-//      in place.
+//   1. Conversion, warp by warp.  Warp w owns slots [16 w, 16 w + 16).
+//      Each lane converts a 16-byte part (eight coefficients) of one block,
+//      dequantized as the plain version does (float32, one rounding), into
+//      the k-major buffer at k * 128 + ((slot + 4 (k / 8)) mod 128): the
+//      rotation puts the 32 lanes of each store on 32 banks.  It ORs the
+//      nonzero coefficients into a 64-bit mask; a warp reduce gives the
+//      union over the warp's 16 blocks.
 //
-//   3. Colour.  A thread takes a pixel column of the tile; the offset of
-//      each component's sample in shared memory is a column part and a row
-//      part, from tables the CTA builds once (they depend on the sampling
-//      alone), so replication and the MCU layout cost two shared loads a
-//      component.  The colour maths is the plain version's, operation for
-//      operation, built with --fmad=false so nothing is contracted.  Rows
-//      are stored coalesced, 4 or 16 bytes a pixel.
+//   2. The product, a register-tiled (16 x 64) . (64 x 64) GEMM a warp.
+//      A lane holds 4 blocks x 8 outputs (outputs 4g..4g+3 and 32+4g..
+//      32+4g+3); per k one 16-byte load of its blocks' coefficients (4
+//      addresses a warp) and two of the matrix row (8 each): 3 wavefronts
+//      for 32 warp-FMAs.  Only the k of the warp's mask run, found a
+//      32-bit half at a time: fmaf(0, m, s) is s for every sum the chains
+//      hold (they start at +0), so skipping a k whose coefficient is zero
+//      changes no bit, and every sum is still fmaf over k ascending.
+//
+//   3. + 128 into a block-major pixel buffer (72 floats a block: a row of
+//      pixels spans 32 banks), which reuses the k-major buffer's memory.
+//
+//   4. Colour, compiled once per mode and output type (no branch a pixel).
+//      A warp takes a pixel row of the tile, its lanes adjacent columns;
+//      each component's sample is a row part (per warp row) plus a column
+//      part, read with the others from a per-CTA table (colx: one 64-bit
+//      word a pixel column, a 16-bit field a component), so replication and
+//      the MCU layout cost one load and a few integer operations.  The
+//      colour maths is the plain version's, operation for operation, built
+//      with --fmad=false so nothing is contracted; a uint8 value [0, 255]
+//      is the low byte of x + 2^23.  Rows are stored coalesced, 4 or 16
+//      bytes a pixel.
 //
 // Sampling factors must divide the largest (hmax % h == 0, vmax % v == 0):
 // the wrapper checks it.
@@ -66,10 +96,21 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileBlocks = 128;   // blocks of a tile, all components
+constexpr int kTileBlocks = 128;  // blocks of a tile, all components
+constexpr int kWarpBlocks = kTileBlocks / kWarps;  // 16, a warp's slots
 constexpr int kMaxComps = 4;
-constexpr int kMaxRows = 32;       // 8 * vmax of an MCU, vmax <= 4
-constexpr int kMaxCols = 1024;     // pixel columns of a tile (<= 1024 / vmax)
+constexpr int kMaxRows = 32;    // 8 * vmax of an MCU, vmax <= 4
+constexpr int kMaxCols = 1024;  // pixel columns of a tile
+constexpr int kStages = 2;
+constexpr int kPixStride = 72;  // floats between blocks of the pixel buffer
+constexpr int kTabBytes = kMaxComps * 64 * 4;
+constexpr int kStageBytes = kTileBlocks * 128 + kTabBytes;
+constexpr int kWorkFloats = kTileBlocks * kPixStride;  // >= 64 * 128
+constexpr int kInfoInts = 16;  // pre[5], tsel[4], padding
+constexpr int kSmemBytes = kStages * kStageBytes + kWorkFloats * 4 +
+                           64 * 64 * 4 + kMaxCols * 8 +
+                           2 * kMaxComps * kMaxRows * 4 + kInfoInts * 4 +
+                           kStages * 8;
 
 enum Mode { kGray = 0, kRgb = 1, kYcbcr = 2, kCmyk = 3, kYcck = 4 };
 
@@ -81,6 +122,7 @@ struct Frame {
   int tsel[kMaxComps];               // table row of the component
   const int* tables;                 // int32 tables
   int tab_stride;                    // ints between images' tables
+  int ntab;                          // table rows staged a tile
   const float* kron;                 // (64, 64) float32
   int ncomp, hmax, vmax, mcus_x, mcus_y, h, w, mode, nimg;
   int tile_mcus, tiles_x;            // MCUs a tile, tiles per MCU row
@@ -88,9 +130,96 @@ struct Frame {
   int out_f32;
 };
 
-constexpr int kSmemBytes =
-    (kTileBlocks * 64 + 64 * 64 + kMaxComps * 64) * 4 +
-    kMaxComps * (kMaxRows + kMaxCols) * 4 + 8 * kMaxComps * 4;
+struct Tile {
+  int img, my, mx0, nm;
+};
+
+__device__ __forceinline__ Tile tile_at(const Frame& f, long long t) {
+  const long long per_img = (long long)f.mcus_y * f.tiles_x;
+  Tile T;
+  T.img = (int)(t / per_img);
+  const int rem = (int)(t - (long long)T.img * per_img);
+  T.my = rem / f.tiles_x;
+  T.mx0 = (rem - T.my * f.tiles_x) * f.tile_mcus;
+  T.nm = min(f.tile_mcus, f.mcus_x - T.mx0);
+  return T;
+}
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   shared_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(shared_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = shared_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// bytes (a multiple of 16) from 16-byte aligned global src to 16-byte
+// aligned shared dst, counted on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(shared_addr(dst)),
+      "l"(src), "r"(bytes), "r"(shared_addr(bar))
+      : "memory");
+}
+
+// Warp 0: the copies of tile t into stage st, counted on bar, one a lane
+// (lane 0 the table rows, which follow the blocks; lane 1 + j the j-th
+// component block row in order).  Slots of component c's block row by
+// start at nm * (pre_c + by * h_c).
+__device__ __forceinline__ void issue(const Frame& f, long long t,
+                                      unsigned char* st, uint64_t* bar,
+                                      int lane) {
+  const Tile T = tile_at(f, t);
+  if (lane == 0) {
+    uint32_t bytes = f.ntab * 256;
+#pragma unroll
+    for (int c = 0; c < kMaxComps; ++c)
+      if (c < f.ncomp) bytes += f.vs[c] * T.nm * f.hs[c] * 128;
+    bar_expect(bar, bytes);
+    bulk_load(st + kTileBlocks * 128,
+              f.tables + (long long)T.img * f.tab_stride, f.ntab * 256, bar);
+  }
+  int j = lane - 1, pre = 0;
+#pragma unroll
+  for (int c = 0; c < kMaxComps; ++c) {
+    if (c >= f.ncomp) break;
+    const int hs = f.hs[c], vs = f.vs[c];
+    if (j >= 0 && j < vs) {
+      const int16_t* src =
+          f.blocks[c] + ((long long)T.img * f.img_stride[c] +
+                         (long long)(T.my * vs + j) * f.bw[c] +
+                         (long long)T.mx0 * hs) * 64;
+      bulk_load(st + T.nm * (pre + j * hs) * 128, src, T.nm * hs * 128, bar);
+    }
+    j -= vs;
+    pre += hs * vs;
+  }
+}
 
 __device__ __forceinline__ float round_clamp(float x) {
   // torch.clamp(torch.floor(x + 0.5), 0, 255) (ops/color.clamp_u8).
@@ -107,19 +236,19 @@ __device__ __forceinline__ void ycbcr_rgb(float y, float cb, float cr,
   rgb[2] = y + (float)1.772 * cbc;
 }
 
-__device__ __forceinline__ void colour(int mode, const float* v,
-                                       float* rgb) {
-  if (mode == kGray) {
+template <int kMode>
+__device__ __forceinline__ void colour(const float* v, float* rgb) {
+  if (kMode == kGray) {
     const float y = round_clamp(v[0]);
     rgb[0] = rgb[1] = rgb[2] = y;
-  } else if (mode == kRgb) {
+  } else if (kMode == kRgb) {
     for (int i = 0; i < 3; ++i) rgb[i] = round_clamp(v[i]);
-  } else if (mode == kYcbcr) {
+  } else if (kMode == kYcbcr) {
     ycbcr_rgb(v[0], v[1], v[2], rgb);
     for (int i = 0; i < 3; ++i) rgb[i] = round_clamp(rgb[i]);
   } else {  // kCmyk, kYcck: x * k // 255 on the rounded planes
     float base[3];
-    if (mode == kYcck) {
+    if (kMode == kYcck) {
       ycbcr_rgb(v[0], v[1], v[2], base);
     } else {
       base[0] = v[0], base[1] = v[1], base[2] = v[2];
@@ -130,191 +259,264 @@ __device__ __forceinline__ void colour(int mode, const float* v,
   }
 }
 
+// A value of [0, 255] (integral) as its byte: the low bits of x + 2^23.
+__device__ __forceinline__ uint32_t byte_of(float x) {
+  return __float_as_uint(x + 8388608.0f) & 0xFFu;
+}
+
+// The colour pass of a tile for one mode and output type: a pixel row a
+// warp, adjacent columns a lane.  Component c's sample of pixel (ly, lx)
+// is pix[ro_c(ly) + colx[lx]'s 16-bit field c].
+template <int kMode, bool kF32>
+__device__ __forceinline__ void colour_rows(const Frame& f, const float* pix,
+                                            const uint2* colx,
+                                            const int* rowb, const int* rowp,
+                                            const int* s_pre, const Tile& T,
+                                            int warp, int lane) {
+  constexpr int kN = kMode == kGray ? 1
+                     : (kMode == kCmyk || kMode == kYcck) ? 4 : 3;
+  const int rows = 8 * f.vmax;
+  const int y0 = T.my * rows, x0 = T.mx0 * 8 * f.hmax;
+  const int tcols = min(T.nm * 8 * f.hmax, f.w - x0);
+  const int trows = min(rows, f.h - y0);
+  for (int ly = warp; ly < trows; ly += kWarps) {
+    int ro[kN];
+#pragma unroll
+    for (int c = 0; c < kN; ++c)
+      ro[c] = T.nm * (s_pre[c] + rowb[c * kMaxRows + ly]) * kPixStride +
+              rowp[c * kMaxRows + ly];
+    const long long o0 = ((long long)T.img * f.h + y0 + ly) * f.w + x0;
+    for (int lx = lane; lx < tcols; lx += 32) {
+      const uint2 cx = colx[lx];
+      float v[4];
+      v[0] = pix[ro[0] + (cx.x & 0xFFFF)];
+      if (kN > 1) {
+        v[1] = pix[ro[1] + (cx.x >> 16)];
+        v[2] = pix[ro[2] + (cx.y & 0xFFFF)];
+      }
+      if (kN > 3) v[3] = pix[ro[3] + (cx.y >> 16)];
+      float rgb[3];
+      colour<kMode>(v, rgb);
+      if (kF32) {
+        reinterpret_cast<float4*>(f.out)[o0 + lx] =
+            make_float4(rgb[0], rgb[1], rgb[2], 255.0f);
+      } else {
+        reinterpret_cast<uint32_t*>(f.out)[o0 + lx] =
+            byte_of(rgb[0]) | byte_of(rgb[1]) << 8 | byte_of(rgb[2]) << 16 |
+            0xFF000000u;
+      }
+    }
+  }
+}
+
+template <bool kF32>
+__device__ __forceinline__ void colour_tile(const Frame& f, const float* pix,
+                                            const uint2* colx,
+                                            const int* rowb, const int* rowp,
+                                            const int* s_pre, const Tile& T,
+                                            int warp, int lane) {
+  switch (f.mode) {
+    case kGray:
+      colour_rows<kGray, kF32>(f, pix, colx, rowb, rowp, s_pre, T, warp, lane);
+      break;
+    case kRgb:
+      colour_rows<kRgb, kF32>(f, pix, colx, rowb, rowp, s_pre, T, warp, lane);
+      break;
+    case kYcbcr:
+      colour_rows<kYcbcr, kF32>(f, pix, colx, rowb, rowp, s_pre, T, warp,
+                                lane);
+      break;
+    case kCmyk:
+      colour_rows<kCmyk, kF32>(f, pix, colx, rowb, rowp, s_pre, T, warp, lane);
+      break;
+    default:
+      colour_rows<kYcck, kF32>(f, pix, colx, rowb, rowp, s_pre, T, warp, lane);
+  }
+}
+
 __device__ __forceinline__ float lane_of(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     decode_recon_kernel(const Frame f) {
-  extern __shared__ __align__(16) float smem[];
-  float* buf = smem;                           // [kTileBlocks][64]
-  float* kron = buf + kTileBlocks * 64;        // [64][64]
-  float* tab = kron + 64 * 64;                 // [kMaxComps][64]
-  int* rowp = reinterpret_cast<int*>(tab + kMaxComps * 64);
-  int* colp = rowp + kMaxComps * kMaxRows;     // [kMaxComps][kMaxCols]
-  int* info = colp + kMaxComps * kMaxCols;     // per component, below
-  int* s_hs = info;
-  int* s_vs = info + kMaxComps;
-  int* s_bw = info + 2 * kMaxComps;
-  int* s_pre = info + 3 * kMaxComps;           // blocks of an MCU before c
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* stages = smem;  // [kStages][kStageBytes]
+  // The k-major coefficients ([64][128], rotated) and, after the product,
+  // the block-major pixels ([kTileBlocks][kPixStride]).
+  float* work = reinterpret_cast<float*>(smem + kStages * kStageBytes);
+  float* kron = work + kWorkFloats;                         // [64][64]
+  uint2* colx = reinterpret_cast<uint2*>(kron + 64 * 64);   // [kMaxCols]
+  int* rowb = reinterpret_cast<int*>(colx + kMaxCols);      // [c][ly]
+  int* rowp = rowb + kMaxComps * kMaxRows;                  // [c][ly]
+  int* s_pre = rowp + kMaxComps * kMaxRows;                 // [5]
+  int* s_tsel = s_pre + kMaxComps + 1;                      // [4]
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_pre + kInfoInts);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ncomp = f.ncomp;
 
-  // Once per CTA: the matrix and the offset tables, which depend on the
-  // sampling alone.  Component c's sample (sy, sx) of a tile lies in block
-  // m * (h v) + (sy / 8) h + (sx % 8h) / 8 of the component's run (m =
-  // sx / 8h its MCU), at (sy % 8) 8 + sx % 8.
-  for (int i = tid; i < 64 * 64 / 4; i += kThreads)
-    reinterpret_cast<float4*>(kron)[i] =
-        __ldg(reinterpret_cast<const float4*>(f.kron) + i);
+  // Once per CTA: the barriers, the matrix, and the tables that depend on
+  // the sampling alone.  Component c's sample row sy of a tile lies in
+  // its block row sy / 8 (slots nm * (pre_c + (sy / 8) h_c) on), at
+  // (sy % 8) 8 within a block; its column sx in the row's block sx / 8, at
+  // sx % 8: pixel column lx's offsets, one 16-bit field a component, in
+  // colx[lx].
   if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) bar_init(&full[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     int pre = 0;
 #pragma unroll
     for (int c = 0; c < kMaxComps; ++c) {
-      s_hs[c] = f.hs[c];
-      s_vs[c] = f.vs[c];
-      s_bw[c] = f.bw[c];
       s_pre[c] = pre;
+      s_tsel[c] = f.tsel[c];
       if (c < ncomp) pre += f.hs[c] * f.vs[c];
     }
     s_pre[kMaxComps] = pre;
   }
-  const int rows = 8 * f.vmax, cols = f.tile_mcus * 8 * f.hmax;
+  for (int lx = tid; lx < kMaxCols; lx += kThreads) {
+    uint32_t field[kMaxComps];
+#pragma unroll
+    for (int c = 0; c < kMaxComps; ++c) {
+      const int sx = lx / (f.hmax / f.hs[c]);
+      field[c] = c < ncomp ? (sx >> 3) * kPixStride + (sx & 7) : 0;
+    }
+    colx[lx] = make_uint2(field[0] | field[1] << 16, field[2] | field[3] << 16);
+  }
+  for (int i = tid; i < 64 * 64 / 4; i += kThreads)
+    reinterpret_cast<float4*>(kron)[i] =
+        __ldg(reinterpret_cast<const float4*>(f.kron) + i);
+  const int rows = 8 * f.vmax;
 #pragma unroll
   for (int c = 0; c < kMaxComps; ++c) {
     if (c >= ncomp) break;
-    const int hs = f.hs[c], vs = f.vs[c];
-    const int rx = f.hmax / hs, ry = f.vmax / vs;
+    const int ry = f.vmax / f.vs[c];
     for (int ly = tid; ly < rows; ly += kThreads) {
       const int sy = ly / ry;
-      rowp[c * kMaxRows + ly] = (sy >> 3) * hs * 64 + (sy & 7) * 8;
-    }
-    for (int lx = tid; lx < cols; lx += kThreads) {
-      const int sx = lx / rx;
-      const int m = sx / (8 * hs), bx = (sx % (8 * hs)) >> 3;
-      colp[c * kMaxCols + lx] = (m * vs * hs + bx) * 64 + (sx & 7);
+      rowb[c * kMaxRows + ly] = (sy >> 3) * f.hs[c];
+      rowp[c * kMaxRows + ly] = (sy & 7) * 8;
     }
   }
+  __syncthreads();
 
-  const long long per_img = (long long)f.mcus_y * f.tiles_x;
-  const long long ntiles = per_img * f.nimg;
-  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int img = (int)(t / per_img);
-    const int rem = (int)(t - (long long)img * per_img);
-    const int my = rem / f.tiles_x;
-    const int mx0 = (rem - my * f.tiles_x) * f.tile_mcus;
-    const int nm = min(f.tile_mcus, f.mcus_x - mx0);
-    __syncthreads();  // the last tile's colour pass is done with buf
-    const int bpm = s_pre[kMaxComps];
-    const int nblk = nm * bpm;
-    if (tid < ncomp * 64) {  // this image's table of each component
-      const int c = tid >> 6;
-      int sel = 0;
-#pragma unroll
-      for (int k = 0; k < kMaxComps; ++k)
-        if (k == c) sel = f.tsel[k];
-      tab[tid] = (float)__ldg(f.tables + (long long)img * f.tab_stride +
-                              sel * 64 + (tid & 63));
+  const long long ntiles = (long long)f.mcus_y * f.tiles_x * f.nimg;
+  if (warp == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      const long long t = blockIdx.x + (long long)s * gridDim.x;
+      if (t < ntiles) issue(f, t, stages + s * kStageBytes, &full[s], lane);
     }
-    __syncthreads();
+  }
+  const float4* kron4 = reinterpret_cast<const float4*>(kron);
+  int it = 0;
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x, ++it) {
+    const int s = it % kStages;
+    unsigned char* st = stages + s * kStageBytes;
+    const Tile T = tile_at(f, t);
+    const int nm = T.nm;
+    const int nblk = nm * s_pre[kMaxComps];
+    bar_wait(&full[s], (uint32_t)(it / kStages) & 1);
 
-    // 1. Load and dequantize, eight coefficients a thread.
-    for (int i = tid; i < nblk * 8; i += kThreads) {
-      const int blk = i >> 3, part = i & 7;
-      int c = 0;
+    // 1. Conversion: lane (part, block) of four blocks at a time.
+    const int16_t* raw = reinterpret_cast<const int16_t*>(st);
+    const int* qt = reinterpret_cast<const int*>(st + kTileBlocks * 128);
+    const int part = lane & 7;
+    uint32_t lo = 0, hi = 0;
 #pragma unroll
-      for (int k = 1; k < kMaxComps; ++k)
-        if (k < ncomp && blk >= nm * s_pre[k]) c = k;
-      const int hs = s_hs[c], hv = hs * s_vs[c];
-      const int local = blk - nm * s_pre[c];
-      const int m = local / hv, r = local - m * hv;
-      const int by = r / hs, bx = r - by * hs;
-      const long long row = (long long)my * s_vs[c] + by;
-      const long long col = (long long)(mx0 + m) * hs + bx;
-      const int16_t* base = nullptr;
-      long long stride = 0;
+    for (int q = 0; q < kWarpBlocks / 4; ++q) {
+      const int b = warp * kWarpBlocks + q * 4 + (lane >> 3);
+      if (b < nblk) {
+        int c = 0;
 #pragma unroll
-      for (int k = 0; k < kMaxComps; ++k)
-        if (k == c) base = f.blocks[k], stride = f.img_stride[k];
-      const int4 raw = __ldg(reinterpret_cast<const int4*>(
-          base + (img * stride + row * s_bw[c] + col) * 64 + part * 8));
-      const float* q = tab + c * 64 + part * 8;
-      const int words[4] = {raw.x, raw.y, raw.z, raw.w};
-      float v[8];
+        for (int k = 1; k < kMaxComps; ++k)
+          if (k < ncomp && b >= nm * s_pre[k]) c = k;
+        const int4 rv =
+            *reinterpret_cast<const int4*>(raw + b * 64 + part * 8);
+        const int* qrow = qt + s_tsel[c] * 64 + part * 8;
+        const int4 q0 = *reinterpret_cast<const int4*>(qrow);
+        const int4 q1 = *reinterpret_cast<const int4*>(qrow + 4);
+        const int words[4] = {rv.x, rv.y, rv.z, rv.w};
+        const int qs[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+        float* dst = work + part * 8 * 128;
+        const int col = (b + 4 * part) & 127;
+        uint32_t bits = 0;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        v[2 * j] = (float)(short)(words[j] & 0xFFFF) * q[2 * j];
-        v[2 * j + 1] = (float)(short)(words[j] >> 16) * q[2 * j + 1];
+        for (int j = 0; j < 4; ++j) {
+          const short a = (short)(words[j] & 0xFFFF);
+          const short z = (short)(words[j] >> 16);
+          dst[(2 * j) * 128 + col] = (float)a * (float)qs[2 * j];
+          dst[(2 * j + 1) * 128 + col] = (float)z * (float)qs[2 * j + 1];
+          bits |= (a != 0 ? 1u : 0u) << (2 * j);
+          bits |= (z != 0 ? 1u : 0u) << (2 * j + 1);
+        }
+        if (part < 4)
+          lo |= bits << (8 * part);
+        else
+          hi |= bits << (8 * (part - 4));
       }
-      float4* dst = reinterpret_cast<float4*>(buf + blk * 64 + part * 8);
-      dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-      dst[1] = make_float4(v[4], v[5], v[6], v[7]);
     }
-    __syncthreads();
+    lo = __reduce_or_sync(0xffffffffu, lo);
+    hi = __reduce_or_sync(0xffffffffu, hi);
+    __syncwarp();
 
-    // 2. IDCT: four blocks a warp, outputs lane and lane + 32 of each.
-    for (int g = warp * 4; g < nblk; g += kWarps * 4) {
-      float acc[4][2];
-      bool live[4];
+    // 2. The product: lane (bg, og) sums blocks blk0..blk0+3, outputs
+    // 4 og..4 og+3 and 32+4 og..32+4 og+3, over the warp's k ascending.
+    const int og = lane >> 2;
+    const int blk0 = warp * kWarpBlocks + (lane & 3) * 4;
+    const bool live = warp * kWarpBlocks < nblk;
+    float acc[4][8];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[j][0] = acc[j][1] = 0.0f;
-        live[j] = g + j < nblk;
-      }
-      for (int k = 0; k < 64; k += 4) {
-        float4 cv[4];
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          cv[j] = live[j] ? *reinterpret_cast<const float4*>(
-                                buf + (g + j) * 64 + k)
-                          : make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const float c0 = lane_of(cv[0], kk), c1 = lane_of(cv[1], kk);
-          const float c2 = lane_of(cv[2], kk), c3 = lane_of(cv[3], kk);
-          if (c0 != 0.0f || c1 != 0.0f || c2 != 0.0f || c3 != 0.0f) {
-            const float m0 = kron[(k + kk) * 64 + lane];
-            const float m1 = kron[(k + kk) * 64 + lane + 32];
-            acc[0][0] = fmaf(c0, m0, acc[0][0]);
-            acc[0][1] = fmaf(c0, m1, acc[0][1]);
-            acc[1][0] = fmaf(c1, m0, acc[1][0]);
-            acc[1][1] = fmaf(c1, m1, acc[1][1]);
-            acc[2][0] = fmaf(c2, m0, acc[2][0]);
-            acc[2][1] = fmaf(c2, m1, acc[2][1]);
-            acc[3][0] = fmaf(c3, m0, acc[3][0]);
-            acc[3][1] = fmaf(c3, m1, acc[3][1]);
+    for (int half = 0; half < 2; ++half) {
+      uint32_t m = live ? (half ? hi : lo) : 0u;
+      while (m) {
+        const int k = half * 32 + __ffs(m) - 1;
+        m &= m - 1;
+        const float4 cv = *reinterpret_cast<const float4*>(
+            work + k * 128 + ((blk0 + 4 * (k >> 3)) & 127));
+        const float4 ma = kron4[k * 16 + og];
+        const float4 mb = kron4[k * 16 + 8 + og];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float c = lane_of(cv, i);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            acc[i][j] = fmaf(c, lane_of(ma, j), acc[i][j]);
+            acc[i][4 + j] = fmaf(c, lane_of(mb, j), acc[i][4 + j]);
           }
         }
       }
-      __syncwarp();  // every lane has read the four blocks
+    }
+    __syncthreads();  // stage s converted, the k-major buffer read
+
+    if (warp == 0) {
+      const long long next = t + (long long)kStages * gridDim.x;
+      if (next < ntiles) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        issue(f, next, st, &full[s], lane);
+      }
+    }
+
+    // 3. + 128 into the block-major pixel buffer.
+    if (live) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (live[j]) {
-          buf[(g + j) * 64 + lane] = acc[j][0] + 128.0f;
-          buf[(g + j) * 64 + lane + 32] = acc[j][1] + 128.0f;
-        }
+      for (int i = 0; i < 4; ++i) {
+        float4* d = reinterpret_cast<float4*>(work + (blk0 + i) * kPixStride);
+        d[og] = make_float4(acc[i][0] + 128.0f, acc[i][1] + 128.0f,
+                            acc[i][2] + 128.0f, acc[i][3] + 128.0f);
+        d[8 + og] = make_float4(acc[i][4] + 128.0f, acc[i][5] + 128.0f,
+                                acc[i][6] + 128.0f, acc[i][7] + 128.0f);
       }
     }
     __syncthreads();
 
-    // 3. Colour, a pixel column a thread, rows in turn.
-    const int y0 = my * rows, x0 = mx0 * 8 * f.hmax;
-    const int tcols = min(nm * 8 * f.hmax, f.w - x0);
-    const int trows = min(rows, f.h - y0);
-    for (int lx = tid; lx < tcols; lx += kThreads) {
-      int cp[kMaxComps];
-#pragma unroll
-      for (int c = 0; c < kMaxComps; ++c)
-        cp[c] = c < ncomp ? nm * s_pre[c] * 64 + colp[c * kMaxCols + lx] : 0;
-      for (int ly = 0; ly < trows; ++ly) {
-        float v[kMaxComps] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int c = 0; c < kMaxComps; ++c)
-          if (c < ncomp) v[c] = buf[cp[c] + rowp[c * kMaxRows + ly]];
-        float rgb[3];
-        colour(f.mode, v, rgb);
-        const long long o =
-            ((long long)img * f.h + y0 + ly) * f.w + x0 + lx;
-        if (f.out_f32) {
-          reinterpret_cast<float4*>(f.out)[o] =
-              make_float4(rgb[0], rgb[1], rgb[2], 255.0f);
-        } else {
-          reinterpret_cast<uchar4*>(f.out)[o] = make_uchar4(
-              (unsigned char)rgb[0], (unsigned char)rgb[1],
-              (unsigned char)rgb[2], 255);
-        }
-      }
-    }
+    // 4. Colour, a pixel row a warp, adjacent columns a lane.
+    if (f.out_f32)
+      colour_tile<true>(f, work, colx, rowb, rowp, s_pre, T, warp, lane);
+    else
+      colour_tile<false>(f, work, colx, rowb, rowp, s_pre, T, warp, lane);
+    __syncthreads();  // the pixel buffer read before the next conversion
   }
 }
 
@@ -327,9 +529,15 @@ cudaError_t prepare() {
   err = cudaFuncSetAttribute(decode_recon_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kSmemBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(decode_recon_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               100);
   if (err == cudaSuccess && dev < 64) done[dev] = true;
   return err;
 }
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
@@ -352,12 +560,14 @@ int fennec_decode_recon_ctas_per_sm() {
 
 // K7.  blocks[c]: component c's int16 blocks (16-byte aligned), image i's
 // at blocks[c] + i * img_stride[c] * 64, mcus_y * vs[c] rows of bw[c] =
-// mcus_x * hs[c] blocks; tables int32, component c of image i at tables +
-// i * tab_stride + tsel[c] * 64; kron the (64, 64) float32 matrix of
-// ops/dct.dct_kron; out (nimg, h, w, 4) uint8, or float32 when out_f32.
-// tile_mcus MCUs a tile (tile_mcus * sum(hs * vs) <= 128, tile_mcus * 8 *
-// hmax <= 1024), tiles_x = ceil(mcus_x / tile_mcus); ctas the grid.  One
-// launch on `stream`; returns the CUDA error.
+// mcus_x * hs[c] blocks; tables int32 (16-byte aligned, tab_stride a
+// multiple of 4), component c of image i at tables + i * tab_stride +
+// tsel[c] * 64; kron the (64, 64) float32 matrix of ops/dct.dct_kron; out
+// (nimg, h, w, 4) uint8, or float32 when out_f32.  tile_mcus MCUs a tile
+// (tile_mcus * sum(hs * vs) <= 128, tile_mcus * 8 * hmax <= 1024), tiles_x
+// = ceil(mcus_x / tile_mcus); ctas the grid.  One launch on `stream`;
+// returns the CUDA error (cudaErrorInvalidValue for a misaligned input or
+// a tile past the kernel's buffers).
 int fennec_decode_recon(const void* const* blocks, const long long* img_stride,
                         const int* bw, const int* hs, const int* vs,
                         const int* tsel, int ncomp, const void* tables,
@@ -366,6 +576,9 @@ int fennec_decode_recon(const void* const* blocks, const long long* img_stride,
                         int nimg, int tile_mcus, int tiles_x, int ctas,
                         void* out, int out_f32, void* stream) {
   Frame f = {};
+  int per_mcu = 0, ntab = 0;
+  bool ok = aligned16(tables) && tab_stride % 4 == 0 && aligned16(kron) &&
+            ncomp >= 1 && ncomp <= kMaxComps;
   for (int c = 0; c < kMaxComps; ++c) {
     const bool on = c < ncomp;
     f.blocks[c] = on ? static_cast<const int16_t*>(blocks[c]) : nullptr;
@@ -374,9 +587,18 @@ int fennec_decode_recon(const void* const* blocks, const long long* img_stride,
     f.hs[c] = on ? hs[c] : 1;
     f.vs[c] = on ? vs[c] : 1;
     f.tsel[c] = on ? tsel[c] : 0;
+    if (on) {
+      ok = ok && aligned16(blocks[c]) && tsel[c] >= 0 && tsel[c] < kMaxComps;
+      per_mcu += hs[c] * vs[c];
+      ntab = tsel[c] + 1 > ntab ? tsel[c] + 1 : ntab;
+    }
   }
+  if (!ok || tile_mcus < 1 || tile_mcus * per_mcu > kTileBlocks ||
+      tile_mcus * 8 * hmax > kMaxCols || 8 * vmax > kMaxRows)
+    return (int)cudaErrorInvalidValue;
   f.tables = static_cast<const int*>(tables);
   f.tab_stride = tab_stride;
+  f.ntab = ntab;
   f.kron = static_cast<const float*>(kron);
   f.ncomp = ncomp, f.hmax = hmax, f.vmax = vmax;
   f.mcus_x = mcus_x, f.mcus_y = mcus_y, f.h = h, f.w = w;

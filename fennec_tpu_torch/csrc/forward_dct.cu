@@ -32,32 +32,66 @@
 // What bounds it on an H100: bytes.  At 12 MP 4:2:0 the DCT reads 195 MB
 // of float32 RGBA and writes 73.2 MB of coefficients (80 us at 3.35
 // TB/s) against 4096 multiply-adds a block (35 us at 67 TFLOP/s); the
-// luminance reads the image again (58 us).
+// luminance reads the image again (58 us).  PR 16's DCT
+// (bench_sources/forward_dct_first.cu) ran at 33-48 % of that: a tile's
+// loads (__ldg by the threads that then computed), product and stores ran
+// in turn, and its product made ~12 shared-memory wavefronts for 32
+// warp-FMAs.  What holds this design back (clock64() stamps and edited
+// builds, bench_sources/k7k8_variants.py): the dense product is ~40 us of
+// FMA issue at 12 MP and only partly overlaps the bytes, since a CTA's
+// conversion, product and wait for its next stage run in turn.
 //
-// Design, simple first.  The DCT: persistent CTAs of 256 threads walk
-// tiles of up to 21 MCUs of one MCU row (126 blocks).  Per tile, threads
-// load the pixels (a 2x2 quad a thread in 4:2:0, 16-byte loads, the
-// coordinates clamped to the image: the edge replicate), convert them and
-// write the level-shifted samples into shared memory; then a warp takes
-// four blocks at a time, lane l summing coefficients l and l + 32 from the
-// transposed matrix in shared memory, and stores each block's 64 floats
-// straight to its place.  The luminance: a CTA per output row and 32
-// output columns; each thread sums a source column over the rectangle's
-// rows (coalesced 16-byte loads), then adds the integer sums into the
-// rectangles that hold the column (shared-memory atomics on integers:
-// exact in any order).  Built with --fmad=false, so the colour maths is
-// the plain version's, operation for operation.
+// Design of the DCT.  Persistent CTAs (two an SM) of eight consumer warps
+// and one producer warp walk tiles of up to kTileBlocks blocks: 10 MCUs of
+// one MCU row in 4:2:0, 21 in 4:4:4 (ops/forward_dct_cuda.tile_mcus).  Per
+// tile:
+//
+//   0. Staging.  The producer warp fills a ring of kStages stages with TMA
+//      bulk copies (cp.async.bulk, a full mbarrier a stage), a pixel row of
+//      the tile a lane, 16 bytes a pixel, cut at w; rows past h are not
+//      copied.  It refills a stage as soon as the eight consumer warps have
+//      arrived on its empty mbarrier, and it never joins their barriers, so
+//      a copy that waits for room in the TMA queue stalls no consumer.  The
+//      edge replicate is a clamp of the coordinates read from the stage.
+//
+//   1. Conversion.  A thread takes a 2x2 quad (4:2:0) or a pixel (4:4:4),
+//      converts it as the plain version does and writes the level-shifted
+//      samples k-major: sample p of the tile's block b at p * 64 + ((b + 4
+//      (p mod 8)) mod 64), a rotation that spreads a warp's stores over the
+//      banks.  The tile's blocks: 4:2:0 each MCU's four luma blocks (m * 4
+//      + 2 by + bx), then nm Cb, nm Cr; 4:4:4 nm Y, nm Cb, nm Cr.
+//
+//   2. The product, register-tiled: warp w takes blocks [8 w, 8 w + 8), a
+//      lane 4 blocks x 4 coefficients; per pixel p one 16-byte load of its
+//      blocks' samples (2 addresses a warp) and one of the transposed
+//      matrix row (16): 3 wavefronts for 16 warp-FMAs, which keeps the FMA
+//      pipe, not shared memory, the limit of the product.  Every sum is
+//      fmaf over p ascending from +0, as before.  Each lane stores its
+//      coefficients as 16-byte words: whole 128-byte lines a warp.
+//
+// The luminance: a CTA per output row and 32 output columns; each thread
+// sums a source column over the rectangle's rows (coalesced 16-byte
+// loads), then adds the integer sums into the rectangles that hold the
+// column (shared-memory atomics on integers: exact in any order).  Built
+// with --fmad=false, so the colour maths is the plain version's,
+// operation for operation.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTileBlocks = 128;
+constexpr int kThreads = 256;  // a luminance CTA
+constexpr int kWarps = 8;  // consumer warps of a DCT CTA
+constexpr int kConsumers = kWarps * 32;
+constexpr int kDctThreads = kConsumers + 32;  // and one producer warp
+constexpr int kTileBlocks = 64;  // blocks of a DCT tile
+constexpr int kWarpBlocks = kTileBlocks / kWarps;  // 8
+constexpr int kStages = 2;
+constexpr int kStageBytes = 16 * 160 * 16;  // 16 rows of 10 4:2:0 MCUs
 constexpr int kLumCols = 32;  // output columns of a luminance CTA
-constexpr int kSmemBytes = (kTileBlocks * 64 + 64 * 64) * 4;
+constexpr int kSmemBytes = kStages * kStageBytes +
+                           (kTileBlocks * 64 + 64 * 64) * 4 + 2 * kStages * 8;
 
 struct Fdct {
   const float* img;      // (nimg, h, w, 4)
@@ -68,6 +102,94 @@ struct Fdct {
   float* out[3];         // Y (nimg, ny, 64), Cb and Cr (nimg, nc, 64)
   int ny, nc;
 };
+
+struct Tile {
+  int img, my, mx0, nm;
+};
+
+__device__ __forceinline__ Tile tile_at(const Fdct& f, long long t) {
+  const long long per_img = (long long)f.mcus_y * f.tiles_x;
+  Tile T;
+  T.img = (int)(t / per_img);
+  const int rem = (int)(t - (long long)T.img * per_img);
+  T.my = rem / f.tiles_x;
+  T.mx0 = (rem - T.my * f.tiles_x) * f.tile_mcus;
+  T.nm = min(f.tile_mcus, f.mcus_x - T.mx0);
+  return T;
+}
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   shared_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   shared_addr(bar))
+               : "memory");
+}
+
+// The consumer warps' own barrier (the producer warp never joins it).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(shared_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = shared_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// bytes (a multiple of 16) from 16-byte aligned global src to 16-byte
+// aligned shared dst, counted on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(shared_addr(dst)),
+      "l"(src), "r"(bytes), "r"(shared_addr(bar))
+      : "memory");
+}
+
+// The producer warp: tile t's pixel rows into stage st, row r by lane r
+// (at r * tile_mcus * mcu pixels), each cut at w; rows past h are not
+// copied.
+__device__ __forceinline__ void issue(const Fdct& f, long long t,
+                                      unsigned char* st, uint64_t* bar,
+                                      int lane) {
+  const Tile T = tile_at(f, t);
+  const int mcu = f.sub ? 16 : 8;
+  const int x0 = T.mx0 * mcu;
+  const uint32_t row_bytes = (uint32_t)min(T.nm * mcu, f.w - x0) * 16;
+  const int rows = min(mcu, f.h - T.my * mcu);
+  if (lane == 0) bar_expect(bar, rows * row_bytes);
+  if (lane < rows)
+    bulk_load(st + lane * f.tile_mcus * mcu * 16,
+              f.img + (long long)T.img * f.img_stride +
+                  ((long long)(T.my * mcu + lane) * f.w + x0) * 4,
+              row_bytes, bar);
+}
 
 // ops/color.rgb_to_ycbcr of the composited pixel, operation for
 // operation; each constant is the float32 PyTorch makes of the Python
@@ -83,60 +205,85 @@ __device__ __forceinline__ void to_ycc(float4 p, float& y, float& cb,
        (float)0.081312411 * b;
 }
 
-__device__ __forceinline__ float4 pixel(const Fdct& f, const float* img,
-                                        int y, int x) {
-  y = min(y, f.h - 1);
-  x = min(x, f.w - 1);
-  return __ldg(reinterpret_cast<const float4*>(img) + (long long)y * f.w + x);
-}
-
 __device__ __forceinline__ float lane_of(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-__global__ void __launch_bounds__(kThreads) fdct_kernel(const Fdct f) {
-  extern __shared__ __align__(16) float smem[];
-  float* buf = smem;                     // [kTileBlocks][64] samples
-  float* kt = buf + kTileBlocks * 64;    // kt[p][k] = kron[k][p]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < 64 * 64; i += kThreads)
-    kt[(i & 63) * 64 + (i >> 6)] = __ldg(f.kron + i);
-  const int bpm = f.sub ? 6 : 3;
-  const long long per_img = (long long)f.mcus_y * f.tiles_x;
-  const long long ntiles = per_img * f.nimg;
-  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int img = (int)(t / per_img);
-    const int rem = (int)(t - (long long)img * per_img);
-    const int my = rem / f.tiles_x;
-    const int mx0 = (rem - my * f.tiles_x) * f.tile_mcus;
-    const int nm = min(f.tile_mcus, f.mcus_x - mx0);
-    const int nblk = nm * bpm;
-    const float* src = f.img + (long long)img * f.img_stride;
-    __syncthreads();  // the last tile's blocks are read (and kt is set)
+// Sample p of the tile's block b in the k-major buffer.
+__device__ __forceinline__ int kmajor(int p, int b) {
+  return p * kTileBlocks + ((b + 4 * (p & 7)) & (kTileBlocks - 1));
+}
 
-    // 1. Pixels to level-shifted samples.  Run layout: 4:2:0 the MCUs'
-    // four luma blocks each (m * 4 + 2 by + bx), then nm Cb, nm Cr;
-    // 4:4:4 nm Y, nm Cb, nm Cr.
+__global__ void __launch_bounds__(kDctThreads, 2)
+    fdct_kernel(const Fdct f) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* stages = smem;  // [kStages][kStageBytes] pixels
+  float* samp = reinterpret_cast<float*>(smem + kStages * kStageBytes);
+  float* kt = samp + kTileBlocks * 64;  // kt[p][k] = kron[k][p]
+  uint64_t* full = reinterpret_cast<uint64_t*>(kt + 64 * 64);  // [kStages]
+  uint64_t* empty = full + kStages;                             // [kStages]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < 64 * 64; i += kDctThreads)
+    kt[(i & 63) * 64 + (i >> 6)] = __ldg(f.kron + i);
+  __syncthreads();
+
+  const int mcu = f.sub ? 16 : 8;
+  const int bpm = f.sub ? 6 : 3;
+  const int sw = f.tile_mcus * mcu;  // stage pixels a row
+  const long long ntiles = (long long)f.mcus_y * f.tiles_x * f.nimg;
+  if (warp == kWarps) {
+    // The producer: tile i into stage i mod kStages once the consumers
+    // have converted the stage's last tile.
+    int i = 0;
+    for (long long t = blockIdx.x; t < ntiles; t += gridDim.x, ++i) {
+      const int s = i % kStages;
+      if (i >= kStages) bar_wait(&empty[s], (uint32_t)(i / kStages - 1) & 1);
+      issue(f, t, stages + s * kStageBytes, &full[s], lane);
+    }
+    return;
+  }
+  const float4* kt4 = reinterpret_cast<const float4*>(kt);
+  int it = 0;
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x, ++it) {
+    const int s = it % kStages;
+    unsigned char* st = stages + s * kStageBytes;
+    const Tile T = tile_at(f, t);
+    const int img = T.img, my = T.my, mx0 = T.mx0, nm = T.nm;
+    const int nblk = nm * bpm;
+    const int ylast = min(mcu, f.h - my * mcu) - 1;  // last staged row
+    const int xlast = min(nm * mcu, f.w - mx0 * mcu) - 1;
+    const float4* px = reinterpret_cast<const float4*>(st);
+    bar_wait(&full[s], (uint32_t)(it / kStages) & 1);
+
+    // 1. Pixels to level-shifted samples, at clamped coordinates.  Item i
+    // of a row of nm * 8 is at row i / (nm * 8), as (i * inv) >> 20.
+    const int inv = ((1 << 20) + nm * 8 - 1) / (nm * 8);
     if (f.sub) {
-      for (int i = tid; i < 8 * nm * 8; i += kThreads) {
-        const int qy = i / (nm * 8), qx = i - qy * (nm * 8);
-        const int gy = my * 16 + 2 * qy, gx = (mx0 * 8 + qx) * 2;
+      for (int i = tid; i < 8 * nm * 8; i += kConsumers) {
+        const int qy = (i * inv) >> 20, qx = i - qy * (nm * 8);
         float ys[2][2], cbs[2][2], crs[2][2];
 #pragma unroll
         for (int dy = 0; dy < 2; ++dy)
 #pragma unroll
           for (int dx = 0; dx < 2; ++dx)
-            to_ycc(pixel(f, src, gy + dy, gx + dx), ys[dy][dx],
-                   cbs[dy][dx], crs[dy][dx]);
+            to_ycc(px[min(2 * qy + dy, ylast) * sw + min(2 * qx + dx, xlast)],
+                   ys[dy][dx], cbs[dy][dx], crs[dy][dx]);
         const int m = qx >> 3;
 #pragma unroll
         for (int dy = 0; dy < 2; ++dy) {
           const int py = 2 * qy + dy;
 #pragma unroll
           for (int dx = 0; dx < 2; ++dx) {
-            const int px = 2 * (qx & 7) + dx;  // within the MCU
-            const int blk = m * 4 + (py >> 3) * 2 + (px >> 3);
-            buf[blk * 64 + (py & 7) * 8 + (px & 7)] = ys[dy][dx] - 128.0f;
+            const int pxl = 2 * (qx & 7) + dx;  // within the MCU
+            const int blk = m * 4 + (py >> 3) * 2 + (pxl >> 3);
+            samp[kmajor((py & 7) * 8 + (pxl & 7), blk)] = ys[dy][dx] - 128.0f;
           }
         }
         // The 2x2 mean: ((c00 + c01) + c10) + c11, times 1/4.
@@ -145,49 +292,50 @@ __global__ void __launch_bounds__(kThreads) fdct_kernel(const Fdct f) {
         const float cr = (((crs[0][0] + crs[0][1]) + crs[1][0]) +
                           crs[1][1]) * 0.25f;
         const int pos = qy * 8 + (qx & 7);
-        buf[(4 * nm + m) * 64 + pos] = cb - 128.0f;
-        buf[(5 * nm + m) * 64 + pos] = cr - 128.0f;
+        samp[kmajor(pos, 4 * nm + m)] = cb - 128.0f;
+        samp[kmajor(pos, 5 * nm + m)] = cr - 128.0f;
       }
     } else {
-      for (int i = tid; i < 8 * nm * 8; i += kThreads) {
-        const int py = i / (nm * 8), px = i - py * (nm * 8);
+      for (int i = tid; i < 8 * nm * 8; i += kConsumers) {
+        const int py = (i * inv) >> 20, pxl = i - py * (nm * 8);
         float y, cb, cr;
-        to_ycc(pixel(f, src, my * 8 + py, mx0 * 8 + px), y, cb, cr);
-        const int m = px >> 3, pos = py * 8 + (px & 7);
-        buf[m * 64 + pos] = y - 128.0f;
-        buf[(nm + m) * 64 + pos] = cb - 128.0f;
-        buf[(2 * nm + m) * 64 + pos] = cr - 128.0f;
+        to_ycc(px[min(py, ylast) * sw + min(pxl, xlast)], y, cb, cr);
+        const int m = pxl >> 3, pos = py * 8 + (pxl & 7);
+        samp[kmajor(pos, m)] = y - 128.0f;
+        samp[kmajor(pos, nm + m)] = cb - 128.0f;
+        samp[kmajor(pos, 2 * nm + m)] = cr - 128.0f;
       }
     }
-    __syncthreads();
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[s]);  // this warp is done with stage s
+    consumers_sync();  // the samples written
 
-    // 2. The product, four blocks a warp: coefficients lane and lane + 32.
-    for (int g = warp * 4; g < nblk; g += kWarps * 4) {
-      float acc[4][2];
+    // 2. The product: lane (bg, og) sums blocks blk0..blk0+3,
+    // coefficients 4 og..4 og+3, over the pixels ascending.
+    const int blk0 = warp * kWarpBlocks + (lane & 1) * 4;
+    const int og = lane >> 1;
+    if (warp * kWarpBlocks < nblk) {
+      float acc[4][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[j][0] = acc[j][1] = 0.0f;
-      for (int p = 0; p < 64; p += 4) {
-        float4 xv[4];
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          xv[j] = g + j < nblk ? *reinterpret_cast<const float4*>(
-                                     buf + (g + j) * 64 + p)
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+#pragma unroll 8
+      for (int p = 0; p < 64; ++p) {
+        const float4 xv =
+            *reinterpret_cast<const float4*>(samp + kmajor(p, blk0));
+        const float4 mv = kt4[p * 16 + og];
 #pragma unroll
-        for (int pp = 0; pp < 4; ++pp) {
-          const float m0 = kt[(p + pp) * 64 + lane];
-          const float m1 = kt[(p + pp) * 64 + lane + 32];
+        for (int i = 0; i < 4; ++i) {
+          const float x = lane_of(xv, i);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float x = lane_of(xv[j], pp);
-            acc[j][0] = fmaf(x, m0, acc[j][0]);
-            acc[j][1] = fmaf(x, m1, acc[j][1]);
-          }
+          for (int j = 0; j < 4; ++j)
+            acc[i][j] = fmaf(x, lane_of(mv, j), acc[i][j]);
         }
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int blk = g + j;
+      for (int i = 0; i < 4; ++i) {
+        const int blk = blk0 + i;
         if (blk >= nblk) break;
         float* dst;
         if (f.sub) {
@@ -209,10 +357,11 @@ __global__ void __launch_bounds__(kThreads) fdct_kernel(const Fdct f) {
           dst = base + ((long long)img * (cc ? f.nc : f.ny) +
                         (long long)my * f.mcus_x + mx0 + m) * 64;
         }
-        dst[lane] = acc[j][0];
-        dst[lane + 32] = acc[j][1];
+        reinterpret_cast<float4*>(dst)[og] =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
       }
     }
+    consumers_sync();  // the samples read before the next conversion
   }
 }
 
@@ -291,6 +440,10 @@ cudaError_t prepare() {
   err = cudaFuncSetAttribute(fdct_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kSmemBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fdct_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               100);
   if (err == cudaSuccess && dev < 64) done[dev] = true;
   return err;
 }
@@ -309,22 +462,29 @@ int fennec_fdct_ctas_per_sm() {
   cudaError_t err = prepare();
   int n = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fdct_kernel,
-                                                        kThreads, kSmemBytes);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, fdct_kernel, kDctThreads, kSmemBytes);
   return err == cudaSuccess ? n : -(int)err;
 }
 
 // The DCT.  img (nimg, h, w, 4) float32, 16-byte aligned, image i at img +
-// i * img_stride floats, rows of w pixels contiguous; sub 1 for 4:2:0;
-// kron the (64, 64) float32 matrix; y (nimg, ny, 64), cb and cr (nimg, nc,
-// 64) float32 with ny and nc the blocks of the padded planes; tile_mcus
-// MCUs a tile (<= 21 in 4:2:0, <= 42 in 4:4:4); ctas the grid.  One launch
-// on `stream`; returns the CUDA error.
+// i * img_stride floats (a multiple of 4), rows of w pixels contiguous;
+// sub 1 for 4:2:0; kron the (64, 64) float32 matrix; y (nimg, ny, 64), cb
+// and cr (nimg, nc, 64) float32, 16-byte aligned, with ny and nc the
+// blocks of the padded planes; tile_mcus MCUs a tile (<= 10 in 4:2:0, <=
+// 21 in 4:4:4); ctas the grid.  One launch on `stream`; returns the CUDA
+// error (cudaErrorInvalidValue for a misaligned input or a tile past the
+// kernel's buffers).
 int fennec_fdct(const void* img, long long img_stride, int nimg, int h, int w,
                 int sub, const void* kron, int tile_mcus, int ctas, void* y,
                 void* cb, void* cr, void* stream) {
   Fdct f = {};
   const int mcu = sub ? 16 : 8;
+  const bool aligned = (((uintptr_t)img | (uintptr_t)y | (uintptr_t)cb |
+                         (uintptr_t)cr) & 15) == 0 && img_stride % 4 == 0;
+  if (!aligned || tile_mcus < 1 || tile_mcus * (sub ? 6 : 3) > kTileBlocks ||
+      mcu * tile_mcus * mcu * 16 > kStageBytes)
+    return (int)cudaErrorInvalidValue;
   f.img = static_cast<const float*>(img);
   f.img_stride = img_stride;
   f.h = h, f.w = w, f.sub = sub, f.nimg = nimg;
@@ -342,7 +502,7 @@ int fennec_fdct(const void* img, long long img_stride, int nimg, int h, int w,
   cudaError_t err = prepare();
   if (err != cudaSuccess) return (int)err;
   const int grid = (int)(ntiles < ctas ? ntiles : ctas);
-  fdct_kernel<<<grid, kThreads, kSmemBytes,
+  fdct_kernel<<<grid, kDctThreads, kSmemBytes,
                 static_cast<cudaStream_t>(stream)>>>(f);
   return (int)cudaGetLastError();
 }

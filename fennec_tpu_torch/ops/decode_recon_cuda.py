@@ -20,8 +20,10 @@ tensors launch the kernel or raise, one launch per call, counted in
 with one torch.empty and launches on the current stream without
 synchronising.
 
-tile_plan and sample_offsets are the kernel's tiling in plain Python: the
-wrapper launches with the first, and the CPU tests walk tiles with both.
+tile_plan, stage_copies, conversion_lanes, kmajor_index, register_tile,
+pixel_index and sample_offsets are the kernel's plan in plain Python: the
+wrapper launches with the first, and the CPU tests walk tiles with all of
+them.
 """
 
 from __future__ import annotations
@@ -44,6 +46,9 @@ _SO = os.path.join(BUILD_DIR, "libdecode_recon.so")
 TILE_BLOCKS = 128  # blocks of a tile, all components (csrc kTileBlocks)
 MAX_TILE_COLS = 1024  # pixel columns of a tile (kMaxCols)
 MAX_COMPS = 4
+THREADS = 256  # threads of a CTA (kThreads)
+WARP_BLOCKS = TILE_BLOCKS // (THREADS // 32)  # a warp's slots (kWarpBlocks)
+PIX_STRIDE = 72  # floats between blocks of the pixel buffer (kPixStride)
 MAX_BATCH = 65535
 MODES = {"gray": 0, "rgb": 1, "ycbcr": 2, "cmyk": 3, "ycck": 4}
 COMPONENTS = {"gray": 1, "rgb": 3, "ycbcr": 3, "cmyk": 4, "ycck": 4}
@@ -69,19 +74,80 @@ def tile_plan(comps: Sequence[Component], mcus_x: int,
     return tile, -(-mcus_x // tile)
 
 
-def sample_offsets(comp: Component, hmax: int, vmax: int, tile_mcus: int):
-    """(rows, cols) of one component as the kernel tabulates them: pixel
-    (ly, lx) of a tile reads the component's sample at rows[ly] + cols[lx]
-    within the component's run of the tile's blocks (tile MCU m's blocks
-    m * h * v + by * h + bx, 64 floats each)."""
+def slot_base(comps: Sequence[Component], nm: int) -> list:
+    """The first slot of each component's run in a tile of nm MCUs (the
+    kernel's nm * pre_c); the last entry is the tile's blocks."""
+    base = [0]
+    for c in comps:
+        base.append(base[-1] + nm * c.h * c.v)
+    return base
+
+
+def stage_copies(comps: Sequence[Component], img_strides: Sequence[int],
+                 tsel: Sequence[int], tab_stride: int, img: int, my: int,
+                 mx0: int, nm: int):
+    """The TMA bulk copies of one tile, as thread 0 issues them: (source,
+    source byte offset, bytes, stage byte offset), source "tables" or a
+    component's index.  Component c's block row by of the tile's nm MCUs
+    is one span (its blocks are contiguous in device memory) landing at
+    slot nm * (pre_c + by * h_c), 128 bytes a slot; the image's table
+    rows 0..max(tsel) follow the TILE_BLOCKS slots."""
+    ntab = max(tsel) + 1
+    copies = [("tables", img * tab_stride * 4, ntab * 256, TILE_BLOCKS * 128)]
+    base = slot_base(comps, nm)
+    for c, comp in enumerate(comps):
+        for by in range(comp.v):
+            block = (img * img_strides[c] + (my * comp.v + by) * comp.bw
+                     + mx0 * comp.h)
+            copies.append((c, block * 128, nm * comp.h * 128,
+                           (base[c] + by * nm * comp.h) * 128))
+    return copies
+
+
+def conversion_lanes(warp: int, step: int):
+    """(slot, part) of each lane of `warp` at conversion step `step` (0-3):
+    four slots of the warp's WARP_BLOCKS, eight 16-byte parts each."""
+    return [(warp * WARP_BLOCKS + step * 4 + (lane >> 3), lane & 7)
+            for lane in range(32)]
+
+
+def kmajor_index(k: int, slot: int) -> int:
+    """Where coefficient k of a tile's slot sits in the k-major buffer:
+    row k of 128 floats, rotated by 4 (k // 8) so that a conversion
+    store of a warp hits 32 banks."""
+    return k * TILE_BLOCKS + ((slot + 4 * (k >> 3)) & (TILE_BLOCKS - 1))
+
+
+def register_tile(warp: int, lane: int):
+    """(slots, outputs) whose sums the lane holds in the product: four
+    slots of the warp's WARP_BLOCKS and eight outputs (4 og..4 og+3 and
+    32+4 og..32+4 og+3)."""
+    og = lane >> 2
+    blk0 = warp * WARP_BLOCKS + (lane & 3) * 4
+    return ([blk0 + i for i in range(4)],
+            [4 * og + j for j in range(4)] + [32 + 4 * og + j
+                                              for j in range(4)])
+
+
+def pixel_index(slot: int, pos: int) -> int:
+    """Where output pos (row-major in the 8x8 block) of a slot sits in the
+    block-major pixel buffer."""
+    return slot * PIX_STRIDE + pos
+
+
+def sample_offsets(comp: Component, hmax: int, vmax: int, nm: int):
+    """(rows, cols) of one component as the kernel computes them for a
+    tile of nm MCUs: pixel (ly, lx) of the tile reads the component's
+    sample at base + rows[ly] + cols[lx] of the pixel buffer, base =
+    nm * pre_c * PIX_STRIDE (its run starts at slot nm * pre_c; block row
+    by at slot nm * (pre_c + by * h), the row's blocks in order).  The
+    kernel keeps cols for every component of a column in one 64-bit word
+    of 16-bit fields (its colx table), so each is below 2 ** 16."""
     ry, rx = vmax // comp.v, hmax // comp.h
-    rows = [((ly // ry) >> 3) * comp.h * 64 + ((ly // ry) & 7) * 8
-            for ly in range(8 * vmax)]
-    cols = []
-    for lx in range(tile_mcus * 8 * hmax):
-        sx = lx // rx
-        m, bx = sx // (8 * comp.h), (sx % (8 * comp.h)) >> 3
-        cols.append((m * comp.v * comp.h + bx) * 64 + (sx & 7))
+    rows = [nm * ((ly // ry) >> 3) * comp.h * PIX_STRIDE
+            + ((ly // ry) & 7) * 8 for ly in range(8 * vmax)]
+    cols = [((lx // rx) >> 3) * PIX_STRIDE + ((lx // rx) & 7)
+            for lx in range(nm * 8 * hmax)]
     return rows, cols
 
 
@@ -236,7 +302,7 @@ class DecodeReconKernel(_Counted):
         out = torch.empty((h, w, 4), dtype=torch.uint8, device=dev)
         self._launch(dev, [_aligned(b) for b in blocks], [0] * len(comps),
                      comps, list(range(len(comps))),
-                     tables.to(torch.int32).contiguous(), 64, hmax, vmax, h,
+                     _aligned(tables.to(torch.int32)), 64, hmax, vmax, h,
                      w, MODES[mode], 1, out, False)
         return out
 
@@ -261,7 +327,7 @@ class DecodeReconKernel(_Counted):
         parts = [blocks, blocks[:, ny:], blocks[:, ny + nc:]]
         out = torch.empty((bsz, h, w, 4), dtype=torch.float32, device=dev)
         self._launch(dev, parts, [nt] * 3, comps, [0, 1, 1],
-                     qtabs.to(torch.int32).contiguous(), 128, s, s, h, w,
+                     _aligned(qtabs.to(torch.int32)), 128, s, s, h, w,
                      MODES["ycbcr"], bsz, out, True)
         return out
 

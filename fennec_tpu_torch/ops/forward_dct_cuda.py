@@ -27,8 +27,9 @@ with torch.empty and launches on the current stream without
 synchronising.  Any image whose rows are contiguous will do: a band of
 rows of a batch is a view.
 
-tile_mcus and lum_columns are the kernel's tiling in plain Python: the
-wrapper launches with the first, and the CPU tests walk tiles with both.
+tile_mcus, stage_rows, kmajor_index, register_tile and lum_columns are
+the kernel's plan in plain Python: the wrapper launches with the first,
+and the CPU tests walk tiles with all of them.
 """
 
 from __future__ import annotations
@@ -47,7 +48,10 @@ from .ssim_cuda import NVCC_FLAGS, compile_library, is_current
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "forward_dct.cu")
 _SO = os.path.join(BUILD_DIR, "libforward_dct.so")
-TILE_BLOCKS = 128  # blocks of a DCT tile (csrc kTileBlocks)
+TILE_BLOCKS = 64  # blocks of a DCT tile (csrc kTileBlocks)
+THREADS = 256  # consumer threads of a DCT CTA (kConsumers)
+WARP_BLOCKS = TILE_BLOCKS // (THREADS // 32)  # a warp's blocks (kWarpBlocks)
+STAGE_BYTES = 16 * 160 * 16  # bytes of a pixel stage (kStageBytes)
 LUM_COLS = 32  # output columns of a luminance CTA (kLumCols)
 MAX_BATCH = 65535
 
@@ -56,8 +60,41 @@ def tile_mcus(subsample: bool, mcus_x: int,
               tile_blocks: int = TILE_BLOCKS) -> int:
     """MCUs of a DCT tile: as many as hold at most tile_blocks blocks (the
     kernel's TILE_BLOCKS; 6 an MCU in 4:2:0, 3 in 4:4:4), at most a
-    row's."""
+    row's.  At TILE_BLOCKS a tile's pixels (16 bytes each) fit a stage:
+    10 MCUs of 4:2:0, 21 of 4:4:4."""
     return max(1, min(tile_blocks // (6 if subsample else 3), mcus_x))
+
+
+def stage_rows(h: int, w: int, subsample: bool, img_stride: int, img: int,
+               my: int, mx0: int, tile: int):
+    """The TMA bulk copies of one tile, as thread 0 issues them: (source
+    byte offset in the images, bytes, stage byte offset).  One per pixel
+    row of the tile that lies inside the image (rows past h are the edge
+    replicate's, read from row h - 1), cut at w; row r lands at r * tile
+    * mcu pixels of 16 bytes."""
+    mcu = 16 if subsample else 8
+    mcus_x = -(-w // mcu)
+    nm = min(tile, mcus_x - mx0)
+    x0 = mx0 * mcu
+    nbytes = min(nm * mcu, w - x0) * 16
+    return [((img * img_stride + ((my * mcu + r) * w + x0) * 4) * 4, nbytes,
+             r * tile * mcu * 16) for r in range(min(mcu, h - my * mcu))]
+
+
+def kmajor_index(p: int, blk: int) -> int:
+    """Where sample p of a tile's block sits in the k-major buffer: row p
+    of TILE_BLOCKS floats, rotated by 4 (p mod 8) so that a conversion
+    store of a warp spreads over the banks."""
+    return p * TILE_BLOCKS + ((blk + 4 * (p & 7)) & (TILE_BLOCKS - 1))
+
+
+def register_tile(warp: int, lane: int):
+    """(blocks, coefficients) whose sums the lane holds in the product:
+    four of the warp's WARP_BLOCKS blocks and four coefficients (4 og..4
+    og+3)."""
+    og = lane >> 1
+    blk0 = warp * WARP_BLOCKS + (lane & 1) * 4
+    return [blk0 + i for i in range(4)], [4 * og + j for j in range(4)]
 
 
 def lum_columns(dw: int):
@@ -84,7 +121,10 @@ def _image(img: torch.Tensor) -> torch.Tensor:
 
 class K8Library:
     """Builds and loads the K8 library once per process; `build_log` holds
-    nvcc's report of the last build."""
+    nvcc's report of the last build, `tile_blocks` the blocks a DCT tile
+    of its source holds (tile_mcus' bound)."""
+
+    tile_blocks = TILE_BLOCKS
 
     def __init__(self, source: str = SOURCE, library: str = _SO) -> None:
         self.source = source
@@ -191,7 +231,8 @@ class ForwardDct(_Entry):
         lib = self.library.load()
         err = lib.fennec_fdct(
             x.data_ptr(), x.stride(0), bsz, h, w, int(subsample),
-            _kron_on(dev).data_ptr(), tile_mcus(subsample, mcus_x),
+            _kron_on(dev).data_ptr(),
+            tile_mcus(subsample, mcus_x, self.library.tile_blocks),
             self.library.ctas(dev), *(o.data_ptr() for o in outs),
             _stream(dev))
         self.library.check(err, "DCT")

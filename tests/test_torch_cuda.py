@@ -1343,6 +1343,68 @@ def test_k8_luminance_on_bands_is_the_whole_images(cuda_device):
         assert torch.equal(got[0], whole[0, band.d0:band.d1])
 
 
+@functools.lru_cache(maxsize=1)
+def first_k7():
+    """chip_smoke.FirstK7: the first K7 (bench_sources/decode_recon_first.cu)
+    built and called through the port's wrapper class."""
+    return chip_smoke().FirstK7()
+
+
+@functools.lru_cache(maxsize=1)
+def first_k8():
+    """chip_smoke.FirstK8: the first K8 (bench_sources/forward_dct_first.cu)
+    built and its DCT called through the port's entry class."""
+    return chip_smoke().FirstK8()
+
+
+@pytest.mark.parametrize("tag,sampling,mode", K7_FRAMES)
+@pytest.mark.parametrize("wh", [(1001, 753), (17, 9), (353, 40), (8, 8),
+                                (2100, 16)])
+def test_k7_equals_the_first_k7(cuda_device, tag, sampling, mode, wh):
+    """The redesigned K7 gives the first K7's pixels bit for bit on every
+    mode and sampling (the same fmaf chains over k ascending, zero terms
+    skipped exactly), and on the batch entry of a 4:2:0 and a 4:4:4
+    chunk."""
+    from fennec_tpu_torch.ops.decode_recon_cuda import decode_recon
+
+    cs = chip_smoke()
+    args = cs.k7_synthetic(sampling, mode, *wh, sum(wh) * 3 + len(tag),
+                           cuda_device)
+    assert torch.equal(decode_recon.frame(*args), first_k7().k7.frame(*args))
+    if tag == "gray" and wh == (1001, 753):
+        for sub in (True, False):
+            s = 2 if sub else 1
+            w, h = 77, 45
+            mx, my = -(-w // (8 * s)), -(-h // (8 * s))
+            nt = mx * my * (s * s + 2)
+            rng = np.random.default_rng(nt)
+            blocks = torch.from_numpy(np.where(
+                rng.random((5, nt, 64)) < 0.2,
+                rng.integers(-60, 60, (5, nt, 64)), 0).astype(np.int16))
+            qt = torch.from_numpy(rng.integers(1, 30, (5, 2, 64)).astype(
+                np.int32))
+            blocks, qt = blocks.to(cuda_device), qt.to(cuda_device)
+            assert torch.equal(decode_recon.batch(blocks, qt, h, w, sub),
+                               first_k7().k7.batch(blocks, qt, h, w, sub))
+
+
+@pytest.mark.parametrize("sub", [True, False])
+@pytest.mark.parametrize("shape", [(64, 500, 500), (2, 37, 93), (1, 9, 17),
+                                   (1, 3024, 4032), (3, 16, 2000)])
+def test_k8_dct_equals_the_first_k8(cuda_device, sub, shape):
+    """The redesigned K8 DCT gives the first K8's coefficients bit for bit
+    (each a chain of fmaf over the pixels ascending), on whole images and
+    on a band of rows (a view)."""
+    from fennec_tpu_torch.codecs.jpeg import forward_dct
+
+    rng = np.random.default_rng(sum(shape) + sub)
+    img = rng.integers(0, 256, (*shape, 4)).astype(np.float32)
+    x = torch.from_numpy(img).to(cuda_device)
+    for view in (x, x[:, shape[1] // 3:]):
+        for a, b in zip(forward_dct(view, sub), first_k8().fdct(view, sub)):
+            assert torch.equal(a, b)
+
+
 def test_k7_k8_failure_raises_with_no_fallback(cuda_device, monkeypatch):
     """A K7 or K8 library that does not build raises out of the entry
     points on the card: no plain result comes back."""

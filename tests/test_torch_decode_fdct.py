@@ -236,42 +236,93 @@ def colour(mode: str, v):
 
 def k7_model(blocks, tables, comps, hmax, vmax, h, w, mode,
              tile_blocks=k7.TILE_BLOCKS):
-    """K7's walk in numpy: per tile of tile_plan's MCUs, the blocks of
-    each component gathered in the kernel's run order and dequantized,
-    the IDCT by the Kron matrix + 128, then every pixel of the cropped
-    tile read through sample_offsets' tables and coloured.  (h, w, 4)
-    uint8."""
-    kron = tdct.dct_kron()
+    """K7's walk in numpy, through the wrapper's plans: per tile of
+    tile_plan's MCUs, the stage filled by stage_copies' spans (every slot
+    once), each lane's conversion (conversion_lanes) dequantizing into
+    the k-major buffer (kmajor_index) and setting the warp's mask bits
+    (bit k of a slot's part k // 8 at 8 (k // 8 mod 4) + k mod 8 of lo or
+    hi), the product's register tiles (register_tile) over the k of the
+    warp's mask, + 128 into the pixel buffer (pixel_index, every live
+    slot's 64 outputs once), then every pixel of the cropped tile read
+    through sample_offsets and coloured.  (h, w, 4) uint8."""
+    kron = np.asarray(tdct.dct_kron(), F32)
     mcus_x = -(-w // (8 * hmax))
     mcus_y = -(-h // (8 * vmax))
     tile, tiles_x = k7.tile_plan(comps, mcus_x, tile_blocks)
     assert tile * 8 * hmax <= k7.MAX_TILE_COLS
-    offs = [k7.sample_offsets(c, hmax, vmax, tile) for c in comps]
-    pre = np.cumsum([0] + [c.h * c.v for c in comps])
+    ncomp = len(comps)
+    raw = [np.ascontiguousarray(b).view(np.uint8).reshape(-1)
+           for b in blocks]
+    tab = np.ascontiguousarray(np.stack(tables).astype(np.int32)).view(
+        np.uint8).reshape(-1)
     out = np.zeros((h, w, 4), np.uint8)
     seen = np.zeros((h, w), np.int64)
+    warps = k7.THREADS // 32
     for my in range(mcus_y):
         for tx in range(tiles_x):
             mx0 = tx * tile
             nm = min(tile, mcus_x - mx0)
-            buf = np.zeros((nm * pre[-1], 64), F32)
-            for blk in range(nm * pre[-1]):
-                c = max(k for k in range(len(comps)) if blk >= nm * pre[k])
-                cc = comps[c]
-                local = blk - nm * pre[c]
-                m, r = divmod(local, cc.h * cc.v)
-                by, bx = divmod(r, cc.h)
-                row, col = my * cc.v + by, (mx0 + m) * cc.h + bx
-                buf[blk] = (blocks[c][row * cc.bw + col].astype(F32)
-                            * tables[c].astype(F32))
-            flat = ((buf @ kron) + F32(128)).reshape(-1)
+            base = k7.slot_base(comps, nm)
+            nblk = base[-1]
+            stage = np.zeros(k7.TILE_BLOCKS * 128 + 4 * 256, np.uint8)
+            filled = np.zeros(stage.size, np.int64)
+            for src, off, nbytes, dst in k7.stage_copies(
+                    comps, [0] * ncomp, range(ncomp), 64, 0, my, mx0, nm):
+                data = tab if src == "tables" else raw[src]
+                stage[dst:dst + nbytes] = data[off:off + nbytes]
+                filled[dst:dst + nbytes] += 1
+            assert (filled[:nblk * 128] == 1).all()
+            slots = stage[:k7.TILE_BLOCKS * 128].view(np.int16).reshape(
+                -1, 64)
+            qt = stage[k7.TILE_BLOCKS * 128:].view(np.int32).reshape(-1, 64)
+            kmaj = np.full(64 * k7.TILE_BLOCKS, np.nan, F32)
+            pix = np.full(k7.TILE_BLOCKS * k7.PIX_STRIDE, np.nan, F32)
+            written = np.zeros(pix.size, np.int64)
+            for warp in range(warps):
+                lo = hi = 0
+                for step in range(k7.WARP_BLOCKS // 4):
+                    for b, part in k7.conversion_lanes(warp, step):
+                        if b >= nblk:
+                            continue
+                        c = max(k for k in range(ncomp) if b >= base[k])
+                        bits = 0
+                        for j in range(8):
+                            k = part * 8 + j
+                            kmaj[k7.kmajor_index(k, b)] = F32(
+                                F32(slots[b, k]) * F32(qt[c, k]))
+                            bits |= int(slots[b, k] != 0) << j
+                        if part < 4:
+                            lo |= bits << (8 * part)
+                        else:
+                            hi |= bits << (8 * (part - 4))
+                mask = hi << 32 | lo
+                ks = [k for k in range(64) if mask >> k & 1]
+                for lane in range(32):
+                    tslots, outs = k7.register_tile(warp, lane)
+                    for b in tslots:
+                        if b >= nblk:
+                            continue
+                        assert all(kmaj[k7.kmajor_index(k, b)] == 0
+                                   for k in range(64) if k not in ks)
+                        coef = np.array([kmaj[k7.kmajor_index(k, b)]
+                                         for k in ks], F32)
+                        val = (coef @ kron[ks][:, outs]).astype(F32) \
+                            + F32(128)
+                        for o, v in zip(outs, val):
+                            pix[k7.pixel_index(b, o)] = v
+                            written[k7.pixel_index(b, o)] += 1
+            live = np.array([k7.pixel_index(b, o) for b in range(nblk)
+                             for o in range(64)])
+            assert (written[live] == 1).all() and written.sum() == live.size
             y0, x0 = my * 8 * vmax, mx0 * 8 * hmax
             trows = min(8 * vmax, h - y0)
             tcols = min(nm * 8 * hmax, w - x0)
-            v = [flat[nm * pre[c] * 64
-                      + np.asarray(offs[c][0][:trows])[:, None]
-                      + np.asarray(offs[c][1][:tcols])[None, :]]
-                 for c in range(len(comps))]
+            v = []
+            for c, comp in enumerate(comps):
+                rows, cols = k7.sample_offsets(comp, hmax, vmax, nm)
+                v.append(pix[base[c] * k7.PIX_STRIDE
+                             + np.asarray(rows[:trows])[:, None]
+                             + np.asarray(cols[:tcols])[None, :]])
             rgb = colour(mode, v)
             out[y0:y0 + trows, x0:x0 + tcols, :3] = np.stack(rgb, -1)
             out[y0:y0 + trows, x0:x0 + tcols, 3] = 255
@@ -308,7 +359,7 @@ def test_k7_tile_walk_matches_plain(kind, tile_blocks):
 def test_k7_tile_plan_bounds():
     """Every sampling K7 takes fits its shared buffers: a tile holds at
     most TILE_BLOCKS blocks and MAX_TILE_COLS pixel columns, at least one
-    MCU; the offsets stay inside the tile's run of blocks."""
+    MCU; the offsets stay inside the component's run of slots."""
     for hs in range(1, 5):
         for vs in range(1, 5):
             for chroma in ((), ((1, 1),), ((1, 1), (1, 1)),
@@ -322,9 +373,12 @@ def test_k7_tile_plan_bounds():
                     assert tile * per <= k7.TILE_BLOCKS
                     assert tile * 8 * hs <= k7.MAX_TILE_COLS
                     assert (tiles_x - 1) * tile < mcus_x <= tiles_x * tile
-                    for c in comps:
-                        rows, cols = k7.sample_offsets(c, hs, vs, tile)
-                        assert max(rows) + max(cols) < tile * c.h * c.v * 64
+                    base = k7.slot_base(comps, tile)
+                    for c, comp in enumerate(comps):
+                        rows, cols = k7.sample_offsets(comp, hs, vs, tile)
+                        last = (base[c + 1] - 1) * k7.PIX_STRIDE + 63
+                        assert (base[c] * k7.PIX_STRIDE + max(rows)
+                                + max(cols)) <= last
 
 
 # ── K8: plain against JAX ───────────────────────────────────────────────────
@@ -422,12 +476,15 @@ def to_ycc(p):
 
 def k8_dct_model(img: np.ndarray, sub: bool,
                  tile_blocks: int = k8.TILE_BLOCKS):
-    """K8's DCT walk in numpy: per tile of tile_mcus MCUs, every pixel (a
-    2x2 quad in 4:2:0) at clamped coordinates into its block of the run
-    (4:2:0: each MCU's four luma blocks, then the tile's Cb, then Cr;
-    4:4:4: Y, Cb, Cr), the product with the Kron matrix, each block stored
-    at its place.  Three (B, N, 64) float32 arrays."""
-    kron = tdct.dct_kron()
+    """K8's DCT walk in numpy, through the wrapper's plans: per tile of
+    tile_mcus MCUs, the stage filled by stage_rows' copies, every pixel (a
+    2x2 quad in 4:2:0) read from the stage at clamped coordinates (the
+    edge replicate) into its block of the run (4:2:0: each MCU's four luma
+    blocks, then the tile's Cb, then Cr; 4:4:4: Y, Cb, Cr) at kmajor_index,
+    the product's register tiles (register_tile; every (block,
+    coefficient) once), each block stored at its place.  Three (B, N, 64)
+    float32 arrays."""
+    kt = np.asarray(tdct.dct_kron(), F32).T
     bsz, h, w, _ = img.shape
     mcu = 16 if sub else 8
     mcus_x, mcus_y = -(-w // mcu), -(-h // mcu)
@@ -437,39 +494,58 @@ def k8_dct_model(img: np.ndarray, sub: bool,
     ny = nc * (4 if sub else 1)
     outs = [np.full((bsz, n, 64), np.nan, F32) for n in (ny, nc, nc)]
     bpm = 6 if sub else 3
+    flat = np.ascontiguousarray(img).view(np.uint8).reshape(-1)
     for b in range(bsz):
         for my in range(mcus_y):
             for tx in range(tiles_x):
                 mx0 = tx * tile
                 nm = min(tile, mcus_x - mx0)
-                buf = np.full((nm * bpm, 64), np.nan, F32)
+                stage = np.zeros(k8.STAGE_BYTES, np.uint8)
+                for src, nbytes, dst in k8.stage_rows(
+                        h, w, sub, h * w * 4, b, my, mx0, tile):
+                    stage[dst:dst + nbytes] = flat[src:src + nbytes]
+                pixels = stage[:mcu * tile * mcu * 16].view(F32).reshape(
+                    mcu, tile * mcu, 4)
+                ylast = min(mcu, h - my * mcu) - 1
+                xlast = min(nm * mcu, w - mx0 * mcu) - 1
+
+                def at(y, x):
+                    return pixels[np.minimum(y, ylast), np.minimum(x, xlast)]
+
+                samp = np.full(64 * k8.TILE_BLOCKS, np.nan, F32)
                 if sub:
                     qy, qx = np.mgrid[0:8, 0:nm * 8]
-                    ys, cbs, crs = {}, {}, {}
+                    cbs, crs = {}, {}
                     for dy in (0, 1):
                         for dx in (0, 1):
-                            gy = np.minimum(my * 16 + 2 * qy + dy, h - 1)
-                            gx = np.minimum(mx0 * 16 + 2 * qx + dx, w - 1)
-                            yv, cb, cr = to_ycc(img[b, gy, gx])
-                            ys[dy, dx], cbs[dy, dx], crs[dy, dx] = yv, cb, cr
+                            yv, cb, cr = to_ycc(at(2 * qy + dy, 2 * qx + dx))
+                            cbs[dy, dx], crs[dy, dx] = cb, cr
                             py, px = 2 * qy + dy, 2 * (qx & 7) + dx
                             blk = (qx >> 3) * 4 + (py >> 3) * 2 + (px >> 3)
-                            buf[blk, (py & 7) * 8 + (px & 7)] = \
-                                yv - F32(128)
+                            pos = (py & 7) * 8 + (px & 7)
+                            samp[kmajor(pos, blk)] = yv - F32(128)
                     pos = qy * 8 + (qx & 7)
                     for k, part in ((4, cbs), (5, crs)):
                         mean = (((part[0, 0] + part[0, 1]) + part[1, 0])
                                 + part[1, 1]) * F32(0.25)
-                        buf[k * nm + (qx >> 3), pos] = mean - F32(128)
+                        samp[kmajor(pos, k * nm + (qx >> 3))] = mean - F32(128)
                 else:
                     py, px = np.mgrid[0:8, 0:nm * 8]
-                    gy = np.minimum(my * 8 + py, h - 1)
-                    gx = np.minimum(mx0 * 8 + px, w - 1)
                     pos = py * 8 + (px & 7)
-                    for k, v in enumerate(to_ycc(img[b, gy, gx])):
-                        buf[k * nm + (px >> 3), pos] = v - F32(128)
-                coef = buf @ kron.T
-                for blk in range(nm * bpm):
+                    for k, v in enumerate(to_ycc(at(py, px))):
+                        samp[kmajor(pos, k * nm + (px >> 3))] = v - F32(128)
+                nblk = nm * bpm
+                coef = np.full((k8.TILE_BLOCKS, 64), np.nan, F32)
+                for warp in range(k8.THREADS // 32):
+                    for lane in range(32):
+                        blks, cols = k8.register_tile(warp, lane)
+                        for blk in blks:
+                            if blk >= nblk:
+                                continue
+                            x = samp[kmajor(np.arange(64), blk)]
+                            assert np.isnan(coef[blk, cols]).all()
+                            coef[blk, cols] = x @ kt[:, cols]
+                for blk in range(nblk):
                     if sub and blk < 4 * nm:
                         m, by, bx = blk >> 2, (blk >> 1) & 1, blk & 1
                         cc = 0
@@ -485,6 +561,9 @@ def k8_dct_model(img: np.ndarray, sub: bool,
     for o in outs:
         assert not np.isnan(o).any(), "every block is stored once"
     return outs
+
+
+kmajor = np.vectorize(k8.kmajor_index)
 
 
 @pytest.mark.parametrize("sub", [True, False])
