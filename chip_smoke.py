@@ -68,9 +68,8 @@ Phases, each raising on failure:
      and K1: no accept/reject decision may differ.  Each standard-mode
      call must launch K2 seven times per image or chunk, counted from 0
      like K1's and K3's, and every search K8's DCT and luminance.  Then
-     the stages of the warm 12 MP compress_file, synchronised one by one
-     (median of 5), the decode through K7 and the DCT and the original's
-     luminance through K8, each its own stage;
+     the program's own stages of one warm 12 MP compress_file (its
+     StageTimer report) and its peak device memory;
   5. a small noisy image through the same entry point on the card and on
      the CPU (plain versions): the same quality and SSIM, and the same
      decision checks;
@@ -170,9 +169,10 @@ Phases, each raising on failure:
      unsharded forms (q, found, SSIM bit-equal; scan bytes equal; the size
      search's (q, found) equal, K4's bisection launched once on one
      device and once per shard on the two).  The CLI's -v on the 12 MP
-     file: a `Stages:` report naming the JAX CLI's stages.  One warm 12 MP
-     compress_file under utils/profiling.device_trace: the Chrome trace
-     must name the kernels of K1, K2, K3a and K3b.
+     file: a `Stages:` report naming the JAX CLI's stages and the port's
+     sub-stages.  One warm 12 MP compress_file under utils/profiling.
+     device_trace: the Chrome trace must name the kernels of K1, K2, K3a
+     and K3b and hold a range for each of the program's stages.
  15. the data×spatial mesh on bands of this card (SPATIAL_CASES: a 12 MP
      portrait over 2 and over 4 bands, a 4000x3008 image whose
      rectangles straddle three seams over 4, a 64 MP square over 4) at
@@ -332,6 +332,10 @@ TS_HONEST_ATOL = 0.01
 TS_SSIM_ATOL = 1e-4
 TS_SIZE_ATOL = 8
 HERE = os.path.dirname(os.path.abspath(__file__))
+# The program's stages of a standard-mode 12 MP JPEG request.
+REQUEST_STAGES = ("open + decode", "huffman decode", "blocks up",
+                  "image down", "validate", "nrgba", "jpeg quality search",
+                  "image up", "device search", "emit")
 
 
 def log(msg: str) -> None:
@@ -3269,109 +3273,6 @@ def phase_surface(T, dev, big_img):
             f"and the CPU, card_ms={card_ms:.1f}")
 
 
-def stage_table(T, dev, path: str, tmp: str, rounds: int = 5):
-    """The warm 12 MP compress_file (BALANCED, default Options) stage by
-    stage, each stage ended by a synchronise and timed on the host's
-    clock: the median of `rounds` rounds, beside the whole call's.  The
-    stages call what compress_file calls, in its order; the package is
-    not changed for it."""
-    from fennec_tpu_torch.codecs import jpeg as J
-    from fennec_tpu_torch.engine import compress as C
-    from fennec_tpu_torch.exif import read_orientation
-    from fennec_tpu_torch.image import to_nrgba, to_nrgba_ref, validate_image
-    from fennec_tpu_torch.ops.decode_recon_cuda import decode_recon
-    from fennec_tpu_torch.parallel.batched import emit_scans
-
-    opts = T.Options()
-    out_path = os.path.join(tmp, "stages.jpg")
-    rows = {}
-
-    def stage(name: str, fn):
-        t = time.perf_counter()
-        got = fn()
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        rows.setdefault(name, []).append((time.perf_counter() - t) * 1e3)
-        return got
-
-    def read():
-        with open(path, "rb") as f:
-            return f.read()
-
-    whole = []
-    for _ in range(rounds + 1):  # the first round warms every shape
-        data = stage("file read", read)
-        hdr, coefs = stage("host Huffman decode",
-                           lambda: J.decode_jpeg_to_coefs(data))
-        hmax = max(c["h"] for c in hdr.comps)
-        vmax = max(c["v"] for c in hdr.comps)
-        mcus_x = -(-hdr.width // (8 * hmax))
-        mcus_y = -(-hdr.height // (8 * vmax))
-        comps = [dict(hdr.comps[sc["comp"]]) for sc in hdr.scan_comps]
-
-        def upload():  # as codecs/jpeg._reconstruct uploads
-            return ([torch.from_numpy(q).to(dev) for q in coefs],
-                    torch.from_numpy(np.stack([hdr.qtables[c["tq"]]
-                                               for c in comps])).to(dev))
-
-        up = stage("upload of the quantized blocks", upload)
-        pixels = stage("device dequantize, IDCT, colour (K7)", lambda: (
-            decode_recon.frame(
-                *up, [(c["h"], c["v"], mcus_x * c["h"], mcus_y * c["v"])
-                      for c in comps], hmax, vmax, hdr.height, hdr.width,
-                J.jpeg_color_mode(hdr))))
-        img = stage("copy back of the decoded image",
-                    lambda: pixels.cpu().numpy())
-        del up, pixels
-        src = stage("orientation, validate, NRGBA", lambda: (
-            read_orientation(data), to_nrgba(validate_image(img)))[1])
-        h, w = src.shape[:2]
-        x = stage("upload of the image", lambda: torch.from_numpy(
-            to_nrgba_ref(src)).to(dev).to(torch.float32))
-        fcoefs = stage("forward DCT (K8)",
-                       lambda: C.forward_dct(x[None], True))
-        inp = stage("original's luminance (K8) and the search's inputs",
-                    lambda: C.search_inputs(x[None], fcoefs, True))
-
-        def search():
-            best_q, best_ssim, found = C._bisect_device_batch(
-                inp, *C._search_targets([0.94], dev))
-            return torch.stack([best_q.to(torch.float32), best_ssim,
-                                found.to(torch.float32)]).cpu()[:, 0].tolist()
-
-        q, _s, f = stage("7 probes (K2, K1) and the copy of the result",
-                         search)
-        quality = int(q) if f else 100
-        scans = stage("quantize and emission (K3a, K5, K3b, pulls)", lambda: (
-            emit_scans(C.quantize_packed(
-                fcoefs, C.quality_tables_on(dev)[quality][None]
-            ).contiguous(), h, w, True, opts.optimize_huffman)))
-        blob = stage("container", lambda: scans.jpeg(0, w, h, quality, True))
-
-        def write():
-            with open(out_path, "wb") as fh:
-                fh.write(blob)
-
-        stage("file write", write)
-        del x, inp, fcoefs, scans
-        t = time.perf_counter()
-        res = T.compress_file(None, path, out_path, opts, device=dev)
-        whole.append((time.perf_counter() - t) * 1e3)
-        if res.compressed_data != blob or res.jpeg_quality != quality:
-            raise AssertionError("stage table: the stages' file differs "
-                                 "from compress_file's")
-    med = {k: float(np.median(v[1:])) for k, v in rows.items()}
-    total = sum(med.values())
-    whole_ms = float(np.median(whole[1:]))
-    log(f"stage table, warm 12 MP compress_file (median of {rounds}, ms; "
-        f"each stage synchronised):")
-    for name, ms in med.items():
-        log(f"  {ms:8.2f}  {100 * ms / total:5.1f} %  {name}")
-    log(f"  {total:8.2f}  sum of the stages; the whole call "
-        f"{whole_ms:.2f} (runs {[round(v, 1) for v in whole[1:]]})")
-    return med, whole_ms
-
-
 def mesh_units(snap, shards: int) -> int:
     """Shard chunks an engine call ran: each chunk's non-empty shards."""
     return sum(min(n, shards) for n in snap["chunk_items"])
@@ -3417,7 +3318,7 @@ def phase_mesh(T, dev, counters, big_path, tmp, n=512, w=500, h=500,
     byte, with their launches per shard chunk; the four *_sharded
     functions against their unsharded forms at (64, 500, 500); the CLI's
     -v report; a device_trace of one warm 12 MP compress_file naming K1,
-    K2, K3a and K3b."""
+    K2, K3a and K3b and each of the program's stages."""
     from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
     from fennec_tpu_torch.parallel import batched as pb
     from fennec_tpu_torch.utils.profiling import device_trace
@@ -3554,7 +3455,7 @@ def phase_mesh(T, dev, counters, big_path, tmp, n=512, w=500, h=500,
                              f"{proc.stderr[-3000:]}")
     stages = lines[lines.index("  Stages:") + 1:]
     names = sorted(ln[:24].strip() for ln in stages if ln.endswith("avg)"))
-    if names != ["jpeg quality search", "open + decode", "write"]:
+    if names != sorted(REQUEST_STAGES + ("write",)):
         raise AssertionError(f"cli -v stages {names}")
     for ln in stages:
         log(f"  cli -v: {ln}")
@@ -3575,12 +3476,16 @@ def phase_mesh(T, dev, counters, big_path, tmp, n=512, w=500, h=500,
                 names.update(str(e.get("name", ""))
                              for e in json.load(f)["traceEvents"])
         found = {k: any(k in nm for nm in names) for k in want}
+        missing = sorted(set(REQUEST_STAGES) - names)
         log(f"device_trace of a warm 12 MP compress_file: {len(names)} "
-            f"event names, kernels named {found} (trace {attempt + 1})")
+            f"event names, kernels named {found}, stages missing "
+            f"{missing} (trace {attempt + 1})")
         if all(found.values()) or dev.type != "cuda":
             break
     if dev.type == "cuda" and not all(found.values()):
         raise AssertionError(f"device_trace names {found}")
+    if missing:
+        raise AssertionError(f"device_trace lacks the stages {missing}")
     return summary
 
 
@@ -5454,9 +5359,17 @@ def main(only: str = "") -> int:
         src = os.path.join(tmp, "photo_12mp.jpg")
         with open(src, "wb") as f:
             f.write(big_jpeg)
+        from fennec_tpu_torch.utils.profiling import StageTimer, use_timer
+
         reset_peak(dev)
-        stage_table(T, dev, src, tmp)
+        timer = StageTimer()
+        with use_timer(timer):
+            T.compress_file(None, src, os.path.join(tmp, "out.jpg"),
+                            T.Options(), device=dev)
         log_peak("12 MP compress_file", dev, 1, 4032 * 3024)
+        log("the program's stages of a warm 12 MP compress_file:")
+        for ln in timer.report().splitlines():
+            log(f"  {ln}")
 
     # 5. Card against CPU on a small, noisy input (no SSIMFast
     # downsample, so the search ends above its seed and q-1 is probed).

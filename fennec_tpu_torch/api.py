@@ -69,7 +69,8 @@ def compress(ctx: Optional[Context], r: Union[BinaryIO, bytes],
     opts = opts if opts is not None else Options()
     opts.validate()
     data = r if isinstance(r, (bytes, bytearray)) else r.read()
-    img = decode_image(bytes(data), device)
+    with stage("open + decode"):
+        img = decode_image(bytes(data), device)
     return compress_image_internal(ctx, img, Orientation.NORMAL, opts,
                                    device)
 

@@ -27,6 +27,7 @@ from ..ops import forward_dct_cuda
 from ..ops.decode_recon_cuda import decode_recon
 from ..ops.color import clamp_u8, rgb_to_ycbcr, ycbcr_to_rgb
 from ..types import UnsupportedFormatError
+from ..utils.profiling import stage
 from .entropy_py import ComponentSpec, DecodeComponentSpec
 from .tables import (
     AC_CHROMA_BITS,
@@ -604,7 +605,8 @@ def decode_jpeg(data: bytes,
     dev = _device.resolve(device)
     if is_progressive_jpeg(data):
         return _decode_progressive(data, dev)
-    hdr, coefs = decode_jpeg_to_coefs(data)
+    with stage("huffman decode"):
+        hdr, coefs = decode_jpeg_to_coefs(data)
     hmax = max(c["h"] for c in hdr.comps)
     vmax = max(c["v"] for c in hdr.comps)
     mcus_x = -(-hdr.width // (8 * hmax))
@@ -620,7 +622,8 @@ def decode_jpeg(data: bytes,
 def _decode_progressive(data: bytes, dev: torch.device) -> np.ndarray:
     from .progressive import decode_progressive_to_coefs
 
-    dec, coefs = decode_progressive_to_coefs(data)
+    with stage("huffman decode"):
+        dec, coefs = decode_progressive_to_coefs(data)
     return _reconstruct(dec.comps, dec.qtables, coefs, dec.hmax, dec.vmax,
                         dec, dev)
 
@@ -631,18 +634,25 @@ def _reconstruct(comps, qtables, coefs, hmax: int, vmax: int, frame,
     bw, bh) → (H, W, 4) uint8 on the host, the transforms on `dev`
     (kernel K7 on a card, reconstruct_plain on the CPU).  `frame` carries
     the dimensions and colour markers (a JpegHeader or a
-    ProgressiveDecoder)."""
+    ProgressiveDecoder).
+
+    Stages: "blocks up" is the blocks' and tables' copy to `dev`;
+    "image down" is K7's launch and the copy of its image to the host,
+    which waits for K7, so K7's device time falls inside it."""
     for c in comps:
         if c["tq"] not in qtables:
             raise ValueError("fennec: corrupt JPEG: missing DQT")
     mode = jpeg_color_mode(frame)
     tabs = np.stack([qtables[c["tq"]] for c in comps]).astype(np.int32)
-    blocks = [torch.from_numpy(q).to(dev) for q in coefs]
-    tables = torch.from_numpy(tabs).to(dev)
-    out = decode_recon.frame(
-        blocks, tables, [(c["h"], c["v"], c["bw"], c["bh"]) for c in comps],
-        hmax, vmax, frame.height, frame.width, mode)
-    return out.cpu().numpy()
+    with stage("blocks up"):
+        blocks = [torch.from_numpy(q).to(dev) for q in coefs]
+        tables = torch.from_numpy(tabs).to(dev)
+    with stage("image down"):
+        out = decode_recon.frame(
+            blocks, tables,
+            [(c["h"], c["v"], c["bw"], c["bh"]) for c in comps],
+            hmax, vmax, frame.height, frame.width, mode)
+        return out.cpu().numpy()
 
 
 def reconstruct_plain(blocks, tables, comps, hmax: int, vmax: int, h: int,

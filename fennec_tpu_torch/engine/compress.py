@@ -54,6 +54,7 @@ from ..ops.ssim import (
 )
 from ..ops.ssim_cuda import ssim_window
 from ..types import Options
+from ..utils.profiling import stage
 from .size_search import quality_tables_on, quantize_packed
 
 MAX_BISECT_STEPS = 7  # ceil(log2(100)) — covers any [lo, hi] ⊆ [1, 100]
@@ -378,28 +379,31 @@ def compress_jpeg_optimal(src: np.ndarray, target_ssim: float, opts: Options,
     """Find the lowest JPEG quality meeting the target SSIM (reference
     compress.go:21-87).  Returns (quality, ssim, jpeg bytes)."""
     dev = _device.resolve(device)
-    arr = to_nrgba_ref(np.asarray(src))
-    h, w = arr.shape[:2]
     subsample = bool(opts.subsample)
-    img = torch.from_numpy(arr).to(dev).to(torch.float32)
-    inp, coefs = prepare_search(img[None], subsample)
-    best_q, best_ssim, found = _bisect_device_batch(
-        inp, *_search_targets([target_ssim], dev))
-    # The one device→host copy of the search.
-    q, s, f = torch.stack([best_q.to(torch.float32), best_ssim,
-                           found.to(torch.float32)]).cpu()[:, 0].tolist()
+    with stage("image up"):
+        arr = to_nrgba_ref(np.asarray(src))
+        img = torch.from_numpy(arr).to(dev).to(torch.float32)
+    h, w = arr.shape[:2]
+    with stage("device search"):
+        inp, coefs = prepare_search(img[None], subsample)
+        best_q, best_ssim, found = _bisect_device_batch(
+            inp, *_search_targets([target_ssim], dev))
+        # The one device→host copy of the search.
+        q, s, f = torch.stack([best_q.to(torch.float32), best_ssim,
+                               found.to(torch.float32)]).cpu()[:, 0].tolist()
     quality, ssim_val = int(q), s
     if not f:
         # Nothing met the target: the reference encodes at the initial hi
         # (Q=100) and reports bestSSIM=1.0 (compress.go:29-32,82-86).
         quality, ssim_val = 100, 1.0
-    if device_entropy_on(opts, dev):
-        data = _encode_from_coefs_device(coefs, w, h, quality, subsample,
-                                         opts.optimize_huffman)
-    else:
-        data = encode_jpeg_from_coefs([c[0] for c in coefs], w, h, quality,
-                                      subsample,
-                                      optimize=opts.optimize_huffman)
+    with stage("emit"):
+        if device_entropy_on(opts, dev):
+            data = _encode_from_coefs_device(coefs, w, h, quality,
+                                             subsample, opts.optimize_huffman)
+        else:
+            data = encode_jpeg_from_coefs([c[0] for c in coefs], w, h,
+                                          quality, subsample,
+                                          optimize=opts.optimize_huffman)
     return quality, ssim_val, data
 
 

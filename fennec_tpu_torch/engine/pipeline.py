@@ -32,10 +32,12 @@ def compress_image_internal(ctx: Optional[Context], img: np.ndarray,
                             device: _device.DeviceLike = None) -> Result:
     """The shared pipeline behind every compress entry point
     (reference fennec.go:107-141)."""
-    arr = validate_image(img)
+    with stage("validate"):
+        arr = validate_image(img)
     h, w = arr.shape[:2]
     result = Result(original_dimensions=(w, h))
-    src = to_nrgba(arr)
+    with stage("nrgba"):
+        src = to_nrgba(arr)
 
     if opts.auto_orient and int(orient) > int(Orientation.NORMAL):
         with stage("orient"):

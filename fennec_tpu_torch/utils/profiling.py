@@ -18,6 +18,9 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
+# The profiler's own flag, read at each stage (a module attribute, set
+# while any torch.profiler or autograd profiler runs).
+import torch.autograd.profiler as _autograd_profiler
 
 
 class StageTimer:
@@ -83,8 +86,29 @@ def use_timer(timer: StageTimer) -> Iterator[StageTimer]:
 
 @contextlib.contextmanager
 def stage(name: str) -> Iterator[None]:
-    """Time a named stage on the ambient timer (no-op when none)."""
+    """Time a named stage on the ambient timer, and mark it as a host
+    range in a running torch.profiler trace, on the profiler's own clock,
+    so that each kernel and copy lies under the stage that launched it.
+    A no-op without either.
+
+    The range is a RecordFunction of function scope, not a
+    `record_function` (user scope): the profiler copies each user-scope
+    range that launched device work onto the device's timeline as an
+    event of the device, which readers of the trace would count as
+    device time.
+
+    A stage measures host time only: it adds no synchronise and no event.
+    A stage that ends in a blocking copy holds the device work queued
+    before the copy; one that only launches work holds the launch."""
     timer = _active.get()
+    if _autograd_profiler._is_profiler_enabled:
+        with torch._C._profiler._RecordFunctionFast(name):
+            if timer is None:
+                yield
+            else:
+                with timer.stage(name):
+                    yield
+        return
     if timer is None:
         yield
         return

@@ -1444,3 +1444,28 @@ def test_main_path_runs_through_k7_and_k8(cuda_device):
     on_cpu = T.compress_bytes(None, data, T.Options(), device="cpu")
     assert on_card.jpeg_quality == on_cpu.jpeg_quality
     assert abs(on_card.ssim - on_cpu.ssim) <= ATOL
+
+
+def test_stages_are_host_ranges_only_in_a_card_trace(cuda_device):
+    """Under torch.profiler on the card, each stage of compress_bytes is
+    a host range and never a device event: the device's events are the
+    kernels, copies and sets alone, as the benchmark's trace reader
+    counts them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    stages = {"open + decode", "huffman decode", "blocks up", "image down",
+              "validate", "nrgba", "jpeg quality search", "image up",
+              "device search", "emit"}
+    data = T.encode_to_bytes(photo(700, 540, 3), T.JPEG, 92, device="cpu")
+    T.compress_bytes(None, data, T.Options(), device=cuda_device)  # warm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        T.compress_bytes(None, data, T.Options(), device=cuda_device)
+        torch.cuda.synchronize()
+    events = prof.events()
+    host = {e.name for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    device = {e.name for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert stages <= host
+    assert not stages & device, stages & device

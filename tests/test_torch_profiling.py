@@ -4,8 +4,8 @@ utils/profiling: StageTimer's report is the JAX one's string for the same
 totals, the ambient `stage` records nothing without a timer and nothing
 into another thread's, nan_check raises the JAX message on NaN and Inf in
 tensors and arrays, and device_trace writes a Chrome trace on the CPU.
-The CLI's -v prints a `Stages:` report with the JAX CLI's stage names on
-the same file, and FENNEC_DEBUG_BATCH makes the batch engines print
+The CLI's -v prints a `Stages:` report with the JAX CLI's stage names and
+the port's own sub-stages on the same file, and FENNEC_DEBUG_BATCH makes the batch engines print
 their stage report and the traceback of a failed chunk.
 """
 
@@ -176,15 +176,27 @@ def stage_names(stderr: str):
                   if line.endswith("ms avg)"))
 
 
-@pytest.mark.parametrize("flags,want", [
+# The port's stages beyond the JAX CLI's: the decode's, the host passes'
+# and the quality search's sub-stages.
+DECODE_STAGES = ["blocks up", "huffman decode", "image down"]
+PASS_STAGES = ["nrgba", "validate"]
+SEARCH_STAGES = ["device search", "emit", "image up"]
+
+
+@pytest.mark.parametrize("flags,want,more", [
     (["--max-width", "40"], ["jpeg quality search", "open + decode",
-                             "orient", "resize", "write"]),
+                             "orient", "resize", "write"],
+     DECODE_STAGES + PASS_STAGES + SEARCH_STAGES),
     (["--format", "png"], ["open + decode", "orient", "png encode",
-                           "write"]),
+                           "write"], DECODE_STAGES + PASS_STAGES),
     (["--target-size", "3KB"], ["open + decode", "orient",
-                                "target-size search", "write"]),
+                                "target-size search", "write"],
+     DECODE_STAGES + PASS_STAGES),
 ])
-def test_cli_verbose_prints_the_jax_stages(tmp_path, capsys, flags, want):
+def test_cli_verbose_prints_the_jax_stages(tmp_path, capsys, flags, want,
+                                           more):
+    """The port's report names the JAX CLI's stages and the port's own
+    sub-stages, nothing else."""
     data = T.encode_to_bytes(photo(64, 48, 5), T.JPEG, 92, device=CPU)
     src = tmp_path / "in.jpg"
     src.write_bytes(data[:2] + write_exif_orientation(6) + data[2:])
@@ -193,7 +205,8 @@ def test_cli_verbose_prints_the_jax_stages(tmp_path, capsys, flags, want):
     assert tcli.main([str(src), str(tmp_path / "t.out"), "-v", "--device",
                       "cpu"] + flags) == 0
     port_err = capsys.readouterr().err
-    assert stage_names(port_err) == stage_names(jax_err) == want
+    assert stage_names(jax_err) == want
+    assert stage_names(port_err) == sorted(want + more)
 
 
 def test_cli_without_verbose_prints_no_stages(tmp_path, capsys):
