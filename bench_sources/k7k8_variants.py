@@ -15,12 +15,14 @@ measure: an ablation takes a phase out, to see what the phase costs, and
 "stamps" adds clock64() stamps at every phase boundary, printed as the
 cycles a CTA spends in each phase, per warp.  The shapes are phase 18's:
 K7 on the 12 MP 4:2:0 and 1080p 4:4:4 frames and a 64 x 500x500 chunk
-(float32), K8's DCT on the 12 MP photo, 64 x 500x500 images and a 12 MP
-band.  Every build runs twice at each shape (current, first, variants,
-then the reverse); its device µs per call come from torch.profiler's rows
-of its kernel.  --only keeps the named variants (the current and first
-builds always run).  Prints one line per shape and the card's name and
-power limit.
+(float32), and on the 12 MP frame at EXIF orientation 6 (the transposing
+stores; a build without the oriented entry, the first K7, skips it),
+K8's DCT on the 12 MP photo, 64 x 500x500 images and a 12 MP band.  Every
+build runs twice at each shape (current, first, variants, then the
+reverse); its device µs per call come from torch.profiler's rows of its
+kernel.  --only keeps the named variants (the current and first builds
+always run).  Prints one line per shape and the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -184,11 +186,29 @@ K7_MASK64 = """    {
         const int k = __ffsll((long long)m) - 1;
         m &= m - 1;"""
 
+# K7's carveout, asked for each of its three kernels.
+K7_CARVEOUT = """    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel_of(k), cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+"""
+# K7's transposing colour pass: units of 8 rows by 4 columns (a warp store
+# four 32-byte runs), of 16 rows by 2 columns (two 64-byte runs; lanes past
+# an 8-row tile idle), or the identity's lanes (a pixel row a warp: each
+# lane's store in another output row).
+K7_COLS8 = (
+    "  const int ng = (trows + 7) >> 3, units = ng * ((tcols + 3) >> 2);",
+    "    const int ly = 8 * g + (lane & 7), lx = 4 * (u / ng) + (lane >> 3);")
+K7_COLS16 = (
+    "  const int ng = (trows + 15) >> 4, units = ng * ((tcols + 1) >> 1);",
+    "    const int ly = 16 * g + (lane & 15), lx = 2 * (u / ng) + "
+    "(lane >> 4);")
+
 # (name, exact, edits): edits are (old, new), each found once.
 K7_VARIANTS = [
     ("no_colour", False, [
-        ("    if (f.out_f32)\n      colour_tile<true>",
-         "    " + SKIP + "    if (f.out_f32)\n      colour_tile<true>")]),
+        ("    if constexpr (kStore == kIdentity) {\n      if (f.out_f32)",
+         "    " + SKIP + "    if constexpr (kStore == kIdentity) {\n"
+         "      if (f.out_f32)")]),
     ("no_product", False, [
         ("      uint32_t m = live ? (half ? hi : lo) : 0u;",
          "      uint32_t m = 0u;")]),
@@ -203,7 +223,11 @@ K7_VARIANTS = [
                              "    pre += hs * vs;")]),
     ("mask64", True, [(K7_MASK32, K7_MASK64)]),
     ("spin_hint", True, [(BAR_TRY, BAR_TRY_HINT)]),
-    ("carveout_default", True, [(carveout("decode_recon_kernel"), "")]),
+    ("carveout_default", True, [(K7_CARVEOUT, "")]),
+    ("cols16", True, list(zip(K7_COLS8, K7_COLS16))),
+    ("rows_lanes", True, [
+        ("  if constexpr (kStore == kTranspose)\n    colour_cols",
+         "  if constexpr (false)\n    colour_cols")]),
 ]
 
 K8_VARIANTS = [
@@ -302,8 +326,10 @@ def k7_cases(T, dev):
                             device=dev)
     mid = J.encode_jpeg(cs.photo(1920, 1080, cs.SEED + 3), 92, False,
                         device=dev)
-    out = {"12mp_420": lambda kern, a=cs.k7_frame(big, dev): kern.frame(*a),
-           "1080p_444": lambda kern, a=cs.k7_frame(mid, dev): kern.frame(*a)}
+    a12 = cs.k7_frame(big, dev)
+    out = {"12mp_420": lambda kern, a=a12: kern.frame(*a),
+           "1080p_444": lambda kern, a=cs.k7_frame(mid, dev): kern.frame(*a),
+           "12mp_420_o6": lambda kern, a=a12: kern.frame(*a, 6)}
 
     datas = [T.encode_to_bytes(cs.photo(500, 500, cs.SEED + 900 + k), T.JPEG,
                                92, device=dev) for k in range(64)]
@@ -367,7 +393,8 @@ def run(builds, exact, kind, cases, kname: str, iters: int = 20) -> dict:
             cs.log(f"{kind} stamps {case} (cycles a CTA, per warp): "
                    f"{json.dumps(split)}")
         want = call(builds["current"])
-        order = list(builds)
+        order = [n for n in builds if not case.endswith("_o6") or hasattr(
+            builds[n].load(), "fennec_decode_recon_oriented")]
         turns = {name: [] for name in order}
         for name in order + order[::-1]:
             fn = lambda b=builds[name]: call(b)  # noqa: E731
@@ -394,7 +421,7 @@ def main() -> int:
     cs.log(f"card: {smi}")
     dev = torch.device("cuda", torch.cuda.current_device())
     k7s, k8s, exact = build_all(only)
-    results = run(k7s, exact, "k7", k7_cases(T, dev), "decode_recon_kernel")
+    results = run(k7s, exact, "k7", k7_cases(T, dev), "decode_recon")
     results.update(run(k8s, exact, "k8", k8_cases(T, dev), "fdct_kernel"))
     cs.log(f"card: {smi}")
     if out_path:

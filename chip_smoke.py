@@ -238,17 +238,19 @@ Phases, each raising on failure:
      the frames of a 12 MP 4:2:0 and a 1080p 4:4:4 JPEG, the progressive
      and multi-scan fixtures, synthetic gray, Adobe RGB, CMYK, YCCK and
      4:2:2 frames (a fifth of their blocks a DC tie) and a ragged one, DC
-     1 at q = 4 (129), its batch entry on a 64 x 500x500 chunk that K6
-     rebuilt from the COO wire; K8's DCT at 12 MP in 4:2:0 and 4:4:4, 64
-     x 500x500, one 12 MP band of four and ragged alpha images (levels at
-     Q30/60/92), images alone against the batch bit for bit; its
-     luminance at 12 MP, 64 x 500x500 (no downsample), the band and
-     700x20, bit-equal to the exact box means.  Every pixel, level or
-     luminance value that differs from the plain version must sit at a
-     tie, and is counted.  Device, CUDA-event and host time, the plain
+     1 at q = 4 (129), each frame at EXIF orientations 2-8 against
+     orient_plain of its image at 1 bit for bit, its batch entry on a 64
+     x 500x500 chunk that K6 rebuilt from the COO wire; K8's DCT at 12 MP
+     in 4:2:0 and 4:4:4, 64 x 500x500, one 12 MP band of four and ragged
+     alpha images (levels at Q30/60/92), images alone against the batch
+     bit for bit; its luminance at 12 MP, 64 x 500x500 (no downsample),
+     the band and 700x20, bit-equal to the exact box means.  Every pixel,
+     level or luminance value that differs from the plain version must
+     sit at a tie, and is counted.  Device, CUDA-event and host time, the plain
      version's, bound and share and the block product alone (torch.matmul
      of (N, 64) x (64, 64), a part of the function) at K7's 12 MP, 1080p
-     4:4:4 and 64 x 500x500, K8's 12 MP, 64 x 500x500 and band.
+     4:4:4 and 64 x 500x500, K8's 12 MP, 64 x 500x500 and band; K7 at
+     orientations 1, 6 and 3 in turns at 12 MP 4:2:0 and 1080p 4:4:4.
 
 The last lines: the kernel table as JSON (K1's, K2's, K3a's, K3b's, K5's
 and K4's step's and bisection's launches summed over the main-path runs of
@@ -4669,6 +4671,7 @@ def phase_k7k8(T, dev, timed: bool = True, first=None):
     from fennec_tpu_torch.codecs import jpeg as J
     from fennec_tpu_torch.engine import compress as C
     from fennec_tpu_torch.ops import resize as R
+    from fennec_tpu_torch.ops.decode_recon_cuda import orient_plain
     from fennec_tpu_torch.ops.ssim import ssim_fast_dims
 
     w78 = k78_wrappers()
@@ -4723,6 +4726,18 @@ def phase_k7k8(T, dev, timed: bool = True, first=None):
             f"the plain version (each at a rounding tie) {n}")
     if not bool((k7.frame(*frames[-1][1])[..., :3] == 129).all()):
         raise AssertionError("K7: DC 1 at q = 4 must decode to 129")
+    # K7 at every other EXIF orientation: the upright image turned.
+    oriented = k7.oriented
+    for tag, args in frames:
+        upright = k7.frame(*args)
+        for o in range(2, 9):
+            if not torch.equal(k7.frame(*args, o), orient_plain(upright, o)):
+                raise AssertionError(f"K7 {tag} at orientation {o}: not "
+                                     f"orientation 1's image turned")
+    counts["k7_oriented_launches"] = k7.oriented - oriented
+    log(f"K7 at orientations 2-8 on {len(frames)} frames: each bit for bit "
+        f"orient_plain of its image at 1 ({counts['k7_oriented_launches']} "
+        f"oriented launches)")
 
     # K7's batch entry on a 64 x 500² chunk that K6 rebuilt.
     datas = [T.encode_to_bytes(photo(500, 500, SEED + 900 + k), T.JPEG, 92,
@@ -4907,7 +4922,34 @@ def phase_k7k8(T, dev, timed: bool = True, first=None):
                    f"host {t['first_host_us']:.2f} µs, share "
                    f"{100 * t['first_share']:.1f} %, turns (µs) "
                    f"{t['turns_us']}" if "first_ms" in t else ""))
+    times["k7_orientation"] = {}
+    for tag, args in frames[:2]:
+        t = times["k7_orientation"][tag] = time_k7_orientations(k7, args)
+        log(f"K7 {tag} by orientation, in turns (1, 6, 3, 3, 6, 1): "
+            + "; ".join(f"{o}: device {v['ms'] * 1e3:.2f} µs "
+                        f"({v['over_identity']:.3f} x orientation 1's), "
+                        f"CUDA events {v['event_ms'] * 1e3:.2f} µs, turns "
+                        f"(µs) {v['turns_us']}" for o, v in t.items()))
     return times, counts
+
+
+def time_k7_orientations(k7, args, iters: int = 20) -> dict:
+    """K7 on one frame at EXIF orientations 1 (identity), 6 (transposing)
+    and 3 (flips) in turns (1, 6, 3, 3, 6, 1): each one's least device ms
+    (torch.profiler rows of K7's kernels, all named decode_recon...) and
+    CUDA-event ms, every turn's device µs, and its device time over
+    orientation 1's."""
+    turns = {1: [], 6: [], 3: []}
+    for o in (1, 6, 3, 3, 6, 1):
+        fn = functools.partial(k7.frame, *args, o)
+        turns[o].append((profiled_device_ms(fn, iters, "decode_recon"),
+                         cuda_ms(fn, iters)))
+    out = {o: {"ms": min(t[0] for t in v), "event_ms": min(t[1] for t in v),
+               "turns_us": [round(t[0] * 1e3, 2) for t in v]}
+           for o, v in turns.items()}
+    for v in out.values():
+        v["over_identity"] = v["ms"] / out[1]["ms"]
+    return out
 
 
 def k7k8_only(T, dev, first) -> int:

@@ -10,9 +10,10 @@ import numpy as np
 
 from . import device as _device
 from .codecs import decode_image
+from .codecs.jpeg import decode_jpeg
 from .engine.pipeline import compress_image_internal
-from .exif import Orientation
-from .io import encode_to_bytes, open_with_orientation
+from .exif import Orientation, read_orientation
+from .io import encode_to_bytes
 from .types import Context, Options, ProgressStage, Result
 from .utils.profiling import stage
 
@@ -22,13 +23,14 @@ def compress_file(ctx: Optional[Context], src: str, dst: str,
                   device: _device.DeviceLike = None) -> Result:
     """Compress an image file and write the result to dst
     (reference fennec.go:30-76).  Reads EXIF orientation and auto-rotates
-    when opts.auto_orient."""
+    when opts.auto_orient: a JPEG comes out of its decode upright."""
     opts = opts if opts is not None else Options()
     opts.validate()
     opts.report_progress(ctx, ProgressStage.ANALYZING, 0.0)
 
     with stage("open + decode"):
-        img, orient, file_size = open_with_orientation(src, device)
+        img, orient, file_size = _open_upright(src, opts.auto_orient,
+                                               device)
     result = compress_image_internal(ctx, img, orient, opts, device)
     result.original_size = file_size
     result.compute_stats()
@@ -49,6 +51,21 @@ def compress_file(ctx: Optional[Context], src: str, dst: str,
 
     opts.report_progress(ctx, ProgressStage.WRITING, 1.0)
     return result
+
+
+def _open_upright(filename: str, auto_orient: bool,
+                  device: _device.DeviceLike):
+    """(image, orientation, file size) of a file, as
+    io.open_with_orientation reads it, except that with auto_orient a
+    JPEG with an orientation of 2-8 (read_orientation finds one only in a
+    JPEG stream) is decoded upright: the decode's device stage stores
+    each pixel at its upright place."""
+    with open(filename, "rb") as f:
+        data = f.read()
+    orient = read_orientation(data)
+    if auto_orient and orient > Orientation.NORMAL:
+        return decode_jpeg(data, device, int(orient)), orient, len(data)
+    return decode_image(data, device), orient, len(data)
 
 
 def compress_image(ctx: Optional[Context], img: np.ndarray,

@@ -24,7 +24,7 @@ from .. import device as _device
 from .. import native
 from ..ops import dct as dct_ops
 from ..ops import forward_dct_cuda
-from ..ops.decode_recon_cuda import decode_recon
+from ..ops.decode_recon_cuda import decode_recon, orient_plain
 from ..ops.color import clamp_u8, rgb_to_ycbcr, ycbcr_to_rgb
 from ..types import UnsupportedFormatError
 from ..utils.profiling import stage
@@ -597,14 +597,16 @@ def jpeg_color_mode(hdr: JpegHeader) -> str:
         f"fennec: unsupported {hdr.ncomp}-component JPEG")
 
 
-def decode_jpeg(data: bytes,
-                device: _device.DeviceLike = None) -> np.ndarray:
+def decode_jpeg(data: bytes, device: _device.DeviceLike = None,
+                orientation: int = 1) -> np.ndarray:
     """Decode a baseline or progressive JPEG to (H, W, 4) uint8 NRGBA,
-    the transforms on `device`.  Handles grayscale, YCbCr, Adobe RGB and
-    4-component Adobe CMYK/YCCK frames."""
+    the transforms on `device`, upright for the EXIF `orientation` (1-8;
+    (W, H, 4) for 5-8: exif.apply_orientation of the stored image, done
+    by the device stage's stores).  Handles grayscale, YCbCr, Adobe RGB
+    and 4-component Adobe CMYK/YCCK frames."""
     dev = _device.resolve(device)
     if is_progressive_jpeg(data):
-        return _decode_progressive(data, dev)
+        return _decode_progressive(data, dev, orientation)
     with stage("huffman decode"):
         hdr, coefs = decode_jpeg_to_coefs(data)
     hmax = max(c["h"] for c in hdr.comps)
@@ -616,25 +618,26 @@ def decode_jpeg(data: bytes,
         c = hdr.comps[sc["comp"]]
         comps.append(dict(c, bw=mcus_x * c["h"], bh=mcus_y * c["v"]))
     return _reconstruct(comps, hdr.qtables, coefs, hmax, vmax, hdr,
-                        dev)
+                        dev, orientation)
 
 
-def _decode_progressive(data: bytes, dev: torch.device) -> np.ndarray:
+def _decode_progressive(data: bytes, dev: torch.device,
+                        orientation: int = 1) -> np.ndarray:
     from .progressive import decode_progressive_to_coefs
 
     with stage("huffman decode"):
         dec, coefs = decode_progressive_to_coefs(data)
     return _reconstruct(dec.comps, dec.qtables, coefs, dec.hmax, dec.vmax,
-                        dec, dev)
+                        dec, dev, orientation)
 
 
 def _reconstruct(comps, qtables, coefs, hmax: int, vmax: int, frame,
-                 dev: torch.device) -> np.ndarray:
+                 dev: torch.device, orientation: int = 1) -> np.ndarray:
     """Quantized coefficients of every component (dicts with h, v, tq,
-    bw, bh) → (H, W, 4) uint8 on the host, the transforms on `dev`
-    (kernel K7 on a card, reconstruct_plain on the CPU).  `frame` carries
-    the dimensions and colour markers (a JpegHeader or a
-    ProgressiveDecoder).
+    bw, bh) → (H, W, 4) uint8 on the host, upright for the EXIF
+    `orientation`, the transforms on `dev` (kernel K7 on a card,
+    reconstruct_plain on the CPU).  `frame` carries the dimensions and
+    colour markers (a JpegHeader or a ProgressiveDecoder).
 
     Stages: "blocks up" is the blocks' and tables' copy to `dev`;
     "image down" is K7's launch and the copy of its image to the host,
@@ -651,20 +654,23 @@ def _reconstruct(comps, qtables, coefs, hmax: int, vmax: int, frame,
         out = decode_recon.frame(
             blocks, tables,
             [(c["h"], c["v"], c["bw"], c["bh"]) for c in comps],
-            hmax, vmax, frame.height, frame.width, mode)
+            hmax, vmax, frame.height, frame.width, mode, orientation)
         return out.cpu().numpy()
 
 
 def reconstruct_plain(blocks, tables, comps, hmax: int, vmax: int, h: int,
-                      w: int, mode: str) -> torch.Tensor:
+                      w: int, mode: str, orientation: int = 1
+                      ) -> torch.Tensor:
     """K7's function for one frame in plain torch ops, on the blocks'
     device: component c's quantized blocks and tables[c], comps (h, v, bw,
-    bh) each → (h, w, 4) uint8.  What the CPU runs and what K7 is held
-    against on the card."""
+    bh) each → (h, w, 4) uint8, turned upright for the EXIF `orientation`
+    (decode_recon_cuda.orient_plain).  What the CPU runs and what K7 is
+    held against on the card."""
     planes = [_decode_plane(q.to(torch.float32), qt, c[3] * 8, c[2] * 8,
                             hmax // c[0], vmax // c[1])
               for c, q, qt in zip(comps, blocks, tables)]
-    return _combine_planes(planes, h, w, mode).to(torch.uint8)
+    return orient_plain(_combine_planes(planes, h, w, mode).to(torch.uint8),
+                        orientation)
 
 
 def _decode_plane(qcoefs: torch.Tensor, qtable: torch.Tensor, ph: int,

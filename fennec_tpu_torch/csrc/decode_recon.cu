@@ -86,6 +86,23 @@
 //      is the low byte of x + 2^23.  Rows are stored coalesced, 4 or 16
 //      bytes a pixel.
 //
+// The EXIF orientation (1-8) of a frame maps the store address only: the
+// uint8 image comes out upright, (w, h) for 5-8, each pixel the value it
+// has at orientation 1.  Pixel (y, x) of the stored image lands at
+// c0 + y sy + x sx of the upright one (store_map in the wrapper); the
+// orientation picks one of three builds of the kernel per launch, so no
+// branch runs a pixel:
+//
+//   identity (1)      decode_recon_kernel, the stores above;
+//   flips (2, 3, 4)   decode_recon_flip_kernel: the same lanes, a row to a
+//                     mirrored row and/or columns, still coalesced;
+//   transposing (5-8) decode_recon_transpose_kernel: a tile's pixel
+//                     columns become output rows, so the colour pass takes
+//                     a lane (8 g + (lane & 7), 4 cg + (lane >> 3)): each 8
+//                     lanes of one column store 8 adjacent pixels of one
+//                     output row (32 bytes, one sector when h is a multiple
+//                     of 8), a warp 4 whole sectors.
+//
 // Sampling factors must divide the largest (hmax % h == 0, vmax % v == 0):
 // the wrapper checks it.
 
@@ -113,6 +130,7 @@ constexpr int kSmemBytes = kStages * kStageBytes + kWorkFloats * 4 +
                            kStages * 8;
 
 enum Mode { kGray = 0, kRgb = 1, kYcbcr = 2, kCmyk = 3, kYcck = 4 };
+enum Store { kIdentity = 0, kFlip = 1, kTranspose = 2 };
 
 struct Frame {
   const int16_t* blocks[kMaxComps];  // image 0's first block
@@ -128,6 +146,7 @@ struct Frame {
   int tile_mcus, tiles_x;            // MCUs a tile, tiles per MCU row
   void* out;
   int out_f32;
+  long long o_c0, o_sy, o_sx;        // the store map (not identity)
 };
 
 struct Tile {
@@ -264,17 +283,51 @@ __device__ __forceinline__ uint32_t byte_of(float x) {
   return __float_as_uint(x + 8388608.0f) & 0xFFu;
 }
 
-// The colour pass of a tile for one mode and output type: a pixel row a
-// warp, adjacent columns a lane.  Component c's sample of pixel (ly, lx)
-// is pix[ro_c(ly) + colx[lx]'s 16-bit field c].
-template <int kMode, bool kF32>
+template <bool kF32>
+__device__ __forceinline__ void store_pixel(void* out, long long i,
+                                            const float* rgb) {
+  if (kF32) {
+    reinterpret_cast<float4*>(out)[i] =
+        make_float4(rgb[0], rgb[1], rgb[2], 255.0f);
+  } else {
+    reinterpret_cast<uint32_t*>(out)[i] = byte_of(rgb[0]) |
+                                          byte_of(rgb[1]) << 8 |
+                                          byte_of(rgb[2]) << 16 | 0xFF000000u;
+  }
+}
+
+template <int kMode>
+__host__ __device__ constexpr int mode_comps() {
+  return kMode == kGray ? 1 : (kMode == kCmyk || kMode == kYcck) ? 4 : 3;
+}
+
+// Component c's samples of pixel (ly, lx): pix[ro[c] + colx[lx]'s 16-bit
+// field c], coloured.
+template <int kMode>
+__device__ __forceinline__ void pixel_colour(const float* pix, const int* ro,
+                                             uint2 cx, float* rgb) {
+  constexpr int kN = mode_comps<kMode>();
+  float v[4];
+  v[0] = pix[ro[0] + (cx.x & 0xFFFF)];
+  if (kN > 1) {
+    v[1] = pix[ro[1] + (cx.x >> 16)];
+    v[2] = pix[ro[2] + (cx.y & 0xFFFF)];
+  }
+  if (kN > 3) v[3] = pix[ro[3] + (cx.y >> 16)];
+  colour<kMode>(v, rgb);
+}
+
+// The colour pass of a tile for one mode, output type and store path
+// (identity or flips): a pixel row a warp, adjacent columns a lane.
+// Component c's sample of pixel (ly, lx) is pix[ro_c(ly) + colx[lx]'s
+// 16-bit field c].
+template <int kMode, bool kF32, int kStore>
 __device__ __forceinline__ void colour_rows(const Frame& f, const float* pix,
                                             const uint2* colx,
                                             const int* rowb, const int* rowp,
                                             const int* s_pre, const Tile& T,
                                             int warp, int lane) {
-  constexpr int kN = kMode == kGray ? 1
-                     : (kMode == kCmyk || kMode == kYcck) ? 4 : 3;
+  constexpr int kN = mode_comps<kMode>();
   const int rows = 8 * f.vmax;
   const int y0 = T.my * rows, x0 = T.mx0 * 8 * f.hmax;
   const int tcols = min(T.nm * 8 * f.hmax, f.w - x0);
@@ -285,31 +338,79 @@ __device__ __forceinline__ void colour_rows(const Frame& f, const float* pix,
     for (int c = 0; c < kN; ++c)
       ro[c] = T.nm * (s_pre[c] + rowb[c * kMaxRows + ly]) * kPixStride +
               rowp[c * kMaxRows + ly];
-    const long long o0 = ((long long)T.img * f.h + y0 + ly) * f.w + x0;
-    for (int lx = lane; lx < tcols; lx += 32) {
-      const uint2 cx = colx[lx];
-      float v[4];
-      v[0] = pix[ro[0] + (cx.x & 0xFFFF)];
-      if (kN > 1) {
-        v[1] = pix[ro[1] + (cx.x >> 16)];
-        v[2] = pix[ro[2] + (cx.y & 0xFFFF)];
+    if constexpr (kStore == kIdentity) {
+      const long long o0 = ((long long)T.img * f.h + y0 + ly) * f.w + x0;
+      for (int lx = lane; lx < tcols; lx += 32) {
+        float rgb[3];
+        pixel_colour<kMode>(pix, ro, colx[lx], rgb);
+        store_pixel<kF32>(f.out, o0 + lx, rgb);
       }
-      if (kN > 3) v[3] = pix[ro[3] + (cx.y >> 16)];
-      float rgb[3];
-      colour<kMode>(v, rgb);
-      if (kF32) {
-        reinterpret_cast<float4*>(f.out)[o0 + lx] =
-            make_float4(rgb[0], rgb[1], rgb[2], 255.0f);
-      } else {
-        reinterpret_cast<uint32_t*>(f.out)[o0 + lx] =
-            byte_of(rgb[0]) | byte_of(rgb[1]) << 8 | byte_of(rgb[2]) << 16 |
-            0xFF000000u;
+    } else {
+      const long long o0 = (long long)T.img * f.h * f.w + f.o_c0 +
+                           (long long)(y0 + ly) * f.o_sy +
+                           (long long)x0 * f.o_sx;
+      for (int lx = lane; lx < tcols; lx += 32) {
+        float rgb[3];
+        pixel_colour<kMode>(pix, ro, colx[lx], rgb);
+        store_pixel<kF32>(f.out, o0 + lx * f.o_sx, rgb);
       }
     }
   }
 }
 
-template <bool kF32>
+// The colour pass of a tile under a transposing orientation, uint8 out:
+// units of 8 pixel rows (group g) by 4 columns (cg), a unit a warp, lane
+// (8 g + (lane & 7), 4 cg + (lane >> 3)).  A column's 8 pixels are 8
+// adjacent pixels of one output row.  With kWarps a multiple of the
+// groups (vmax 1, 2 or 4) a warp keeps its group, and its row offsets.
+template <int kMode>
+__device__ __forceinline__ void colour_cols(const Frame& f, const float* pix,
+                                            const uint2* colx,
+                                            const int* rowb, const int* rowp,
+                                            const int* s_pre, const Tile& T,
+                                            int warp, int lane) {
+  constexpr int kN = mode_comps<kMode>();
+  const int rows = 8 * f.vmax;
+  const int y0 = T.my * rows, x0 = T.mx0 * 8 * f.hmax;
+  const int tcols = min(T.nm * 8 * f.hmax, f.w - x0);
+  const int trows = min(rows, f.h - y0);
+  const int ng = (trows + 7) >> 3, units = ng * ((tcols + 3) >> 2);
+  const long long o0 = (long long)T.img * f.h * f.w + f.o_c0 +
+                       (long long)y0 * f.o_sy + (long long)x0 * f.o_sx;
+  int ro[kN];
+  int gcur = -1;
+  for (int u = warp; u < units; u += kWarps) {
+    const int g = u % ng;
+    const int ly = 8 * g + (lane & 7), lx = 4 * (u / ng) + (lane >> 3);
+    if (g != gcur) {  // ly < 8 ng <= rows: inside the row tables
+      gcur = g;
+#pragma unroll
+      for (int c = 0; c < kN; ++c)
+        ro[c] = T.nm * (s_pre[c] + rowb[c * kMaxRows + ly]) * kPixStride +
+                rowp[c * kMaxRows + ly];
+    }
+    if (ly < trows && lx < tcols) {
+      float rgb[3];
+      pixel_colour<kMode>(pix, ro, colx[lx], rgb);
+      store_pixel<false>(f.out, o0 + ly * f.o_sy + lx * f.o_sx, rgb);
+    }
+  }
+}
+
+template <int kMode, bool kF32, int kStore>
+__device__ __forceinline__ void colour_mode(const Frame& f, const float* pix,
+                                            const uint2* colx,
+                                            const int* rowb, const int* rowp,
+                                            const int* s_pre, const Tile& T,
+                                            int warp, int lane) {
+  if constexpr (kStore == kTranspose)
+    colour_cols<kMode>(f, pix, colx, rowb, rowp, s_pre, T, warp, lane);
+  else
+    colour_rows<kMode, kF32, kStore>(f, pix, colx, rowb, rowp, s_pre, T,
+                                     warp, lane);
+}
+
+template <bool kF32, int kStore>
 __device__ __forceinline__ void colour_tile(const Frame& f, const float* pix,
                                             const uint2* colx,
                                             const int* rowb, const int* rowp,
@@ -317,20 +418,24 @@ __device__ __forceinline__ void colour_tile(const Frame& f, const float* pix,
                                             int warp, int lane) {
   switch (f.mode) {
     case kGray:
-      colour_rows<kGray, kF32>(f, pix, colx, rowb, rowp, s_pre, T, warp, lane);
+      colour_mode<kGray, kF32, kStore>(f, pix, colx, rowb, rowp, s_pre, T,
+                                       warp, lane);
       break;
     case kRgb:
-      colour_rows<kRgb, kF32>(f, pix, colx, rowb, rowp, s_pre, T, warp, lane);
+      colour_mode<kRgb, kF32, kStore>(f, pix, colx, rowb, rowp, s_pre, T,
+                                      warp, lane);
       break;
     case kYcbcr:
-      colour_rows<kYcbcr, kF32>(f, pix, colx, rowb, rowp, s_pre, T, warp,
-                                lane);
+      colour_mode<kYcbcr, kF32, kStore>(f, pix, colx, rowb, rowp, s_pre, T,
+                                        warp, lane);
       break;
     case kCmyk:
-      colour_rows<kCmyk, kF32>(f, pix, colx, rowb, rowp, s_pre, T, warp, lane);
+      colour_mode<kCmyk, kF32, kStore>(f, pix, colx, rowb, rowp, s_pre, T,
+                                       warp, lane);
       break;
     default:
-      colour_rows<kYcck, kF32>(f, pix, colx, rowb, rowp, s_pre, T, warp, lane);
+      colour_mode<kYcck, kF32, kStore>(f, pix, colx, rowb, rowp, s_pre, T,
+                                       warp, lane);
   }
 }
 
@@ -338,8 +443,10 @@ __device__ __forceinline__ float lane_of(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-    decode_recon_kernel(const Frame f) {
+// The kernel's body for one store path (kStore); kF32 output only with
+// the identity.
+template <int kStore>
+__device__ __forceinline__ void decode_recon_body(const Frame& f) {
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* stages = smem;  // [kStages][kStageBytes]
   // The k-major coefficients ([64][128], rotated) and, after the product,
@@ -512,12 +619,64 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();
 
     // 4. Colour, a pixel row a warp, adjacent columns a lane.
-    if (f.out_f32)
-      colour_tile<true>(f, work, colx, rowb, rowp, s_pre, T, warp, lane);
-    else
-      colour_tile<false>(f, work, colx, rowb, rowp, s_pre, T, warp, lane);
+    if constexpr (kStore == kIdentity) {
+      if (f.out_f32)
+        colour_tile<true, kIdentity>(f, work, colx, rowb, rowp, s_pre, T,
+                                     warp, lane);
+      else
+        colour_tile<false, kIdentity>(f, work, colx, rowb, rowp, s_pre, T,
+                                      warp, lane);
+    } else {
+      colour_tile<false, kStore>(f, work, colx, rowb, rowp, s_pre, T, warp,
+                                 lane);
+    }
     __syncthreads();  // the pixel buffer read before the next conversion
   }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+    decode_recon_kernel(const Frame f) {
+  decode_recon_body<kIdentity>(f);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+    decode_recon_flip_kernel(const Frame f) {
+  decode_recon_body<kFlip>(f);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+    decode_recon_transpose_kernel(const Frame f) {
+  decode_recon_body<kTranspose>(f);
+}
+
+typedef void (*KernelFn)(const Frame);
+
+KernelFn kernel_of(int kind) {
+  return kind == kTranspose ? decode_recon_transpose_kernel
+         : kind == kFlip    ? decode_recon_flip_kernel
+                            : decode_recon_kernel;
+}
+
+// The store path of an EXIF orientation and its map: pixel (y, x) of an
+// h x w image lands at c0 + y sy + x sx of the upright one (w x h when
+// the orientation transposes).  Orientations 5-8 transpose; 2, 3, 7 mirror
+// the output columns, 3, 4, 7, 8 its rows (exif.apply_orientation).
+int store_map(int orientation, int h, int w, long long* c0, long long* sy,
+              long long* sx) {
+  const bool tr = orientation >= 5;
+  const bool frow = orientation == 3 || orientation == 4 ||
+                    orientation == 7 || orientation == 8;
+  const bool fcol = orientation == 2 || orientation == 3 ||
+                    orientation == 6 || orientation == 7;
+  const long long ow = tr ? h : w, oh = tr ? w : h;
+  // (a, b) = the output row and column before mirroring: (y, x), or
+  // (x, y) when transposed.
+  const long long sa = ow, sb = 1;
+  *c0 = (frow ? (oh - 1) * sa : 0) + (fcol ? (ow - 1) * sb : 0);
+  const long long ra = frow ? -sa : sa, rb = fcol ? -sb : sb;
+  *sy = tr ? rb : ra;
+  *sx = tr ? ra : rb;
+  return orientation == 1 ? kIdentity : tr ? kTranspose : kFlip;
 }
 
 cudaError_t prepare() {
@@ -526,13 +685,14 @@ cudaError_t prepare() {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 64 && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(decode_recon_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemBytes);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(decode_recon_kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               100);
+  for (int k = 0; k < 3 && err == cudaSuccess; ++k) {
+    err = cudaFuncSetAttribute(kernel_of(k),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel_of(k), cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  }
   if (err == cudaSuccess && dev < 64) done[dev] = true;
   return err;
 }
@@ -547,38 +707,35 @@ const char* fennec_decode_recon_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// CTAs of K7 that fit on one SM of the current device at once, or minus
-// the CUDA error.
+// CTAs of K7 that fit on one SM of the current device at once (the least
+// over its three store paths), or minus the CUDA error.
 int fennec_decode_recon_ctas_per_sm() {
   cudaError_t err = prepare();
-  int n = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, decode_recon_kernel, kThreads, kSmemBytes);
-  return err == cudaSuccess ? n : -(int)err;
+  int least = 0;
+  for (int k = 0; k < 3 && err == cudaSuccess; ++k) {
+    int n = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel_of(k),
+                                                        kThreads, kSmemBytes);
+    least = k == 0 || n < least ? n : least;
+  }
+  return err == cudaSuccess ? least : -(int)err;
 }
 
-// K7.  blocks[c]: component c's int16 blocks (16-byte aligned), image i's
-// at blocks[c] + i * img_stride[c] * 64, mcus_y * vs[c] rows of bw[c] =
-// mcus_x * hs[c] blocks; tables int32 (16-byte aligned, tab_stride a
-// multiple of 4), component c of image i at tables + i * tab_stride +
-// tsel[c] * 64; kron the (64, 64) float32 matrix of ops/dct.dct_kron; out
-// (nimg, h, w, 4) uint8, or float32 when out_f32.  tile_mcus MCUs a tile
-// (tile_mcus * sum(hs * vs) <= 128, tile_mcus * 8 * hmax <= 1024), tiles_x
-// = ceil(mcus_x / tile_mcus); ctas the grid.  One launch on `stream`;
-// returns the CUDA error (cudaErrorInvalidValue for a misaligned input or
-// a tile past the kernel's buffers).
-int fennec_decode_recon(const void* const* blocks, const long long* img_stride,
-                        const int* bw, const int* hs, const int* vs,
-                        const int* tsel, int ncomp, const void* tables,
-                        int tab_stride, const void* kron, int hmax, int vmax,
-                        int mcus_x, int mcus_y, int h, int w, int mode,
-                        int nimg, int tile_mcus, int tiles_x, int ctas,
-                        void* out, int out_f32, void* stream) {
+// K7 as fennec_decode_recon (below) takes it, each image stored upright
+// for its EXIF orientation (1-8): out (nimg, w, h, 4) for 5-8, uint8
+// unless the orientation is 1.
+int fennec_decode_recon_oriented(
+    const void* const* blocks, const long long* img_stride, const int* bw,
+    const int* hs, const int* vs, const int* tsel, int ncomp,
+    const void* tables, int tab_stride, const void* kron, int hmax, int vmax,
+    int mcus_x, int mcus_y, int h, int w, int mode, int nimg, int tile_mcus,
+    int tiles_x, int ctas, void* out, int out_f32, int orientation,
+    void* stream) {
   Frame f = {};
   int per_mcu = 0, ntab = 0;
   bool ok = aligned16(tables) && tab_stride % 4 == 0 && aligned16(kron) &&
-            ncomp >= 1 && ncomp <= kMaxComps;
+            ncomp >= 1 && ncomp <= kMaxComps && orientation >= 1 &&
+            orientation <= 8 && (orientation == 1 || !out_f32);
   for (int c = 0; c < kMaxComps; ++c) {
     const bool on = c < ncomp;
     f.blocks[c] = on ? static_cast<const int16_t*>(blocks[c]) : nullptr;
@@ -605,14 +762,38 @@ int fennec_decode_recon(const void* const* blocks, const long long* img_stride,
   f.mode = mode, f.nimg = nimg;
   f.tile_mcus = tile_mcus, f.tiles_x = tiles_x;
   f.out = out, f.out_f32 = out_f32;
+  const int kind = store_map(orientation, h, w, &f.o_c0, &f.o_sy, &f.o_sx);
   const long long ntiles = (long long)nimg * mcus_y * tiles_x;
   if (ntiles == 0) return 0;
   cudaError_t err = prepare();
   if (err != cudaSuccess) return (int)err;
   const int grid = (int)(ntiles < ctas ? ntiles : ctas);
-  decode_recon_kernel<<<grid, kThreads, kSmemBytes,
-                        static_cast<cudaStream_t>(stream)>>>(f);
+  kernel_of(kind)<<<grid, kThreads, kSmemBytes,
+                   static_cast<cudaStream_t>(stream)>>>(f);
   return (int)cudaGetLastError();
+}
+
+// K7.  blocks[c]: component c's int16 blocks (16-byte aligned), image i's
+// at blocks[c] + i * img_stride[c] * 64, mcus_y * vs[c] rows of bw[c] =
+// mcus_x * hs[c] blocks; tables int32 (16-byte aligned, tab_stride a
+// multiple of 4), component c of image i at tables + i * tab_stride +
+// tsel[c] * 64; kron the (64, 64) float32 matrix of ops/dct.dct_kron; out
+// (nimg, h, w, 4) uint8, or float32 when out_f32.  tile_mcus MCUs a tile
+// (tile_mcus * sum(hs * vs) <= 128, tile_mcus * 8 * hmax <= 1024), tiles_x
+// = ceil(mcus_x / tile_mcus); ctas the grid.  One launch on `stream`;
+// returns the CUDA error (cudaErrorInvalidValue for a misaligned input or
+// a tile past the kernel's buffers).
+int fennec_decode_recon(const void* const* blocks, const long long* img_stride,
+                        const int* bw, const int* hs, const int* vs,
+                        const int* tsel, int ncomp, const void* tables,
+                        int tab_stride, const void* kron, int hmax, int vmax,
+                        int mcus_x, int mcus_y, int h, int w, int mode,
+                        int nimg, int tile_mcus, int tiles_x, int ctas,
+                        void* out, int out_f32, void* stream) {
+  return fennec_decode_recon_oriented(
+      blocks, img_stride, bw, hs, vs, tsel, ncomp, tables, tab_stride, kron,
+      hmax, vmax, mcus_x, mcus_y, h, w, mode, nimg, tile_mcus, tiles_x, ctas,
+      out, out_f32, 1, stream);
 }
 
 }  // extern "C"

@@ -12,7 +12,7 @@ from typing import Optional
 import numpy as np
 
 from .. import device as _device
-from ..exif import Orientation, apply_orientation
+from ..exif import Orientation
 from ..image import analyze_format, to_nrgba, validate_image
 from ..ops.resize import smart_resize
 from ..types import (
@@ -31,7 +31,9 @@ def compress_image_internal(ctx: Optional[Context], img: np.ndarray,
                             orient: Orientation, opts: Options,
                             device: _device.DeviceLike = None) -> Result:
     """The shared pipeline behind every compress entry point
-    (reference fennec.go:107-141)."""
+    (reference fennec.go:107-141).  `img` is upright: a file with an EXIF
+    orientation comes out of its decode turned (api.compress_file, when
+    opts.auto_orient), so the orient stage only records the dimensions."""
     with stage("validate"):
         arr = validate_image(img)
     h, w = arr.shape[:2]
@@ -41,8 +43,7 @@ def compress_image_internal(ctx: Optional[Context], img: np.ndarray,
 
     if opts.auto_orient and int(orient) > int(Orientation.NORMAL):
         with stage("orient"):
-            src = apply_orientation(src, orient)
-        result.original_dimensions = (src.shape[1], src.shape[0])
+            result.original_dimensions = (src.shape[1], src.shape[0])
 
     opts.report_progress(ctx, ProgressStage.RESIZING, 0.1)
 

@@ -44,8 +44,9 @@ def open_and_orient(filename: str,
 
 def open_with_orientation(filename: str, device: _device.DeviceLike = None
                           ) -> Tuple[np.ndarray, Orientation, int]:
-    """(image, orientation, file size) — used by compress_file
-    (reference io.go:65-88).  JPEG transforms run on `device`."""
+    """(image, orientation, file size), the pixels as stored (reference
+    io.go:65-88; api.compress_file reads a file so, but decodes a JPEG
+    that it orients upright).  JPEG transforms run on `device`."""
     with open(filename, "rb") as f:
         data = f.read()
     orient = read_orientation(data)

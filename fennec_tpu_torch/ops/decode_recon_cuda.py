@@ -5,10 +5,12 @@ Replaces the XLA programs _decode_plane_device and _combine_planes_device
 (fennec_tpu/codecs/jpeg.py :702, :715) and decode_jpeg_image_device
 (fennec_tpu/engine/compress.py :556).  At first use on a CUDA tensor the
 source is compiled with nvcc for sm_90a into fennec_tpu_torch/_build/ and
-loaded with ctypes, as K1-K6 are.  Two entries, one count:
+loaded with ctypes, as K1-K6 are.  Two entries:
 
-  decode_recon.frame(blocks, tables, comps, hmax, vmax, h, w, mode)
-      one frame's components (codecs/jpeg._reconstruct) → (h, w, 4) uint8;
+  decode_recon.frame(blocks, tables, comps, hmax, vmax, h, w, mode,
+                     orientation=1)
+      one frame's components (codecs/jpeg._reconstruct) → (h, w, 4) uint8,
+      stored upright for the EXIF orientation ((w, h, 4) for 5-8);
   decode_recon.batch(blocks, qtabs, h, w, in_subsample)
       a (B, NT, 64) chunk of YCbCr JPEGs (engine/compress
       .decode_jpeg_image) → (B, h, w, 4) float32.
@@ -16,14 +18,15 @@ loaded with ctypes, as K1-K6 are.  Two entries, one count:
 CPU tensors go to the plain versions (codecs/jpeg.reconstruct_plain and
 engine/compress.decode_jpeg_image_plain) and count in `plain_calls`; CUDA
 tensors launch the kernel or raise, one launch per call, counted in
-`launches`.  A call on the card checks its inputs, allocates its output
-with one torch.empty and launches on the current stream without
+`launches`.  `oriented` counts the frames decoded at an orientation other
+than 1, on either route.  A call on the card checks its inputs, allocates
+its output with one torch.empty and launches on the current stream without
 synchronising.
 
 tile_plan, stage_copies, conversion_lanes, kmajor_index, register_tile,
-pixel_index and sample_offsets are the kernel's plan in plain Python: the
-wrapper launches with the first, and the CPU tests walk tiles with all of
-them.
+pixel_index, sample_offsets, store_map and colour_units are the kernel's
+plan in plain Python: the wrapper launches with the first and store_map's
+shape, and the CPU tests walk tiles with all of them.
 """
 
 from __future__ import annotations
@@ -151,6 +154,77 @@ def sample_offsets(comp: Component, hmax: int, vmax: int, nm: int):
     return rows, cols
 
 
+# EXIF orientation → (transposes, mirrors the output rows, mirrors its
+# columns): what exif.apply_orientation does to a stored image.
+ORIENTATIONS = {1: (False, False, False), 2: (False, False, True),
+                3: (False, True, True), 4: (False, True, False),
+                5: (True, False, False), 6: (True, False, True),
+                7: (True, True, True), 8: (True, True, False)}
+IDENTITY, FLIP, TRANSPOSE = 0, 1, 2  # the kernel's store paths (csrc Store)
+
+
+class StoreMap(NamedTuple):
+    """Where K7 stores a frame's pixels: pixel (y, x) of the stored h x w
+    image at c0 + y * sy + x * sx of the upright (oh, ow) one; `kind` the
+    kernel's store path."""
+
+    kind: int
+    c0: int
+    sy: int
+    sx: int
+    oh: int
+    ow: int
+
+
+def store_map(orientation: int, h: int, w: int) -> StoreMap:
+    """The kernel's store_map: orientation 1 the identity, 2-4 flips (rows
+    stored coalesced at mirrored addresses), 5-8 transposing."""
+    if orientation not in ORIENTATIONS:
+        raise ValueError(f"fennec: EXIF orientation 1-8, got {orientation}")
+    tr, frow, fcol = ORIENTATIONS[orientation]
+    oh, ow = (w, h) if tr else (h, w)
+    c0 = (oh - 1) * ow * frow + (ow - 1) * fcol
+    ra, rb = -ow if frow else ow, -1 if fcol else 1
+    kind = IDENTITY if orientation == 1 else TRANSPOSE if tr else FLIP
+    return StoreMap(kind, c0, rb if tr else ra, ra if tr else rb, oh, ow)
+
+
+def colour_units(kind: int, trows: int, tcols: int, warp: int):
+    """The pixels (ly, lx) of a tile of trows x tcols that warp `warp`'s
+    lanes colour and store, one list of 32 a warp store (None for an idle
+    lane), in order.  Identity and flips: a pixel row a warp, adjacent
+    columns a lane.  Transposing: units of 8 rows (group g) by 4 columns
+    (cg), lane (8 g + (lane & 7), 4 cg + (lane >> 3)), so that each 8
+    lanes of a column store 8 adjacent pixels of one output row."""
+    warps = THREADS // 32
+    out = []
+    if kind != TRANSPOSE:
+        for ly in range(warp, trows, warps):
+            for lx0 in range(0, tcols, 32):
+                out.append([(ly, lx0 + lane) if lx0 + lane < tcols else None
+                            for lane in range(32)])
+        return out
+    ng = -(-trows // 8)
+    for u in range(warp, ng * -(-tcols // 4), warps):
+        g = u % ng
+        lanes = [(8 * g + (lane & 7), 4 * (u // ng) + (lane >> 3))
+                 for lane in range(32)]
+        out.append([p if p[0] < trows and p[1] < tcols else None
+                    for p in lanes])
+    return out
+
+
+def orient_plain(img: torch.Tensor, orientation: int) -> torch.Tensor:
+    """An (h, w, ...) image upright for its EXIF orientation, as
+    exif.apply_orientation turns it: transposed, then its rows and / or
+    columns mirrored (torch.transpose and torch.flip), contiguous."""
+    tr, frow, fcol = ORIENTATIONS[orientation]
+    if tr:
+        img = img.transpose(0, 1)
+    dims = [d for d, on in ((0, frow), (1, fcol)) if on]
+    return (img.flip(dims) if dims else img).contiguous()
+
+
 def check_frame(blocks, tables, comps, hmax: int, vmax: int, h: int, w: int,
                 mode: str) -> None:
     """Raise unless the frame is one K7 takes: a mode of MODES with its
@@ -227,6 +301,7 @@ class DecodeReconKernel(_Counted):
         self.library = library
         self.build_log = ""
         self.plain_calls = 0
+        self.oriented = 0
         self._lib = None
         self._lock = threading.Lock()
         self._ctas = {}  # device index -> CTAs the card holds at once
@@ -255,6 +330,11 @@ class DecodeReconKernel(_Counted):
                     ctypes.POINTER(p), ctypes.POINTER(ctypes.c_longlong),
                     ints, ints, ints, ints, i, p, i, p, i, i, i, i, i, i, i,
                     i, i, i, i, p, i, p]
+                # A first build (bench_sources/) has no oriented entry.
+                if hasattr(lib, "fennec_decode_recon_oriented"):
+                    lib.fennec_decode_recon_oriented.restype = i
+                    lib.fennec_decode_recon_oriented.argtypes = (
+                        lib.fennec_decode_recon.argtypes[:-1] + [i, p])
                 self._lib = lib
             return self._lib
 
@@ -289,21 +369,29 @@ class DecodeReconKernel(_Counted):
 
     def frame(self, blocks: Sequence[torch.Tensor], tables: torch.Tensor,
               comps: Sequence[Component], hmax: int, vmax: int, h: int,
-              w: int, mode: str) -> torch.Tensor:
+              w: int, mode: str, orientation: int = 1) -> torch.Tensor:
         """One frame: component c's (bw * bh, 64) int16 blocks and row c
         of the (ncomp, 64) integer tables → (h, w, 4) uint8 RGBA on their
-        device."""
+        device, upright for the EXIF `orientation` ((w, h, 4) for 5-8):
+        exif.apply_orientation of the image at orientation 1, bit for
+        bit."""
         comps = [Component(*c) for c in comps]
         dev = blocks[0].device
+        smap = store_map(orientation, h, w)
         if dev.type == "cpu":
-            return self._plain("frame", blocks, tables, comps, hmax, vmax, h,
-                               w, mode)
-        check_frame(blocks, tables, comps, hmax, vmax, h, w, mode)
-        out = torch.empty((h, w, 4), dtype=torch.uint8, device=dev)
-        self._launch(dev, [_aligned(b) for b in blocks], [0] * len(comps),
-                     comps, list(range(len(comps))),
-                     _aligned(tables.to(torch.int32)), 64, hmax, vmax, h,
-                     w, MODES[mode], 1, out, False)
+            out = self._plain("frame", blocks, tables, comps, hmax, vmax, h,
+                              w, mode, orientation)
+        else:
+            check_frame(blocks, tables, comps, hmax, vmax, h, w, mode)
+            out = torch.empty((smap.oh, smap.ow, 4), dtype=torch.uint8,
+                              device=dev)
+            self._launch(dev, [_aligned(b) for b in blocks],
+                         [0] * len(comps), comps, list(range(len(comps))),
+                         _aligned(tables.to(torch.int32)), 64, hmax, vmax, h,
+                         w, MODES[mode], 1, out, False, orientation)
+        if orientation != 1:
+            with self._count_lock:
+                self.oriented += 1
         return out
 
     def batch(self, blocks: torch.Tensor, qtabs: torch.Tensor, h: int,
@@ -332,7 +420,8 @@ class DecodeReconKernel(_Counted):
         return out
 
     def _launch(self, dev, parts, strides, comps, tsel, tabs, tab_stride,
-                hmax, vmax, h, w, mode, nimg, out, out_f32) -> None:
+                hmax, vmax, h, w, mode, nimg, out, out_f32,
+                orientation: int = 1) -> None:
         if dev.type != "cuda":
             raise ValueError(f"fennec: K7 takes CPU or CUDA tensors, got "
                              f"{dev}")
@@ -340,7 +429,7 @@ class DecodeReconKernel(_Counted):
             with torch.cuda.device(dev):
                 return self._launch(dev, parts, strides, comps, tsel, tabs,
                                     tab_stride, hmax, vmax, h, w, mode, nimg,
-                                    out, out_f32)
+                                    out, out_f32, orientation)
         lib = self.load()
         n = len(comps)
         mcus_x, mcus_y = -(-w // (8 * hmax)), -(-h // (8 * vmax))
@@ -349,7 +438,7 @@ class DecodeReconKernel(_Counted):
         def arr(ctype, vals):
             return (ctype * MAX_COMPS)(*vals, *[0] * (MAX_COMPS - n))
 
-        err = lib.fennec_decode_recon(
+        args = (
             arr(ctypes.c_void_p, [p.data_ptr() for p in parts]),
             arr(ctypes.c_longlong, strides),
             arr(ctypes.c_int, [c.bw for c in comps]),
@@ -358,7 +447,12 @@ class DecodeReconKernel(_Counted):
             arr(ctypes.c_int, tsel), n, tabs.data_ptr(), tab_stride,
             _kron_on(dev).data_ptr(), hmax, vmax, mcus_x, mcus_y, h, w, mode,
             nimg, tile, tiles_x, self.ctas(dev), out.data_ptr(),
-            int(out_f32), _stream(dev))
+            int(out_f32))
+        if orientation == 1:
+            err = lib.fennec_decode_recon(*args, _stream(dev))
+        else:
+            err = lib.fennec_decode_recon_oriented(*args, orientation,
+                                                   _stream(dev))
         self.check(err)
         self.count_launch()
 

@@ -1244,6 +1244,79 @@ def test_k7_dc_tie_decodes_to_129(cuda_device):
     assert (got[..., :3] == 129).all() and (got[..., 3] == 255).all()
 
 
+@pytest.mark.parametrize("orientation", range(1, 9))
+@pytest.mark.parametrize("tag,sampling,mode,wh", [
+    ("ycbcr_420_12mp", [(2, 2), (1, 1), (1, 1)], "ycbcr", (4032, 3024)),
+    ("ycbcr_444_1080p", [(1, 1)] * 3, "ycbcr", (1920, 1080))] + [
+    (tag, sampling, mode, wh) for tag, sampling, mode in K7_FRAMES
+    for wh in ((353, 40), (17, 9))])
+def test_k7_oriented_is_apply_orientation_of_identity(
+        cuda_device, orientation, tag, sampling, mode, wh):
+    """K7 at an EXIF orientation stores each pixel upright: its image is
+    orient_plain (exif.apply_orientation) of its image at orientation 1,
+    bit for bit, and the plain route's at the same orientation but at
+    rounding ties."""
+    from fennec_tpu_torch.codecs.jpeg import reconstruct_plain
+    from fennec_tpu_torch.ops.decode_recon_cuda import (
+        decode_recon,
+        orient_plain,
+    )
+
+    cs = chip_smoke()
+    args = cs.k7_synthetic(sampling, mode, *wh, sum(wh) + len(tag),
+                           cuda_device)
+    upright = decode_recon.frame(*args)
+    before = (decode_recon.launches, decode_recon.oriented,
+              decode_recon.plain_calls)
+    got = decode_recon.frame(*args, orientation)
+    assert (decode_recon.launches, decode_recon.oriented,
+            decode_recon.plain_calls) == (
+        before[0] + 1, before[1] + (orientation != 1), before[2])
+    want = orient_plain(upright, orientation)
+    assert got.shape == want.shape and torch.equal(got, want)
+    if max(wh) < 2000:
+        cs.k7_compare(tag, got, reconstruct_plain(*args, orientation),
+                      orient_plain(cs.k7_round_inputs(*args), orientation))
+
+
+def exif_rotated(data: bytes, orientation: int) -> bytes:
+    """A JPEG with an APP1 EXIF segment holding only an orientation tag."""
+    import struct
+
+    tiff = (struct.pack(">2sHIH", b"MM", 42, 8, 1)
+            + struct.pack(">HHIHHI", 0x0112, 3, 1, orientation, 0, 0))
+    payload = b"Exif\x00\x00" + tiff
+    return (data[:2] + b"\xff\xe1" + struct.pack(">H", len(payload) + 2)
+            + payload + data[2:])
+
+
+def test_compress_file_decodes_rotated_files_upright(cuda_device, tmp_path):
+    """compress_file of a rotated JPEG on the card: K7 stores it upright
+    (decode_recon.oriented counts each such call, and only those), the
+    result the CPU's, the image exif.apply_orientation of the stored
+    pixels."""
+    from fennec_tpu_torch.exif import apply_orientation
+    from fennec_tpu_torch.ops.decode_recon_cuda import decode_recon
+
+    data = T.encode_to_bytes(photo(700, 540, 4), T.JPEG, 92, device="cpu")
+    stored = T.codecs.decode_image(data, device=cuda_device)
+    for o in (1, 6, 3, 8, 5):
+        src = tmp_path / f"in{o}.jpg"
+        src.write_bytes(exif_rotated(data, o))
+        before = decode_recon.oriented
+        on_card = T.compress_file(None, str(src), str(tmp_path / "o.jpg"),
+                                  device=cuda_device)
+        assert decode_recon.oriented == before + (o != 1)
+        assert np.array_equal(on_card.image, apply_orientation(stored, o))
+        on_cpu = T.compress_file(None, str(src), str(tmp_path / "c.jpg"),
+                                 device="cpu")
+        assert on_card.jpeg_quality == on_cpu.jpeg_quality
+        assert on_card.original_dimensions == on_cpu.original_dimensions
+    before = decode_recon.oriented
+    T.compress_bytes(None, exif_rotated(data, 6), device=cuda_device)
+    assert decode_recon.oriented == before
+
+
 @pytest.mark.parametrize("sub", [True, False])
 def test_k7_batch_matches_plain_and_decode_jpeg(cuda_device, sub):
     """decode_jpeg_image on the card (K7's batch entry) against its plain

@@ -9,6 +9,9 @@ kernels need: every block or pixel copied once, every span 16-byte aligned
 with a size that is a multiple of 16 and inside its tensor, every (block,
 output) sum held by one lane, and each warp's shared-memory accesses on
 distinct banks or a broadcast (as few wavefronts as their bytes allow).
+K7's colour pass stores at every EXIF orientation (store_map,
+colour_units): every output pixel once at its upright place, a warp store
+in whole 32-byte sectors.
 tests/test_torch_decode_fdct.py walks whole tiles with the same plans
 against the plain versions.
 """
@@ -17,6 +20,7 @@ from collections import Counter
 
 import numpy as np
 import pytest
+import torch
 
 from fennec_tpu_torch.ops import decode_recon_cuda as k7
 from fennec_tpu_torch.ops import forward_dct_cuda as k8
@@ -219,6 +223,103 @@ def test_k7_column_offsets_fit_their_fields():
             assert len(cols) <= k7.MAX_TILE_COLS
             assert max(cols) < min(2 ** 16,
                                    k7.TILE_BLOCKS * k7.PIX_STRIDE), kind
+
+
+# ── K7's stores at an EXIF orientation ─────────────────────────────────────
+
+STORE_SAMPLINGS = ["gray", "444", "422", "420"]
+
+
+def test_k7_store_map_is_apply_orientation():
+    """orient_plain (the CPU route's turn) is exif.apply_orientation bit
+    for bit, and store_map sends pixel (y, x) where orient_plain does, at
+    every orientation."""
+    from fennec_tpu_torch.exif import apply_orientation
+
+    rng = np.random.default_rng(5)
+    for h, w in ((5, 7), (16, 9), (1, 3), (8, 8)):
+        img = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+        idx = torch.arange(h * w).reshape(h, w)
+        ys, xs = np.divmod(np.arange(h * w), w)
+        for o in range(1, 9):
+            want = apply_orientation(img, o)
+            got = k7.orient_plain(torch.from_numpy(img), o).numpy()
+            np.testing.assert_array_equal(got, want)
+            smap = k7.store_map(o, h, w)
+            assert want.shape[:2] == (smap.oh, smap.ow)
+            assert smap.kind == (k7.IDENTITY if o == 1 else
+                                 k7.TRANSPOSE if o >= 5 else k7.FLIP)
+            placed = k7.orient_plain(idx, o).reshape(-1).numpy()
+            at = smap.c0 + ys * smap.sy + xs * smap.sx
+            assert (placed[at] == np.arange(h * w)).all()
+
+
+def k7_oriented_stores(kind: str, h: int, w: int, orientation: int):
+    """(store map, every warp store of the colour pass over every tile of
+    an h x w frame: the frame pixel (y, x) of each lane, None if idle)."""
+    comps, hmax, vmax, mx, my = frame_comps(SAMPLINGS[kind], h, w)
+    tile, tiles_x = k7.tile_plan(comps, mx)
+    smap = k7.store_map(orientation, h, w)
+    stores = []
+    for ty in range(my):
+        for tx in range(tiles_x):
+            y0, x0 = ty * 8 * vmax, tx * tile * 8 * hmax
+            nm = min(tile, mx - tx * tile)
+            trows, tcols = min(8 * vmax, h - y0), min(nm * 8 * hmax, w - x0)
+            for warp in range(WARPS):
+                for lanes in k7.colour_units(smap.kind, trows, tcols, warp):
+                    assert len(lanes) == 32
+                    stores.append([None if p is None else
+                                   (y0 + p[0], x0 + p[1]) for p in lanes])
+    return smap, stores
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+@pytest.mark.parametrize("kind", STORE_SAMPLINGS)
+@pytest.mark.parametrize("hw", [(27, 347), (17, 9), (40, 2100), (48, 64),
+                                (64, 344)])
+def test_k7_oriented_stores_cover_every_pixel_once(orientation, kind, hw):
+    """Every output pixel written exactly once, by the lane holding the
+    frame pixel that orientation puts there; on a frame of whole 8 x 8
+    blocks each warp store fills whole 32-byte sectors (the fewest its
+    bytes need: a run of 8 pixels of one output row per 8 lanes when the
+    orientation transposes)."""
+    h, w = hw
+    smap, stores = k7_oriented_stores(kind, h, w, orientation)
+    want = k7.orient_plain(torch.arange(h * w).reshape(h, w),
+                           orientation).reshape(-1).numpy()
+    written = np.zeros(h * w, np.int64)
+    aligned = h % 8 == 0 and w % 8 == 0
+    for lanes in stores:
+        live = [p for p in lanes if p is not None]
+        assert live, "a warp store with no pixel"
+        at = [smap.c0 + y * smap.sy + x * smap.sx for y, x in live]
+        for (y, x), a in zip(live, at):
+            assert 0 <= y < h and 0 <= x < w
+            assert want[a] == y * w + x
+            written[a] += 1
+        if aligned:
+            assert len({a * 4 // 32 for a in at}) == -(-len(at) // 8)
+    assert (written == 1).all()
+
+
+@pytest.mark.parametrize("kind", STORE_SAMPLINGS)
+def test_k7_transposed_colour_reads(kind):
+    """The transposing colour pass reads each component's samples of a
+    warp's 8 x 4 pixels (rows 8 apart in the pixel buffer) in at most two
+    wavefronts: 8 rows of a block span 64 words, two rounds of the 32
+    banks."""
+    comps, hmax, vmax, mx, _my = frame_comps(SAMPLINGS[kind], 64, 4032)
+    tile, _t = k7.tile_plan(comps, mx)
+    base = k7.slot_base(comps, tile)
+    for warp in range(WARPS):
+        for lanes in k7.colour_units(k7.TRANSPOSE, 8 * vmax,
+                                     tile * 8 * hmax, warp):
+            for c, comp in enumerate(comps):
+                rows, cols = k7.sample_offsets(comp, hmax, vmax, tile)
+                addrs = [base[c] * k7.PIX_STRIDE + rows[ly] + cols[lx]
+                         for ly, lx in lanes]
+                assert wavefronts(addrs, 1) <= 2, kind
 
 
 # ── K8's DCT ────────────────────────────────────────────────────────────────

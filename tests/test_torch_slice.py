@@ -233,19 +233,121 @@ def test_compress_file_matches_jax(photo_jpeg, tmp_path):
     assert out.shape == (400, 600, 4)
 
 
-@pytest.mark.parametrize("orient", [3, 6, 8])
-def test_compress_file_applies_exif_orientation(tmp_path, orient):
+def with_orientation(data: bytes, orient: int) -> bytes:
     from fennec_tpu.exif import write_exif_orientation
+
+    return data[:2] + write_exif_orientation(orient) + data[2:]
+
+
+def pil_progressive_jpeg(img, quality: int = 90) -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img[..., :3], "RGB").save(buf, "JPEG", quality=quality,
+                                              progressive=True)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("orient", [2, 3, 4, 5, 6, 7, 8])
+def test_compress_file_applies_exif_orientation(tmp_path, orient):
+    """The JPEG comes out of its decode upright (compress_file decodes it
+    so), the JAX package's result, and the stored pixels turned by
+    apply_orientation bit for bit."""
+    from fennec_tpu_torch.exif import apply_orientation
 
     data = jax_encode_jpeg(photo_image(96, 64, seed=orient), 90)
     src = tmp_path / "in.jpg"
-    src.write_bytes(data[:2] + write_exif_orientation(orient) + data[2:])
+    src.write_bytes(with_orientation(data, orient))
     rj = J.compress_file(None, str(src), str(tmp_path / "jax.jpg"))
     rt = T.compress_file(None, str(src), str(tmp_path / "port.jpg"),
                          device="cpu")
-    want_dims = (64, 96) if orient in (6, 8) else (96, 64)
+    want_dims = (64, 96) if orient >= 5 else (96, 64)
     assert rt.final_dimensions == rt.original_dimensions == want_dims
     assert_same(rj, rt, rj.image)
+    stored = T.open_image(str(src), device="cpu")
+    np.testing.assert_array_equal(rt.image, apply_orientation(stored, orient))
+
+
+@pytest.mark.parametrize("orient", [5, 6])
+def test_compress_file_orients_a_progressive_jpeg(tmp_path, orient):
+    """A progressive file takes the same upright decode."""
+    from fennec_tpu_torch.exif import apply_orientation
+
+    data = pil_progressive_jpeg(photo_image(88, 56, seed=orient))
+    assert T.codecs.jpeg.is_progressive_jpeg(data)
+    src = tmp_path / "in.jpg"
+    src.write_bytes(with_orientation(data, orient))
+    rj = J.compress_file(None, str(src), str(tmp_path / "jax.jpg"))
+    rt = T.compress_file(None, str(src), str(tmp_path / "port.jpg"),
+                         device="cpu")
+    assert rt.final_dimensions == rt.original_dimensions == (56, 88)
+    assert_same(rj, rt, rj.image)
+    stored = T.open_image(str(src), device="cpu")
+    np.testing.assert_array_equal(rt.image, apply_orientation(stored, orient))
+
+
+def test_compress_file_without_auto_orient_keeps_the_stored_pixels(
+        tmp_path):
+    """auto_orient=False: the stored pixels, unturned, as the JAX
+    package compresses them; no frame decoded at another orientation."""
+    from fennec_tpu_torch.ops.decode_recon_cuda import decode_recon
+
+    data = jax_encode_jpeg(photo_image(96, 64, seed=11), 90)
+    src = tmp_path / "in.jpg"
+    src.write_bytes(with_orientation(data, 6))
+    before = decode_recon.oriented
+    rj = J.compress_file(None, str(src), str(tmp_path / "jax.jpg"),
+                         J.Options(auto_orient=False))
+    rt = T.compress_file(None, str(src), str(tmp_path / "port.jpg"),
+                         T.Options(auto_orient=False), device="cpu")
+    assert decode_recon.oriented == before
+    assert rt.final_dimensions == rt.original_dimensions == (96, 64)
+    assert_same(rj, rt, rj.image)
+    np.testing.assert_array_equal(rt.image,
+                                  T.open_image(str(src), device="cpu"))
+
+
+def test_open_with_orientation_returns_the_stored_pixels(tmp_path):
+    """open_with_orientation and open_image read the orientation but turn
+    nothing: the pixels of the file without its EXIF segment."""
+    data = jax_encode_jpeg(photo_image(96, 64, seed=12), 90)
+    src = tmp_path / "in.jpg"
+    src.write_bytes(with_orientation(data, 6))
+    img, orient, size = T.open_with_orientation(str(src), device="cpu")
+    assert int(orient) == 6 and size == src.stat().st_size
+    assert img.shape == (64, 96, 4)
+    plain = T.codecs.decode_image(data, device="cpu")
+    np.testing.assert_array_equal(img, plain)
+    np.testing.assert_array_equal(T.open_image(str(src), device="cpu"), plain)
+
+
+def test_oriented_counts_only_frames_decoded_at_another_orientation(
+        tmp_path):
+    """decode_recon.oriented: one for each compress_file of a rotated
+    JPEG; none for an upright file, for compress_bytes of a rotated one,
+    or for a PNG."""
+    from fennec_tpu_torch.ops.decode_recon_cuda import decode_recon
+
+    data = jax_encode_jpeg(photo_image(64, 48, seed=13), 90)
+    files = {}
+    for name, payload in (("up.jpg", data),
+                          ("flip.jpg", with_orientation(data, 2)),
+                          ("rot.jpg", with_orientation(data, 6)),
+                          ("normal.jpg", with_orientation(data, 1)),
+                          ("img.png", T.encode_to_bytes(
+                              photo_image(64, 48, seed=13), T.PNG, 0))):
+        files[name] = tmp_path / name
+        files[name].write_bytes(payload)
+    before = decode_recon.oriented
+    for name in ("up.jpg", "normal.jpg", "img.png"):
+        T.compress_file(None, str(files[name]), str(tmp_path / "o"),
+                        device="cpu")
+    T.compress_bytes(None, with_orientation(data, 6), device="cpu")
+    assert decode_recon.oriented == before
+    for name in ("flip.jpg", "rot.jpg", "rot.jpg"):
+        T.compress_file(None, str(files[name]), str(tmp_path / "o"),
+                        device="cpu")
+    assert decode_recon.oriented == before + 3
 
 
 def test_png_alpha_roundtrip_via_compress():
