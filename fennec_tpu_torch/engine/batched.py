@@ -68,6 +68,15 @@ halves the whole chunk.  Target-size buckets and the per-file pool run
 on the mesh's first device, as in the JAX package, which has no mesh
 there.
 
+Stages (utils/profiling.stage): the pixel path's serial passes, once a
+call, "batch prepare" (_prepare) and "batch format" (the AUTO format
+census and the PNG encodes it picks); per chunk "prep" (its host
+tensors filled, on the prep thread) and "device" (the chunk through
+shard_data_call); per item "encode" (on the worker pool).  The prep
+thread and the pool run their work in a copy of the caller's context,
+so a stage timer the caller installed records those stages too; a
+torch.profiler that traces every thread (profile_all_threads) shows each
+as a host range on its own thread.
 FENNEC_DEBUG_BATCH=1 prints to stderr, at the end of each engine call, a
 report of its host stages (prep, device, encode; utils/profiling
 .StageTimer), and the traceback of every chunk that fails.
@@ -92,6 +101,7 @@ The JAX package's fault board, watchdog and other FENNEC_* knobs
 from __future__ import annotations
 
 import collections
+import contextvars
 import os
 import sys
 import threading
@@ -121,7 +131,7 @@ from ..types import (
     Options,
     Result,
 )
-from ..utils.profiling import StageTimer
+from ..utils.profiling import StageTimer, stage
 from .compress import (
     batched_quality_search_quantize,
     compress_png,
@@ -358,12 +368,12 @@ class _Pipeline:
         prep = _timed("prep", prep, self.timer)
         encode = _timed("encode", encode, self.timer)
         try:
-            nxt = prep_exec.submit(prep, chunks[0]) if chunks else None
+            nxt = _submit(prep_exec, prep, chunks[0]) if chunks else None
             for k, ids in enumerate(chunks):
                 if self.ctx is not None:
                     self.ctx.raise_if_done()
                 payload = nxt.result()
-                nxt = (prep_exec.submit(prep, chunks[k + 1])
+                nxt = (_submit(prep_exec, prep, chunks[k + 1])
                        if k + 1 < len(chunks) else None)
                 # Chunk k-1 may still encode while chunk k runs; anything
                 # older must have finished (two chunks in flight).
@@ -371,7 +381,8 @@ class _Pipeline:
                 for sub, out in self._device(ids, payload, device):
                     live = [(j, i) for j, i in enumerate(sub)
                             if i not in self.errors]
-                    futs = [pool.submit(encode, i, out, j) for j, i in live]
+                    futs = [_submit(pool, encode, i, out, j)
+                            for j, i in live]
                     self._ledger.append(([i for _, i in live], futs))
                 self._flush(wait_beyond=None)
             self._flush(wait_beyond=0)
@@ -393,7 +404,8 @@ class _Pipeline:
             return []
         try:
             t0 = time.perf_counter()
-            out = shard_data_call(self.mesh, device, *payload)
+            with stage("device"):
+                out = shard_data_call(self.mesh, device, *payload)
             seconds = time.perf_counter() - t0
             counters.add_time("device", seconds)
             if self.timer is not None:
@@ -450,19 +462,26 @@ class _Pipeline:
                 self.on_chunk(pairs)
 
 
-def _timed(stage: str, fn, timer: Optional[StageTimer] = None):
-    """fn, with its host-clock seconds added to the stage's counter (and
-    to `timer`'s stage when given)."""
+def _timed(name: str, fn, timer: Optional[StageTimer] = None):
+    """fn as the stage `name`, with its host-clock seconds added to the
+    stage's counter (and to `timer`'s stage when given)."""
     def call(*args):
         t0 = time.perf_counter()
         try:
-            return fn(*args)
+            with stage(name):
+                return fn(*args)
         finally:
             seconds = time.perf_counter() - t0
-            counters.add_time(stage, seconds)
+            counters.add_time(name, seconds)
             if timer is not None:
-                timer.add(stage, seconds)
+                timer.add(name, seconds)
     return call
+
+
+def _submit(executor: ThreadPoolExecutor, fn, *args):
+    """executor.submit(fn, *args), run in a copy of the caller's context,
+    so that the caller's stage timer records fn's stages."""
+    return executor.submit(contextvars.copy_context().run, fn, *args)
 
 
 def _target(opts: Options) -> float:
@@ -504,23 +523,25 @@ def compress_images_batched(ctx: Optional[Context],
         return []
     mesh = _device.mesh_or_one(device)
     dev = mesh.devices[0]
-    results, prepped = _prepare(ctx, images, opts, dev)
+    with stage("batch prepare"):
+        results, prepped = _prepare(ctx, images, opts, dev)
     if opts.target_size > 0:
         return _compress_images_targetsize(ctx, results, prepped, opts, dev,
                                            workers, on_chunk, chunk_size,
                                            on_error)
     target = _target(opts)
     buckets: Dict[Tuple[int, int], List[int]] = {}
-    for i, (res, arr) in enumerate(zip(results, prepped)):
-        res.format = analyze_format(arr) if opts.format == Format.AUTO \
-            else opts.format
-        if res.format == Format.PNG:
-            res.compressed_data = compress_png(arr, opts)
-            res.ssim = 1.0
-            res.compressed_size = len(res.compressed_data)
-            res.compute_stats()
-        else:
-            buckets.setdefault(arr.shape[:2], []).append(i)
+    with stage("batch format"):
+        for i, (res, arr) in enumerate(zip(results, prepped)):
+            res.format = analyze_format(arr) if opts.format == Format.AUTO \
+                else opts.format
+            if res.format == Format.PNG:
+                res.compressed_data = compress_png(arr, opts)
+                res.ssim = 1.0
+                res.compressed_size = len(res.compressed_data)
+                res.compute_stats()
+            else:
+                buckets.setdefault(arr.shape[:2], []).append(i)
 
     png_done = [i for i in range(n) if results[i].format == Format.PNG]
     if png_done:

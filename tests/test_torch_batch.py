@@ -181,6 +181,35 @@ def test_block_transform_rows_do_not_depend_on_batch(n):
                            tdct.idct2d_blocks(x)[i])
 
 
+def test_an_input_without_alpha_goes_up_as_rgb():
+    """An RGB input's chunk goes up as RGB, and its results are those of
+    the same pixels given as opaque RGBA."""
+    rgba = [photo(40, 32, s) for s in range(3)]
+    rgb = [x[..., :3].copy() for x in rgba]
+    opts = T.Options(format=T.JPEG)
+    tbatched.counters.reset()
+    want = tbatched.compress_images_batched(None, rgba, opts, device=CPU)
+    assert tbatched.counters.snapshot()["uploaded_bytes"] == 3 * 32 * 40 * 3
+    tbatched.counters.reset()
+    got = tbatched.compress_images_batched(None, rgb, opts, device=CPU)
+    assert tbatched.counters.snapshot()["uploaded_bytes"] == 3 * 32 * 40 * 3
+    for g, w in zip(got, want):
+        assert g.compressed_data == w.compressed_data
+        assert np.array_equal(g.image, w.image)
+
+
+def test_a_transparent_input_goes_up_with_its_alpha():
+    imgs = [photo(40, 32, s)[..., :3].copy() for s in range(2)]
+    clear = photo(40, 32, 7)
+    clear[:4, :4, 3] = 0
+    tbatched.counters.reset()
+    res = tbatched.compress_images_batched(None, imgs + [clear],
+                                           T.Options(format=T.JPEG),
+                                           device=CPU)
+    assert len(res) == 3
+    assert tbatched.counters.snapshot()["uploaded_bytes"] == 3 * 32 * 40 * 4
+
+
 # ── Coefficient path ────────────────────────────────────────────────────────
 
 

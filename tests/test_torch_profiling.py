@@ -6,9 +6,13 @@ into another thread's, nan_check raises the JAX message on NaN and Inf in
 tensors and arrays, and device_trace writes a Chrome trace on the CPU.
 The CLI's -v prints a `Stages:` report with the JAX CLI's stage names and
 the port's own sub-stages on the same file, and FENNEC_DEBUG_BATCH makes the batch engines print
-their stage report and the traceback of a failed chunk.
+their stage report and the traceback of a failed chunk.  The batch
+engines record "batch prepare", "batch format", "prep", "device" and
+"encode" on the caller's ambient timer, from its own thread, the prep
+thread and the encode pool alike, and leave their counters as they were.
 """
 
+import contextvars
 import json
 import threading
 
@@ -252,3 +256,115 @@ def test_debug_batch_prints_a_failed_chunks_traceback(monkeypatch, capsys):
     assert "fennec: chunk marked failed:" in err
     assert "Traceback" in err and "in broken" in err
     assert "illegal memory access" in err
+
+
+# ── The batch engines' stages on the caller's timer ─────────────────────────
+
+
+class ThreadTimer(tprof.StageTimer):
+    """A StageTimer that also notes the thread each stage ran on."""
+
+    def __init__(self):
+        super().__init__()
+        self.threads = {}
+
+    def stage(self, name):
+        with self._lock:
+            self.threads.setdefault(name, set()).add(
+                threading.current_thread().name)
+        return super().stage(name)
+
+
+def rgb_images(n):
+    return [photo(40, 32, s)[..., :3].copy() for s in range(n)]
+
+
+def compress_five(chunk_size=2):
+    """Five images in chunks of two: three chunks."""
+    return tbatched.compress_images_batched(
+        None, rgb_images(5), T.Options(format=T.JPEG), chunk_size=chunk_size,
+        device=CPU)
+
+
+def test_compress_images_records_its_stages_on_the_callers_timer():
+    timer = ThreadTimer()
+    with tprof.use_timer(timer):
+        results = compress_five()
+    assert len(results) == 5
+    assert timer.counts == {"batch prepare": 1, "batch format": 1,
+                            "prep": 3, "device": 3, "encode": 5}
+    main = threading.current_thread().name
+    for name in ("batch prepare", "batch format", "device"):
+        assert timer.threads[name] == {main}, name
+    assert main not in timer.threads["prep"]
+    assert main not in timer.threads["encode"]
+
+
+def test_compress_images_in_another_context_records_nothing():
+    """The stages go to the ambient timer of the call's own context: a
+    call made in a fresh context records nothing into the caller's."""
+    timer = tprof.StageTimer()
+    with tprof.use_timer(timer):
+        results = contextvars.Context().run(compress_five)
+    assert len(results) == 5 and timer.counts == {}
+    assert tprof._active.get() is None
+
+
+def test_the_timer_leaves_the_batch_counters_as_they_were():
+    snaps = []
+    for timer in (None, tprof.StageTimer()):
+        tbatched.counters.reset()
+        if timer is None:
+            compress_five()
+        else:
+            with tprof.use_timer(timer):
+                compress_five()
+        snaps.append(tbatched.counters.snapshot())
+    off, on = snaps
+    for key in ("routes", "chunk_items", "uploaded_bytes", "events"):
+        assert off[key] == on[key], key
+    assert off["chunk_items"] == [2, 2, 1]
+    assert set(off["stage_seconds"]) == set(on["stage_seconds"]) == {
+        "prep", "device", "encode"}
+
+
+def test_compress_batch_records_the_coefficient_pipelines_stages(tmp_path):
+    datas = [T.encode_to_bytes(photo(48, 32, s), T.JPEG, 92, device=CPU)
+             for s in range(4)]
+    items = []
+    for i, data in enumerate(datas):
+        src = tmp_path / f"in{i}.jpg"
+        src.write_bytes(data)
+        items.append(T.BatchItem(src=str(src),
+                                 dst=str(tmp_path / f"out{i}.jpg")))
+    timer = ThreadTimer()
+    tbatched.counters.reset()
+    with tprof.use_timer(timer):
+        res = T.compress_batch(None, items, T.BatchOptions(
+            fused=True, default_opts=T.Options(format=T.JPEG)), device=CPU)
+    assert all(r.err is None for r in res)
+    snap = tbatched.counters.snapshot()
+    assert snap["routes"] == {"coefficient": 4}
+    chunks = len(snap["chunk_items"])
+    assert timer.counts == {"prep": chunks, "device": chunks, "encode": 4}
+    assert threading.current_thread().name not in timer.threads["encode"]
+
+
+def test_a_profiler_sees_the_batch_stages_on_their_threads():
+    """A profiler that traces every thread holds each stage as a host
+    range on the thread that ran it."""
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU],
+                 experimental_config=_ExperimentalConfig(
+                     profile_all_threads=True)) as prof:
+        compress_five()
+    threads = {}
+    for e in prof.events():
+        threads.setdefault(e.name, set()).add(e.thread)
+    for name in ("batch prepare", "batch format", "prep", "device",
+                 "encode"):
+        assert name in threads, name
+    assert threads["prep"].isdisjoint(threads["batch prepare"])
+    assert threads["encode"].isdisjoint(threads["batch prepare"])
