@@ -2,7 +2,7 @@
 them.
 
     python3 chip_smoke.py [--k2 | --k3 | --k5 | --digests | --mesh | --wire
-                           | --k7k8]
+                           | --k7k8 | --k9]
 
 With no argument, every phase below; it needs one card.  --k2 runs
 phases 1 and 2, K2's part of phase 3 and the size oracle's checks of
@@ -16,8 +16,9 @@ and the emission in turns); --digests prints digests of a few main-path
 outputs, to compare two checkouts on one card, each call also on K7's
 and K8's plain versions (the route before them) with every difference
 traced to a tie; --mesh runs phases 1, 2, 14 and 15 alone; --wire runs
-phases 1, 2 and 17 alone; --k7k8 runs phases 1, 2 and 18 alone.  None
-of these prints the result lines.
+phases 1, 2 and 17 alone; --k7k8 runs phases 1, 2 and 18 alone; --k9
+runs phase 1, the builds of K9, K7 and the host coder, and phase 19
+alone.  None of these prints the result lines.
 
 Phases, each raising on failure:
   1. environment: a CUDA card, its name and power limit, TF32 off;
@@ -251,14 +252,31 @@ Phases, each raising on failure:
      of (N, 64) x (64, 64), a part of the function) at K7's 12 MP, 1080p
      4:4:4 and 64 x 500x500, K8's 12 MP, 64 x 500x500 and band; K7 at
      orientations 1, 6 and 3 in turns at 12 MP 4:2:0 and 1080p 4:4:4.
+ 19. (run after phase 18) K9, the Huffman decode on the card (phase_k9;
+     --k9 alone), against the host C++ decoder bit for bit on k9_cases
+     (4:2:0, 4:4:4, gray and 4-component Adobe frames; restart intervals
+     0, 1 and 7; 1024-, 64- and 32-bit subsequences; 1x1, 17x9 and
+     500x500) and on photos at 12 MP, 1080p, 500x500, 256x256 and 64x64
+     (1024- and 256-bit subsequences), flag 0 and one launch each; a
+     corrupt 12 MP scan raises the flag, counts a corrupt fallback and
+     decode_jpeg raises the host decoder's ValueError.  Then, in turns
+     with the host decoder (host, K9, K9, host) at those five sizes: K9's
+     device µs by kernel (torch.profiler), CUDA-event ms (the copy up and
+     the chain), host µs a call, the host decoder's ms, the bound (bytes:
+     the scan read, the blocks written) and share; the 12 MP CUDA-event ms
+     by subsequence length (K9_SWEEP); a build with -DK9_STAMPS at 12 MP
+     (cycles a symbol of each subsequence's first decode, its symbols,
+     the CTA's iterations and cycles in round 0); and decode_jpeg through
+     the host route and the K9 route in turns at K9_ROUTE_SIZES, which
+     sets MIN_BLOCKS.
 
 The last lines: the kernel table as JSON (K1's, K2's, K3a's, K3b's, K5's
 and K4's step's and bisection's launches summed over the main-path runs of
 phases 4, 6-8 and 10, each counted from 0; K4's step, now the
 bisection's yardstick, launches 0 times there; K6's per layout over those
 runs and phase 17's; K7's and K8's, with phase 18's timings and tie
-counts),
-the card's name and power limit as nvidia-smi reports them, and {"ok":
+counts; K9's
+with phase 19's), the card's name and power limit as nvidia-smi reports them, and {"ok":
 true, "device": {...}}.  Images are made from numpy seeds; nothing is
 fetched.  Without a CUDA card the script fails before printing any
 result.
@@ -570,8 +588,8 @@ def count_bisections() -> None:
 
 
 def k3_zero() -> None:
-    """Set K2's, K3's, K4's, K5's and K6's counts and the bisections to
-    0."""
+    """Set K2's, K3's, K4's, K5's, K6's, K7's, K8's and K9's counts and
+    the bisections to 0."""
     from fennec_tpu_torch.ops import jpeg_emit_cuda as k3
     from fennec_tpu_torch.ops.huffbuild_cuda import build_tables
     from fennec_tpu_torch.ops.probe_recon_cuda import probe_recon
@@ -580,6 +598,8 @@ def k3_zero() -> None:
     K6Launches().launches = 0
     for w in k78_wrappers().values():
         w.launches = 0
+    k9_wrapper().launches = 0
+    K9_FALLBACKS_AT.update(k9_wrapper().fallbacks)
 
     k3.block_stats.launches = 0
     k3.deposit.launches = 0
@@ -624,6 +644,9 @@ def k3_take(tag: str, dev, emissions: int, bisections: int = 0,
     if main:
         for k, n in k78.items():
             K78_MAIN[k] += n
+        K9_MAIN["huffman_decode"] += k9_wrapper().launches
+        for reason, n in k9_wrapper().fallbacks.items():
+            K9_MAIN_FALLBACKS[reason] += n - K9_FALLBACKS_AT[reason]
     if (main and dev.type == "cuda" and probes
             and not (k78["forward_dct"] and k78["luminance"])):
         raise AssertionError(f"{tag}: a search on the card launched K8 "
@@ -4475,6 +4498,402 @@ def k7_frame(data: bytes, dev):
             frame.height, frame.width, J.jpeg_color_mode(frame))
 
 
+# ── K9 (the Huffman decode on the card) ─────────────────────────────────────
+
+# Frames of K9's cases: each component's (h, v, table class) and the APP
+# marker (None: JFIF; an int: Adobe APP14 with that transform).
+K9_FRAMES = {"420": ([(2, 2, 0), (1, 1, 1), (1, 1, 1)], None),
+             "444": ([(1, 1, 0), (1, 1, 1), (1, 1, 1)], None),
+             "gray": ([(1, 1, 0)], None),
+             "adobe4": ([(1, 1, 0), (1, 1, 1), (1, 1, 1), (1, 1, 0)], 2)}
+# The sizes, restart intervals and subsequence bits K9 is held to the host
+# decoder at, the small ones in full and 500x500 on a few of each.
+K9_SMALL = [(1, 1), (17, 9)]
+K9_RESTARTS = [0, 1, 7]
+K9_SUB_BITS = [1024, 64, 32]
+K9_BIG = [(0, 1024), (7, 64)]
+
+
+def _dct_matrix() -> np.ndarray:
+    k = np.arange(8)
+    c = np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / 16) / 2
+    c[0] /= np.sqrt(2)
+    return c
+
+
+def k9_levels(plane: np.ndarray, bw: int, bh: int, qtab) -> np.ndarray:
+    """(bw * bh, 64) int32 quantized levels of an (H, W) float plane,
+    edge-padded to its block grid, raster order."""
+    ph, pw = bh * 8, bw * 8
+    p = np.pad(plane[:ph, :pw], ((0, max(0, ph - plane.shape[0])),
+                                 (0, max(0, pw - plane.shape[1]))),
+               mode="edge") - 128.0
+    blocks = p.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3)
+    c = _dct_matrix()
+    coef = np.einsum("ij,yxjk,lk->yxil", c, blocks, c).reshape(-1, 64)
+    return np.round(coef / np.asarray(qtab, np.float64)).astype(np.int32)
+
+
+def k9_jpeg(kind: str, w: int, h: int, restart: int, seed: int,
+            quality: int = 92, value: int | None = None) -> bytes:
+    """A baseline single-scan JPEG of `kind` (K9_FRAMES) at w x h: a photo's
+    planes (YCbCr, or its channels), each at its sampling, through an
+    8x8 DCT and the Annex K tables at `quality`, coded by the host C++
+    encoder with `restart` MCUs an interval (RSTn markers).  `value`: a
+    flat grey of that level instead of the photo (a periodic scan, in
+    which a guessed state may never find the MCU position)."""
+    from fennec_tpu_torch import native
+    from fennec_tpu_torch.codecs import jpeg as J
+    from fennec_tpu_torch.codecs.entropy_py import ComponentSpec
+    from fennec_tpu_torch.ops import dct as dct_ops
+
+    layout, adobe = K9_FRAMES[kind]
+    rgb = (photo(w, h, seed, fine=8.0)[..., :3].astype(np.float64)
+           if value is None else np.full((h, w, 3), float(value)))
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    planes = [y, 128 - 0.168736 * r - 0.331264 * g + 0.5 * b,
+              128 + 0.5 * r - 0.418688 * g - 0.081312 * b, 255 - y]
+    qtabs = dct_ops.all_quality_tables()[quality]
+    hmax = max(c[0] for c in layout)
+    vmax = max(c[1] for c in layout)
+    mx, my = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    comps = []
+    for i, (ch, cv, cls) in enumerate(layout):
+        fy, fx = vmax // cv, hmax // ch
+        p = np.pad(planes[i], ((0, (-h) % fy), (0, (-w) % fx)), mode="edge")
+        p = p.reshape(p.shape[0] // fy, fy, p.shape[1] // fx, fx).mean((1, 3))
+        bw, bh = mx * ch, my * cv
+        comps.append(ComponentSpec(k9_levels(p, bw, bh, qtabs[cls]), bw, bh,
+                                   ch, cv, chroma=bool(cls)))
+    scan = native.jpeg_encode_scan(comps, restart)
+    sof = struct.pack(">BHHB", 8, h, w, len(layout))
+    sos = bytes([len(layout)])
+    for i, (ch, cv, cls) in enumerate(layout):
+        sof += bytes([i + 1, ch << 4 | cv, cls])
+        sos += bytes([i + 1, cls << 4 | cls])
+    sos += bytes([0, 63, 0])
+    app = (J._APP0_JFIF if adobe is None else J._marker(
+        0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, adobe)))
+    dri = J._marker(0xDD, struct.pack(">H", restart)) if restart else b""
+    return (J._marker(0xD8) + app + J._dqt_segment(qtabs)
+            + J._marker(0xC0, sof) + J._dht_segment() + dri
+            + J._marker(0xDA, sos) + scan + J._marker(0xD9))
+
+
+def k9_case_specs():
+    """(tag, frame, w, h, restart interval, sub_bits, seed) of every case
+    K9 is held to the host decoder at: each frame at K9_SMALL sizes, every
+    restart interval and subsequence length; at 500x500 at K9_BIG's; the
+    4:2:0 frame at 500x500 with restart interval 1 and 32-bit
+    subsequences."""
+    out = []
+    for kind in K9_FRAMES:
+        for w, h in K9_SMALL:
+            for ri in K9_RESTARTS:
+                out += [(f"{kind}_{w}x{h}_ri{ri}_s{sb}", kind, w, h, ri, sb,
+                         w * 31 + h + ri) for sb in K9_SUB_BITS]
+        out += [(f"{kind}_500x500_ri{ri}_s{sb}", kind, 500, 500, ri, sb,
+                 500 + ri) for ri, sb in K9_BIG]
+    out.append(("420_500x500_ri1_s32", "420", 500, 500, 1, 32, 501))
+    return out
+
+
+def k9_cases():
+    """(tag, JPEG, sub_bits) of k9_case_specs, the files made."""
+    return [(tag, k9_jpeg(kind, w, h, ri, seed), sb)
+            for tag, kind, w, h, ri, sb, seed in k9_case_specs()]
+
+
+def k9_host(data: bytes):
+    """(header, decode specs, mcus_x, mcus_y) of a single-scan JPEG, and
+    the host C++ decoder's blocks."""
+    from fennec_tpu_torch import native
+    from fennec_tpu_torch.codecs import jpeg as J
+
+    hdr = J.parse_jpeg(data)
+    mx, my, _, _, specs = J._build_decode_specs(hdr)
+    blocks, _ = native.jpeg_decode_scan(data, hdr.scan_offset, specs,
+                                        hdr.restart_interval)
+    return hdr, specs, mx, my, blocks
+
+
+def k9_wrapper():
+    from fennec_tpu_torch.ops.huffman_decode_cuda import huffman_decode
+
+    return huffman_decode
+
+
+# K9's kernels, as the profiler names them.
+K9_KERNELS = ("count_kernel", "prefix_kernel", "unstuff_kernel",
+              "sync_kernel", "scan_kernel", "write_kernel")
+# K9's launches on the main path (phases 4, 6-8 and 10), each call counted
+# from 0 like K7's, and its fallbacks there by reason.
+K9_MAIN = {"huffman_decode": 0}
+K9_MAIN_FALLBACKS = {"corrupt": 0, "no_sync": 0, "small": 0}
+K9_FALLBACKS_AT = dict(K9_MAIN_FALLBACKS)
+K9_SIZES = [("12mp_420", 4032, 3024), ("1080p_420", 1920, 1080),
+            ("500x500_420", 500, 500), ("256x256_420", 256, 256),
+            ("64x64_420", 64, 64)]
+K9_SWEEP = [128, 256, 512, 1024, 2048]
+# decode_jpeg through both routes at these 4:2:0 sizes: where the host
+# route wins, K9's MIN_BLOCKS keeps it.
+K9_ROUTE_SIZES = [(128, 128), (192, 192), (256, 256), (320, 320),
+                  (384, 384), (448, 448), (500, 500), (640, 480),
+                  (1920, 1080), (4032, 3024)]
+
+
+def k9_check(tag: str, data: bytes, dev, sub_bits: int) -> int:
+    """K9's blocks of one file against the host decoder's, bit for bit;
+    flag 0; one launch.  Returns the largest absolute difference of a
+    coefficient."""
+    k9 = k9_wrapper()
+    hdr, specs, mx, my, want = k9_host(data)
+    before = k9.launches
+    dec = k9.decode(data, hdr.scan_offset, specs, mx, my,
+                    hdr.restart_interval, dev, sub_bits)
+    got = [b.cpu().numpy() for b in dec.blocks]
+    torch.cuda.synchronize()
+    err = max(int(np.abs(g.astype(np.int32) - w).max(initial=0))
+              for g, w in zip(got, want))
+    if dec.flag() or k9.launches != before + 1:
+        raise AssertionError(f"K9 {tag}: flag {dec.flag()}, launches "
+                             f"{k9.launches - before}")
+    for c, (g, w) in enumerate(zip(got, want)):
+        if not np.array_equal(g, w):
+            bad = int(np.count_nonzero(g != w))
+            raise AssertionError(f"K9 {tag}: component {c}: {bad} "
+                                 f"coefficients differ from the host "
+                                 f"decoder's")
+    return err
+
+
+def k9_bound_ms(data: bytes, hdr, blocks: int) -> float:
+    """The bytes bound: the scan read once, every block written once."""
+    return (len(data) - hdr.scan_offset + 128 * blocks) / HBM_BYTES_PER_S * 1e3
+
+
+def time_k9(tag: str, data: bytes, dev, iters: int, sub_bits: int = 1024):
+    """K9 and the host decoder on one file, in turns (host, K9, K9, host):
+    K9's device ms by kernel (torch.profiler), its CUDA-event ms (the
+    copy up and the chain), its host µs per call, the host decoder's ms;
+    the bound and the share."""
+    from fennec_tpu_torch import native
+
+    k9 = k9_wrapper()
+    hdr, specs, mx, my, _ = k9_host(data)
+    nblocks = sum(s.bw * s.bh for s in specs)
+
+    def dev_call():
+        return k9.decode(data, hdr.scan_offset, specs, mx, my,
+                         hdr.restart_interval, dev, sub_bits)
+
+    def host_call():
+        native.jpeg_decode_scan(data, hdr.scan_offset, specs,
+                                hdr.restart_interval)
+
+    def host_ms():
+        host_call()
+        t = time.perf_counter()
+        for _ in range(iters):
+            host_call()
+        return (time.perf_counter() - t) / iters * 1e3
+
+    def device_split():
+        rows, _ = profiled_rows(dev_call, iters, "write_kernel")
+        if rows is None:
+            return None, {}
+        calls = sum(e.count for e in rows if "write_kernel" in e.key)
+        split = {name: round(sum(device_us(e) for e in rows
+                                 if name in e.key) / calls, 2)
+                 for name in K9_KERNELS}
+        split["copies"] = round(sum(device_us(e) for e in rows
+                                    if not any(n in e.key
+                                               for n in K9_KERNELS))
+                                / calls, 2)
+        return sum(v for k, v in split.items() if k != "copies") / 1e3, split
+
+    turns = []
+    for who in ("host", "k9", "k9", "host"):
+        if who == "host":
+            turns.append(("host", host_ms()))
+        else:
+            ms, split = device_split()
+            turns.append(("k9", ms, split, cuda_ms(dev_call, iters),
+                          host_us(dev_call, iters)))
+    k9t = [t for t in turns if t[0] == "k9"]
+    kernel_ms = min(t[1] for t in k9t if t[1] is not None) if any(
+        t[1] is not None for t in k9t) else None
+    bound = k9_bound_ms(data, hdr, nblocks)
+    out = {"shape": [nblocks, 64], "scan_bytes": len(data) - hdr.scan_offset,
+           "ms": kernel_ms, "split_us": k9t[-1][2],
+           "event_ms": [round(t[3], 4) for t in k9t],
+           "host_us": [round(t[4], 1) for t in k9t],
+           "host_decoder_ms": [round(t[1], 3) for t in turns
+                               if t[0] == "host"],
+           "bound_ms": bound, "bound_by": "bytes",
+           "share": None if kernel_ms is None else bound / kernel_ms}
+    log(f"K9 {tag}: " + json.dumps(out))
+    return out
+
+
+def k9_stamped(tag: str, data: bytes, dev, sub_bits: int = 1024) -> dict:
+    """K9 built with -DK9_STAMPS (clock64() stamps of the sync's round 0)
+    on one file: cycles a symbol of each subsequence's first decode, the
+    symbols it decoded, the CTA's iterations in round 0 and the cycles of
+    round 0, as quantiles over the subsequences."""
+    import ctypes
+
+    from fennec_tpu_torch.ops import huffman_decode_cuda as K
+    from fennec_tpu_torch.ops.ssim_cuda import compile_library
+
+    so = os.path.join(K.BUILD_DIR, "libhuffman_decode_stamped.so")
+    if not os.path.exists(so):
+        compile_library(K.SOURCE, so, list(K.NVCC_FLAGS) + ["-DK9_STAMPS"])
+    k9 = K.HuffmanDecodeKernel(K.SOURCE, so)
+    lib = k9.load()
+    lib.fennec_k9_stamps.restype = ctypes.c_int
+    lib.fennec_k9_stamps.argtypes = [ctypes.c_void_p]
+    hdr, specs, mx, my, _ = k9_host(data)
+    dec = k9.decode(data, hdr.scan_offset, specs, mx, my,
+                    hdr.restart_interval, dev, sub_bits)
+    torch.cuda.synchronize()
+    if dec.flag():
+        raise AssertionError(f"K9 stamped {tag}: flag {dec.flag()}")
+    stamps = np.zeros((1 << 15, 4), np.int64)
+    if lib.fennec_k9_stamps(stamps.ctypes.data):
+        raise RuntimeError("K9 stamps: copy failed")
+    nsub = len(dec.blocks) and int(np.ceil(
+        (len(data) - hdr.scan_offset) * 8 / sub_bits))
+    st = stamps[:min(1 << 15, nsub)]
+    st = st[st[:, 1] > 0]
+    per = st[:, 0] / st[:, 1]
+
+    def q(x):
+        return [round(float(v), 1) for v in np.percentile(x, [10, 50, 90,
+                                                              100])]
+
+    out = {"subsequences": int(len(st)), "cycles_a_symbol": q(per),
+           "symbols": q(st[:, 1]), "iterations": q(st[:, 2]),
+           "round0_cycles": q(st[:, 3])}
+    log(f"K9 stamped {tag}: " + json.dumps(out))
+    return out
+
+
+def k9_decode_turns(T, data: bytes, dev, reps: int):
+    """decode_jpeg's wall ms through the host route and the K9 route, in
+    turns (host, K9, K9, host), the median of reps calls each."""
+    from fennec_tpu_torch.codecs import jpeg as J
+
+    from fennec_tpu_torch.ops import huffman_decode_cuda as K
+
+    def wall(on_device: bool):
+        keep = J._scan_on_device, K.MIN_BLOCKS
+        J._scan_on_device = (lambda d: on_device)
+        K.MIN_BLOCKS = 0
+        try:
+            J.decode_jpeg(data, dev)
+            times = []
+            for _ in range(reps):
+                t = time.perf_counter()
+                J.decode_jpeg(data, dev)
+                times.append((time.perf_counter() - t) * 1e3)
+        finally:
+            J._scan_on_device, K.MIN_BLOCKS = keep
+        return round(float(np.median(times)), 3)
+
+    turns = [wall(on) for on in (False, True, True, False)]
+    return {"host": [turns[0], turns[3]], "k9": turns[1:3]}
+
+
+def phase_k9(T, dev, timed: bool = True) -> dict:
+    """Phase 19: K9 against the host decoder on k9_cases, on photos at
+    12 MP, 1080p, 500x500, 256x256 and 64x64 and on a flat 12 MP grey (bit
+    for bit, flag 0); a corrupt scan raising the flag; then its timings in turns with the host
+    decoder, the subsequence sweep at 12 MP, and decode_jpeg through both
+    routes at every size."""
+    from fennec_tpu_torch.codecs import jpeg as J
+
+    k9 = k9_wrapper()
+    t0 = time.perf_counter()
+    cases = k9_cases()
+    err = max(k9_check(tag, data, dev, sb) for tag, data, sb in cases)
+    log(f"K9: {len(cases)} cases bit for bit with the host decoder "
+        f"({time.perf_counter() - t0:.1f} s)")
+    files = {tag: T.encode_to_bytes(photo(w, h, SEED + w), T.JPEG, 92,
+                                    device=dev)
+             for tag, w, h in K9_SIZES}
+    for tag, data in files.items():
+        for sb in (1024, 256, 32):
+            err = max(err, k9_check(f"{tag}_s{sb}", data, dev, sb))
+    # A flat grey: a periodic scan in which guesses never find the MCU
+    # position, so the sync's rounds cross every CTA.
+    flat = k9_jpeg("420", 4032, 3024, 0, SEED, value=77)
+    err = max(err, k9_check("12mp_420_flat", flat, dev, 1024))
+    big = files["12mp_420"]
+    hdr = J.parse_jpeg(big)
+    n = len(big) - 2 - hdr.scan_offset
+    bad = big[:hdr.scan_offset + n // 2] + b"\xff\x00" * 40 + big[
+        hdr.scan_offset + n // 2 + 80:]
+    before = dict(k9.fallbacks)
+    try:
+        J.decode_jpeg(bad, dev)
+        raise AssertionError("K9: a corrupt 12 MP scan decoded")
+    except ValueError as e:
+        if "corrupt JPEG scan" not in str(e):
+            raise
+    if k9.fallbacks["corrupt"] != before["corrupt"] + 1:
+        raise AssertionError(f"K9: fallbacks {before} -> {k9.fallbacks}")
+    log("K9: a corrupt 12 MP scan raised the flag and the host decoder's "
+        "ValueError")
+    out = {"max_abs_err": err}
+    if not timed:
+        return out
+    for tag, _, _ in K9_SIZES:
+        out[tag] = time_k9(tag, files[tag], dev, 20 if "12mp" in tag else 50)
+    sweep = {}
+    for sb in K9_SWEEP:
+        out["max_abs_err"] = max(out["max_abs_err"],
+                                 k9_check(f"12mp_420_s{sb}", big, dev, sb))
+        hdr_, specs, mx, my, _ = k9_host(big)
+        sweep[sb] = round(cuda_ms(lambda: k9.decode(
+            big, hdr_.scan_offset, specs, mx, my, 0, dev, sb), 20), 4)
+    out["sweep_event_ms"] = sweep
+    out["stamped"] = k9_stamped("12mp_420", big, dev)
+    log("K9 12 MP CUDA-event ms by sub_bits: " + json.dumps(sweep))
+    routes = {}
+    for w, h in K9_ROUTE_SIZES:
+        data = T.encode_to_bytes(photo(w, h, SEED + w), T.JPEG, 92,
+                                 device=dev)
+        hdr = J.parse_jpeg(data)
+        blocks = sum(s.bw * s.bh for s in J._build_decode_specs(hdr)[4])
+        routes[f"{w}x{h}_{blocks}_blocks"] = k9_decode_turns(
+            T, data, dev, 9 if w * h > 4e6 else 30)
+    out["decode_jpeg_ms"] = routes
+    log("K9 decode_jpeg wall ms, host route / K9 route in turns: "
+        + json.dumps(routes))
+    return out
+
+
+def k9_only(T, dev) -> int:
+    """`--k9`: phase 1, the builds K9's phase needs (K9, K7, the host
+    coder) and phase 19 alone."""
+    from fennec_tpu_torch import native
+    from fennec_tpu_torch.ops.decode_recon_cuda import decode_recon
+
+    k9 = k9_wrapper()
+    t = time.perf_counter()
+    k9.build(force=True)
+    log(f"build k9_nvcc_s={time.perf_counter() - t:.3f}")
+    log(f"K9 nvcc -Xptxas -v: {k9.build_log.strip()}")
+    decode_recon.load()
+    native.load()
+    k9.load()
+    log("K9 summary: " + json.dumps(phase_k9(T, dev)))
+    log("k9 only: every case passed")
+    return 0
+
+
 def k7_synthetic(sampling, mode: str, w: int, h: int, seed: int, dev):
     """Random quantized blocks of a frame (sparse AC; a fifth of the
     blocks an odd DC alone at a table entry of 4, every pixel of those at
@@ -5308,6 +5727,8 @@ def main(only: str = "") -> int:
     count_bisections()
     if only == "digests":  # kernels build at first use
         return digests_only(T, dev)
+    if only == "k9":
+        return k9_only(T, dev)
     first_k3, first_k2, first_k5, stamped, first_k6, first_k78 = build_all(
         ssim_window, k3, k2.probe_recon)
     if only == "k3":
@@ -5339,6 +5760,8 @@ def main(only: str = "") -> int:
     # 18. K7 and K8 against their plain versions, before the main path
     # runs through them.
     k78_times, k78_counts = phase_k7k8(T, dev, first=first_k78)
+    # 19. K9 against the host decoder, timed in turns with it.
+    k9_times = phase_k9(T, dev)
 
     # 4. The main path.
     big = photo(4032, 3024, SEED)
@@ -5464,6 +5887,15 @@ def main(only: str = "") -> int:
                              f"layout must run (photos as COO, noise as "
                              f"dense int8, FENNEC_UPLOAD=csr as CSR)")
     log(f"main path launches of K7 and K8 (phases 4, 6-8, 10): {K78_MAIN}")
+    log(f"main path launches of K9 (phases 4, 6-8, 10): {K9_MAIN}, "
+        f"fallbacks {K9_MAIN_FALLBACKS}")
+    if not K9_MAIN["huffman_decode"]:
+        raise AssertionError("the main path never launched K9: every 12 MP "
+                             "decode on the card is K9's")
+    if K9_MAIN_FALLBACKS["corrupt"] or K9_MAIN_FALLBACKS["no_sync"]:
+        raise AssertionError(f"the main path handed K9's blocks back to the "
+                             f"host decoder {K9_MAIN_FALLBACKS}: its files "
+                             f"are sound, so every launch must keep them")
     if not all(K78_MAIN.values()):
         raise AssertionError(f"the main path launched K7 / K8 {K78_MAIN}: "
                              f"every decode on the card is K7, every forward "
@@ -5685,6 +6117,25 @@ def main(only: str = "") -> int:
         k3_rows.append(row)
     k3_rows[-1]["ties"] = {k: v for k, v in k78_counts.items()
                            if k.startswith("k8_") and "max" not in k}
+    # K9 (phase 19): timed at 12 MP; 1080p and 500x500 beside.
+    k9t = k9_times["12mp_420"]
+    k3_rows.append({
+        "name": "huffman_decode", "route": "cuda",
+        "source": os.path.relpath(k9_wrapper().source, HERE),
+        # No TPU kernel: the JAX package decodes scans on the host.
+        "replaces": "fennec_tpu/native/entropy.cpp:498 (host C++)",
+        "launches": K9_MAIN["huffman_decode"],
+        # Against the host decoder's blocks over phase 19's checks.
+        "max_abs_err": k9_times["max_abs_err"], "shape": k9t["shape"],
+        "ms": k9t["ms"],
+        "plain_ms": None, "bound_ms": k9t["bound_ms"],
+        "bound_by": k9t["bound_by"], "share": k9t["share"],
+        # No PyTorch call decodes Huffman codes.
+        "library_ms": None, "event_ms": k9t["event_ms"],
+        "host_us": k9t["host_us"], "split_us": k9t["split_us"],
+        "host_decoder_ms": k9t["host_decoder_ms"],
+        "others": {c: k9_times[c] for c in ("1080p_420", "500x500_420")},
+        "decode_jpeg_ms": k9_times["decode_jpeg_ms"]})
     t = times[(1, 384, 512)]
     k2t = k2_times["12mp_420_q30"]
     print(json.dumps({"kernels": [{
@@ -5741,7 +6192,7 @@ def main(only: str = "") -> int:
 if __name__ == "__main__":
     flags = {"--k2": "k2", "--k3": "k3", "--k5": "k5",
              "--digests": "digests", "--mesh": "mesh", "--wire": "wire",
-             "--k7k8": "k7k8"}
+             "--k7k8": "k7k8", "--k9": "k9"}
     if len(sys.argv) > 2 or (len(sys.argv) == 2
                              and sys.argv[1] not in flags):
         raise SystemExit(f"usage: python3 chip_smoke.py [{' | '.join(flags)}]")

@@ -4,7 +4,8 @@ native entropy coding.
 Counterpart of fennec_tpu/codecs/jpeg.py.
   encode: host uint8 → device [colour convert → 4:2:0 subsample → block
           DCT → quantize] → host C++ Huffman coding (native.py).
-  decode: host marker parse + C++ Huffman decode → quantized coefficients →
+  decode: host marker parse → Huffman decode (kernel K9 on a card for a
+          single-scan frame, else the host C++) → quantized coefficients →
           device [dequantize → IDCT → chroma upsample → YCbCr→RGB → clamp].
 
 Decode covers gray, YCbCr, Adobe RGB, CMYK and YCCK frames: baseline
@@ -23,8 +24,9 @@ import torch
 from .. import device as _device
 from .. import native
 from ..ops import dct as dct_ops
-from ..ops import forward_dct_cuda
+from ..ops import forward_dct_cuda, huffman_decode_cuda
 from ..ops.decode_recon_cuda import decode_recon, orient_plain
+from ..ops.huffman_decode_cuda import huffman_decode
 from ..ops.color import clamp_u8, rgb_to_ycbcr, ycbcr_to_rgb
 from ..types import UnsupportedFormatError
 from ..utils.profiling import stage
@@ -381,16 +383,17 @@ def _build_decode_specs(hdr: JpegHeader):
     return mcus_x, mcus_y, hmax, vmax, specs
 
 
-def decode_jpeg_to_coefs(data: bytes):
+def decode_jpeg_to_coefs(data: bytes, hdr: Optional[JpegHeader] = None):
     """Decode a baseline JPEG to quantized coefficients.
 
     Returns (hdr, coefs): coefs[i] is an (nblocks, 64) int16 array in
     natural order for component i of the frame; block grids tile the MCU
     lattice.  Handles the common single interleaved scan and multi-scan
     files (one scan per component, as Go's stdlib also decodes), both
-    through the C++ scan decoder.
+    through the C++ scan decoder.  `hdr`, if given, is parse_jpeg(data)
+    not yet used by another decode.
     """
-    hdr = parse_jpeg(data)
+    hdr = parse_jpeg(data) if hdr is None else hdr
     mcus_x, mcus_y, hmax, vmax, specs = _build_decode_specs(hdr)
     if len(hdr.scan_comps) != hdr.ncomp:
         return _decode_multiscan_to_coefs(data, hdr, mcus_x, mcus_y,
@@ -608,7 +611,52 @@ def decode_jpeg(data: bytes, device: _device.DeviceLike = None,
     if is_progressive_jpeg(data):
         return _decode_progressive(data, dev, orientation)
     with stage("huffman decode"):
-        hdr, coefs = decode_jpeg_to_coefs(data)
+        hdr = parse_jpeg(data) if _scan_on_device(dev) else None
+        dec = _device_scan(data, hdr, dev) if hdr is not None else None
+        if dec is None:
+            hdr, coefs = decode_jpeg_to_coefs(data, hdr)
+    if dec is None:
+        return _reconstruct_frame(hdr, coefs, dev, orientation)
+    try:
+        img = _reconstruct_frame(hdr, dec.blocks, dev, orientation)
+    except Exception:
+        # With K9's blocks the host decoder's, the host route raises the
+        # same; otherwise it decides below.
+        if not dec.flag():
+            raise
+    if dec.flag():
+        # K9 met an anomaly in the scan: the host decoder returns or
+        # raises what it always did.
+        with stage("huffman decode"):
+            hdr, coefs = decode_jpeg_to_coefs(data)
+        img = _reconstruct_frame(hdr, coefs, dev, orientation)
+    return img
+
+
+def _scan_on_device(dev: torch.device) -> bool:
+    """Whether a single-scan frame's Huffman decode runs on `dev`: K9 on
+    a card; the CPU keeps the host decoder."""
+    return dev.type == "cuda"
+
+
+def _device_scan(data: bytes, hdr: JpegHeader, dev: torch.device):
+    """K9's Decoded for a single-scan frame, or None: the host decoder
+    then decodes it (a multi-scan file, a frame of fewer than MIN_BLOCKS
+    blocks, or what K9 leaves to the host).  The header is judged as the
+    host route judges it: _build_decode_specs here, the rest by
+    _reconstruct_frame once the blocks are there."""
+    if len(hdr.scan_comps) != hdr.ncomp:
+        return None
+    mcus_x, mcus_y, _, _, specs = _build_decode_specs(hdr)
+    if sum(s.bw * s.bh for s in specs) < huffman_decode_cuda.MIN_BLOCKS:
+        huffman_decode.count_fallback("small")
+        return None
+    return huffman_decode.decode(data, hdr.scan_offset, specs, mcus_x,
+                                 mcus_y, hdr.restart_interval, dev)
+
+
+def _reconstruct_frame(hdr: JpegHeader, coefs, dev: torch.device,
+                       orientation: int) -> np.ndarray:
     hmax = max(c["h"] for c in hdr.comps)
     vmax = max(c["v"] for c in hdr.comps)
     mcus_x = -(-hdr.width // (8 * hmax))
@@ -634,22 +682,29 @@ def _decode_progressive(data: bytes, dev: torch.device,
 def _reconstruct(comps, qtables, coefs, hmax: int, vmax: int, frame,
                  dev: torch.device, orientation: int = 1) -> np.ndarray:
     """Quantized coefficients of every component (dicts with h, v, tq,
-    bw, bh) → (H, W, 4) uint8 on the host, upright for the EXIF
-    `orientation`, the transforms on `dev` (kernel K7 on a card,
-    reconstruct_plain on the CPU).  `frame` carries the dimensions and
-    colour markers (a JpegHeader or a ProgressiveDecoder).
+    bw, bh; host arrays, or tensors already on `dev`) → (H, W, 4) uint8 on
+    the host, upright for the EXIF `orientation`, the transforms on `dev`
+    (kernel K7 on a card, reconstruct_plain on the CPU).  `frame` carries
+    the dimensions and colour markers (a JpegHeader or a
+    ProgressiveDecoder).
 
-    Stages: "blocks up" is the blocks' and tables' copy to `dev`;
-    "image down" is K7's launch and the copy of its image to the host,
-    which waits for K7, so K7's device time falls inside it."""
+    Stages: "blocks up" is the host blocks' and the tables' copy to `dev`
+    (the tables' alone after K9: from pinned memory, so it waits for
+    nothing queued); "image down" is K7's launch and the copy of its image
+    to the host, which waits for K7 and whatever K9 left queued before it,
+    so their device time falls inside it."""
     for c in comps:
         if c["tq"] not in qtables:
             raise ValueError("fennec: corrupt JPEG: missing DQT")
     mode = jpeg_color_mode(frame)
-    tabs = np.stack([qtables[c["tq"]] for c in comps]).astype(np.int32)
+    tabs = torch.from_numpy(
+        np.stack([qtables[c["tq"]] for c in comps]).astype(np.int32))
     with stage("blocks up"):
-        blocks = [torch.from_numpy(q).to(dev) for q in coefs]
-        tables = torch.from_numpy(tabs).to(dev)
+        blocks = [q if isinstance(q, torch.Tensor)
+                  else torch.from_numpy(q).to(dev) for q in coefs]
+        if dev.type == "cuda":
+            tabs = tabs.pin_memory()
+        tables = tabs.to(dev, non_blocking=True)
     with stage("image down"):
         out = decode_recon.frame(
             blocks, tables,

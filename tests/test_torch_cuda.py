@@ -10,6 +10,7 @@ the bound the JAX package holds its Pallas kernel to.
 """
 
 import functools
+import pathlib
 
 import numpy as np
 import pytest
@@ -1542,3 +1543,178 @@ def test_stages_are_host_ranges_only_in_a_card_trace(cuda_device):
               if e.device_type == torch.autograd.DeviceType.CUDA}
     assert stages <= host
     assert not stages & device, stages & device
+
+
+# ── K9 (the Huffman decode on the card) ─────────────────────────────────────
+
+K9_SPECS = chip_smoke().k9_case_specs()
+
+
+def k9_decode(data: bytes, dev, sub_bits: int = 1024):
+    """K9's Decoded of a single-scan JPEG, and the host decoder's
+    blocks."""
+    from fennec_tpu_torch.ops.huffman_decode_cuda import huffman_decode
+
+    hdr, specs, mx, my, want = chip_smoke().k9_host(data)
+    dec = huffman_decode.decode(data, hdr.scan_offset, specs, mx, my,
+                                hdr.restart_interval, dev, sub_bits)
+    return dec, want
+
+
+def assert_k9_is_the_host_decoder(data: bytes, dev, sub_bits: int = 1024):
+    from fennec_tpu_torch.ops.huffman_decode_cuda import huffman_decode
+
+    before = huffman_decode.launches
+    dec, want = k9_decode(data, dev, sub_bits)
+    got = [b.cpu().numpy() for b in dec.blocks]
+    assert dec.flag() == 0
+    assert huffman_decode.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == np.int16 and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("tag,kind,w,h,ri,sub_bits,seed", K9_SPECS,
+                         ids=[s[0] for s in K9_SPECS])
+def test_k9_is_the_host_decoder(cuda_device, tag, kind, w, h, ri, sub_bits,
+                                seed):
+    """K9 on every frame (4:2:0, 4:4:4, gray, 4-component Adobe), size,
+    restart interval (0, 1, 7) and subsequence length (1024, 64, 32): the
+    host decoder's blocks bit for bit, flag 0, one launch."""
+    data = chip_smoke().k9_jpeg(kind, w, h, ri, seed)
+    assert_k9_is_the_host_decoder(data, cuda_device, sub_bits)
+
+
+@pytest.mark.parametrize("w,h,sub_bits", [(4032, 3024, 1024),
+                                          (1920, 1080, 32)])
+def test_k9_converges_on_a_flat_frame(cuda_device, w, h, sub_bits):
+    """A flat grey 4:2:0 frame, whose periodic scan guesses never
+    synchronise in: the sync's launches carry the exact state across
+    every CTA, so K9 keeps its blocks (flag 0, no fallback), the host
+    decoder's bit for bit."""
+    from fennec_tpu_torch.ops.huffman_decode_cuda import huffman_decode
+
+    fallbacks = dict(huffman_decode.fallbacks)
+    data = chip_smoke().k9_jpeg("420", w, h, 0, 5, value=77)
+    assert_k9_is_the_host_decoder(data, cuda_device, sub_bits)
+    assert huffman_decode.fallbacks == fallbacks
+
+
+def benchmark_photos(dev, orientation: int):
+    """The photo12mp cells' eight files: the benchmark's photos and its
+    own JPEG writer (4032x3024, Q92, 4:2:0), at an EXIF orientation."""
+    import sys
+
+    root = str(pathlib.Path(__file__).resolve().parent.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from gpubench.harness import jpeg, plain
+    from gpubench.harness.photo import photos
+
+    imgs = photos(8, 4032, 3024, 4200000011, dev, 3.0)
+    for i in range(imgs.shape[0]):
+        levels = plain.quantize(plain.forward(imgs[i, ..., :3], "float64"),
+                                92)
+        yield jpeg.write(levels, 4032, 3024, 92,
+                         orientation if orientation != 1 else None)
+
+
+@pytest.mark.parametrize("orientation", [1, 6])
+def test_k9_decodes_the_benchmark_photos(cuda_device, orientation,
+                                         monkeypatch):
+    """The eight photo12mp files: K9's blocks are the host decoder's, and
+    decode_jpeg's image through K9 the host route's, bit for bit."""
+    from fennec_tpu_torch.codecs import jpeg as J
+    from fennec_tpu_torch.ops.huffman_decode_cuda import huffman_decode
+
+    for data in benchmark_photos(cuda_device, orientation):
+        assert_k9_is_the_host_decoder(data, cuda_device)
+        before = huffman_decode.launches
+        got = J.decode_jpeg(data, cuda_device, orientation)
+        assert huffman_decode.launches == before + 1
+        with monkeypatch.context() as m:
+            m.setattr(J, "_scan_on_device", lambda dev: False)
+            want = J.decode_jpeg(data, cuda_device, orientation)
+        assert huffman_decode.launches == before + 1
+        assert got.shape == want.shape and np.array_equal(got, want)
+
+
+def test_compress_file_decodes_through_k9_alone(cuda_device, tmp_path,
+                                                 monkeypatch):
+    """compress_file of a 12 MP photo with the host scan decoder patched
+    to raise: one K9 launch a call, no fallback, the result the
+    unpatched call's."""
+    from fennec_tpu_torch import native
+    from fennec_tpu_torch.ops.huffman_decode_cuda import huffman_decode
+
+    data = next(benchmark_photos(cuda_device, 1))
+    src = tmp_path / "in.jpg"
+    src.write_bytes(data)
+    want = T.compress_file(None, str(src), str(tmp_path / "a.jpg"),
+                           device=cuda_device)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the host scan decoder ran")
+
+    monkeypatch.setattr(native, "jpeg_decode_scan", refuse)
+    fallbacks = dict(huffman_decode.fallbacks)
+    for _ in range(2):
+        before = huffman_decode.launches
+        got = T.compress_file(None, str(src), str(tmp_path / "b.jpg"),
+                              device=cuda_device)
+        assert huffman_decode.launches == before + 1
+        assert got.compressed_data == want.compressed_data
+    assert huffman_decode.fallbacks == fallbacks
+
+
+@pytest.mark.parametrize("name", ["progressive_1280x720.jpg",
+                                  "multiscan_1280x720.jpg"])
+def test_progressive_and_multiscan_keep_the_host_route_on_the_card(
+        cuda_device, name):
+    from fennec_tpu_torch.codecs import jpeg as J
+    from fennec_tpu_torch.ops.huffman_decode_cuda import huffman_decode
+
+    path = pathlib.Path(__file__).resolve().parent / "torch_fixtures" / name
+    before = (huffman_decode.launches, dict(huffman_decode.fallbacks))
+    J.decode_jpeg(path.read_bytes(), cuda_device)
+    assert (huffman_decode.launches, huffman_decode.fallbacks) == before
+
+
+def test_k9_corrupt_scans_fall_back_as_before(cuda_device, monkeypatch):
+    """An invalid code raises the flag (one launch, one corrupt fallback)
+    and decode_jpeg raises the host decoder's ValueError; a truncated scan
+    falls back and decodes to the host route's image."""
+    from fennec_tpu_torch.codecs import jpeg as J
+    from fennec_tpu_torch.ops.huffman_decode_cuda import huffman_decode
+
+    good = chip_smoke().k9_jpeg("420", 500, 500, 0, 3)
+    hdr = J.parse_jpeg(good)
+    n = len(good) - 2 - hdr.scan_offset
+    cut = hdr.scan_offset + n // 2
+    bad = good[:cut] + b"\xff\x00" * 40 + good[cut + 80:]
+    before = (huffman_decode.launches, huffman_decode.fallbacks["corrupt"])
+    with pytest.raises(ValueError, match="corrupt JPEG scan"):
+        J.decode_jpeg(bad, cuda_device)
+    assert (huffman_decode.launches,
+            huffman_decode.fallbacks["corrupt"]) == (before[0] + 1,
+                                                     before[1] + 1)
+    short = good[:cut] + good[-2:]
+    got = J.decode_jpeg(short, cuda_device)
+    assert huffman_decode.fallbacks["corrupt"] == before[1] + 2
+    with monkeypatch.context() as m:
+        m.setattr(J, "_scan_on_device", lambda dev: False)
+        want = J.decode_jpeg(short, cuda_device)
+    assert np.array_equal(got, want)
+
+
+def test_frames_below_min_blocks_keep_the_host_route(cuda_device):
+    from fennec_tpu_torch.codecs import jpeg as J
+    from fennec_tpu_torch.ops import huffman_decode_cuda as K9
+
+    data = chip_smoke().k9_jpeg("420", 96, 64, 0, 8)  # 96 blocks
+    assert K9.MIN_BLOCKS > 96
+    before = (K9.huffman_decode.launches, K9.huffman_decode.fallbacks["small"])
+    J.decode_jpeg(data, cuda_device)
+    assert (K9.huffman_decode.launches,
+            K9.huffman_decode.fallbacks["small"]) == (before[0],
+                                                      before[1] + 1)
